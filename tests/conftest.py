@@ -38,3 +38,8 @@ def run_devices(script: str, n_devices: int = 8, timeout: int = 900) -> str:
 @pytest.fixture
 def subproc():
     return run_devices
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
