@@ -9,24 +9,42 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
    the build time and the card's name and power limit;
-2. hold each kernel bit-exact against its plain torch version on the card
-   (N in {1, 4095, 4097, 12289, 21875000}, P in {1, 23, 32}, batch
-   {1, 3}, plane offsets {0, 4, 20}) and time kernel and plain version at
-   the Hurricane-Isabel finest-piece shape (CUDA events, median);
+2. hold each of the five kernels bit-exact against its plain torch version
+   on the card (N in {1, 4095, 4097, 12289, 21875000}, P in {1, 23, 32},
+   batch {1, 3}, plane offsets {0, 4, 20}) and time kernel and plain
+   version at the Hurricane-Isabel finest-piece shape (CUDA events,
+   median);
 3. refactor the full Isabel-shaped field (100, 500, 500) float32 on the card,
    serialize and deserialize it, and progressively retrieve it over the
    relative tolerances 1e-1 .. 1e-6, requiring max|x - x_hat| <= bound at
    every step and non-decreasing cumulative bytes; the kernels' launch
-   counters are zeroed just before and read just after, and each must be
-   > 0;
+   counters are zeroed just before and read just after, and the
+   ``register_block`` pair's must be > 0;
 4. a (64, 128, 128) slice refactored on the card and on the CPU must give
    byte-identical wire blobs and bit-identical reconstructions at three
    tolerances;
 5. warm write and read-ladder times (the warm blob must equal the first);
 6. only with ``--profile``: the same write and ladder under
    ``torch.profiler``: stage wall times, device busy time, the bitplane
-   kernels' device time and the top ops.  This takes about two minutes.
+   kernels' device time and the top ops.  This takes about two minutes;
+7. QoI-controlled retrieval (Algorithm 3) over Hurricane Isabel's U, V, W
+   at (100, 500, 500) each, refactored on the card with
+   ``design="locality"`` (U also with ``"shuffle"``, whose segments must be
+   byte-identical): CP, MA and MAPE each on fresh readers, tau 1e-2 then
+   1e-4, requiring the actual V_total error (float64, on the card) <= the
+   estimate, the estimate <= tau when converged, and non-decreasing bytes;
+   then card == CPU results on a (48, 48, 48) velocity field;
+8. the chunked pipeline, ``design="shuffle"``, on the NYX-shaped field
+   (512, 512, 512) in 8 chunks of 2**24 values: pipelined and serial writes
+   must give identical blobs, pipelined and serial reads identical values
+   within the tolerance; the plain backend on the card must write the same
+   blobs and read the same values (the kernels held against their plain
+   versions at the pipeline's own shapes and batches); then card == CPU
+   chunk blobs on a (64, 128, 128) field for both new designs.
 
+Phases 7 and 8 zero the launch counters before they start and require the
+``locality``/``shuffle`` kernels' counts to be > 0 after their full-size
+runs.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -43,11 +61,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 ISABEL_SHAPE = (100, 500, 500)
+NYX_SHAPE = (512, 512, 512)    # data.fields.DATASETS["nyx"]
 FINEST_N = 21_875_000          # finest detail piece of the Isabel field
 MAG_BITS = 23
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 16.7e12      # 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 TOLS = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5, 1e-6)
+QOI_TAUS = (1e-2, 1e-4)
+QOI_METHODS = {"cp": {}, "ma": {}, "mape": {"c": 10.0}}
+PIPE_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -98,9 +120,26 @@ def done(t0: float, name: str) -> None:
 
 # ---------------------------------------------------------------- phase 2 --
 
-def kernels_vs_plain(torch, bp, ref):
+def kernel_specs(bp, ref):
+    """Per format: its plain encode and decode, its encode kernels and its
+    decode kernel, each as (name, wrapper, replaced TPU kernel)."""
+    tpu = "src/repro/kernels/bitplane.py"
+    return {
+        "register_block": (
+            ref.encode_register_block, ref.decode_register_block,
+            [("rb_encode", bp.encode_register_block_cuda, f"{tpu}:74")],
+            ("rb_decode", bp.decode_register_block_cuda, f"{tpu}:96")),
+        "locality": (
+            ref.encode_locality, ref.decode_locality,
+            [("loc_encode", bp.encode_locality_cuda, f"{tpu}:121"),
+             ("shuffle_encode", bp.encode_shuffle_cuda, f"{tpu}:144")],
+            ("loc_decode", bp.decode_locality_cuda, f"{tpu}:130")),
+    }
+
+
+def kernels_vs_plain(torch, specs):
     """Bit-exact comparisons on the card (these launches are not counted as
-    main-path launches: the counters are reset before phase 3)."""
+    main-path launches: the counters are reset before phases 3, 7 and 8)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     n_cases = 0
     for n in (1, 4095, 4097, 12289, FINEST_N):
@@ -109,61 +148,60 @@ def kernels_vs_plain(torch, bp, ref):
                 x = torch.randint(-2 ** 31, 2 ** 31, (b, n), generator=g,
                                   dtype=torch.int64, device="cuda"
                                   ).to(torch.int32)
-                want = ref.encode(x, p)
-                got = bp.encode_register_block_cuda(x, p)
-                check(torch.equal(got, want), f"encode n={n} P={p} B={b}")
-                n_cases += 1
-                for off in sorted({min(o, p - 1) for o in (0, 4, 20)}):
-                    for rows in sorted({1, min(4, p - off), p - off}):
-                        pl = want[:, off:off + rows].contiguous()
-                        dw = ref.decode(pl, p - off, n)
-                        got = bp.decode_register_block_cuda(pl, p - off, n)
-                        check(torch.equal(got, dw),
-                              f"decode n={n} P={p} B={b} off={off} "
-                              f"rows={rows}")
+                for fmt, (enc, dec, encoders, (dname, dfn, _)) in \
+                        specs.items():
+                    want = enc(x, p)
+                    for name, fn, _ in encoders:
+                        check(torch.equal(fn(x, p), want),
+                              f"{name} n={n} P={p} B={b}")
                         n_cases += 1
+                    for off in sorted({min(o, p - 1) for o in (0, 4, 20)}):
+                        for rows in sorted({1, min(4, p - off), p - off}):
+                            pl = want[:, off:off + rows].contiguous()
+                            check(torch.equal(dfn(pl, p - off, n),
+                                              dec(pl, p - off, n)),
+                                  f"{dname} n={n} P={p} B={b} off={off} "
+                                  f"rows={rows}")
+                            n_cases += 1
     torch.cuda.synchronize()
     return n_cases
 
 
-def kernel_timings(torch, bp, ref):
-    """Kernel vs plain time at the main path's finest-piece shapes."""
+def kernel_timings(torch, specs):
+    """Kernel vs plain time at the main path's finest-piece shapes, for
+    every kernel; rows keyed (kernel, case)."""
     x = torch.randint(0, 2 ** MAG_BITS, (1, FINEST_N), dtype=torch.int32,
                       device="cuda")
-    planes = bp.encode_register_block_cuda(x, MAG_BITS)
-    words = planes.shape[2]
-    group = planes[:, :4].contiguous()
     rows = {}
 
-    def enc_case(name, p):
-        out = bp.encode_register_block_cuda(x, p)
-        err = (out.to(torch.int64) - ref.encode(x, p).to(torch.int64)
-               ).abs().max().item()
-        nbytes = 4 * FINEST_N + 4 * p * words
-        ops = 16 * 32 * words  # 5-stage butterfly on 32 words per lane
-        rows[name] = dict(
-            ms=time_ms(lambda: bp.encode_register_block_cuda(x, p)),
-            plain_ms=time_ms(lambda: ref.encode(x, p), reps=3, inner=1,
-                             warmup=1),
-            bytes=nbytes, ops=ops, max_abs_err=err)
+    def err(a, b):
+        return (a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
 
-    def dec_case(name, pl, total):
-        out = bp.decode_register_block_cuda(pl, total, FINEST_N)
-        err = (out.to(torch.int64) - ref.decode(pl, total, FINEST_N)
-               .to(torch.int64)).abs().max().item()
-        nbytes = 4 * pl.shape[1] * words + 4 * FINEST_N
+    for fmt, (enc, dec, encoders, (dname, dfn, _)) in specs.items():
+        planes = enc(x, MAG_BITS)
+        words = planes.shape[2]
+        group = planes[:, :4].contiguous()
+        # the bit transpose of a 5-stage butterfly, ~512 integer ops per 32
+        # words, is the least work any of the formats needs
         ops = 16 * 32 * words
-        rows[name] = dict(
-            ms=time_ms(lambda: bp.decode_register_block_cuda(pl, total,
-                                                             FINEST_N)),
-            plain_ms=time_ms(lambda: ref.decode(pl, total, FINEST_N),
-                             reps=3, inner=1, warmup=1),
-            bytes=nbytes, ops=ops, max_abs_err=err)
-
-    enc_case("encode 23 planes", MAG_BITS)
-    enc_case("encode 1 sign plane", 1)
-    dec_case("decode 4-plane group", group, MAG_BITS)
-    dec_case("decode 23 planes", planes, MAG_BITS)
+        for case, p in (("encode 23 planes", MAG_BITS),
+                        ("encode 1 sign plane", 1)):
+            want = enc(x, p)
+            plain_ms = time_ms(lambda: enc(x, p), reps=3, inner=1, warmup=1)
+            for name, fn, _ in encoders:
+                rows[(name, case)] = dict(
+                    ms=time_ms(lambda: fn(x, p)), plain_ms=plain_ms,
+                    bytes=4 * FINEST_N + 4 * p * words, ops=ops,
+                    max_abs_err=err(fn(x, p), want))
+        for case, pl in (("decode 4-plane group", group),
+                         ("decode 23 planes", planes)):
+            want = dec(pl, MAG_BITS, FINEST_N)
+            rows[(dname, case)] = dict(
+                ms=time_ms(lambda: dfn(pl, MAG_BITS, FINEST_N)),
+                plain_ms=time_ms(lambda: dec(pl, MAG_BITS, FINEST_N),
+                                 reps=3, inner=1, warmup=1),
+                bytes=4 * pl.shape[1] * words + 4 * FINEST_N, ops=ops,
+                max_abs_err=err(dfn(pl, MAG_BITS, FINEST_N), want))
     copy_dst = torch.empty_like(x)
     copy_ms = time_ms(lambda: copy_dst.copy_(x))
     for r in rows.values():
@@ -175,6 +213,20 @@ def kernel_timings(torch, bp, ref):
 
 
 # ---------------------------------------------------------------- phase 3 --
+
+def read_launches(bp, required, what: str):
+    """Every kernel's launch count since the last reset; the ``required``
+    ones must be > 0."""
+    launches = {"rb_encode": bp.encode_register_block_cuda.launches,
+                "rb_decode": bp.decode_register_block_cuda.launches,
+                "loc_encode": bp.encode_locality_cuda.launches,
+                "shuffle_encode": bp.encode_shuffle_cuda.launches,
+                "loc_decode": bp.decode_locality_cuda.launches}
+    print(f"{what}: {launches}", flush=True)
+    for k in required:
+        check(launches[k] > 0, f"kernel {k} was not launched ({what})")
+    return launches
+
 
 def main_path(torch, bp, rf, rt, x_np):
     from repro_torch.core import lossless_batch as lb
@@ -215,11 +267,8 @@ def main_path(torch, bp, rf, rt, x_np):
         print(f"retrieve rel tol {tol:g}: {dt:.3f} s, bound {bound:.6g}, "
               f"max err {err:.6g}, +{fetched} B, cumulative {cum} B, "
               f"{st.host_syncs} host sync(s)", flush=True)
-    launches = {"rb_encode": bp.encode_register_block_cuda.launches,
-                "rb_decode": bp.decode_register_block_cuda.launches}
-    print(f"main-path launches: {launches}", flush=True)
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    launches = read_launches(bp, ("rb_encode", "rb_decode"),
+                             "main-path launches")
     return launches, blob
 
 
@@ -333,6 +382,190 @@ def card_vs_cpu(torch, rf, rt, x_np):
           f"3 tolerances bit-identical", flush=True)
 
 
+# ---------------------------------------------------------------- phase 7 --
+
+def qoi_phase(torch, bp):
+    """Algorithm 3 over Isabel's three velocity components, at full size."""
+    from repro_torch.core import lossless_batch as lb
+    from repro_torch.core import qoi as qq
+    from repro_torch.core import refactor as rf
+    from repro_torch.core import retrieve as rt
+    from repro_torch.data.fields import velocity_field
+
+    t0 = time.perf_counter()
+    vs = velocity_field(ISABEL_SHAPE, seed=0)
+    print(f"velocity field 3 x {ISABEL_SHAPE}: "
+          f"{time.perf_counter() - t0:.2f} s to make", flush=True)
+    bp.reset_launches()
+    t0 = time.perf_counter()
+    refs = [rf.refactor_array(v, n, design="locality", device="cuda")
+            for v, n in zip(vs, "UVW")]
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    wire = [len(rf.refactored_to_bytes(r)) for r in refs]
+    print(f"refactor U, V, W (locality, first call): {t_write:.3f} s, "
+          f"{3 * vs[0].nbytes / t_write / 1e9:.3f} GB/s, wire bytes {wire}",
+          flush=True)
+    shuf = rf.refactor_array(vs[0], "U", design="shuffle", device="cuda")
+    check(shuf.design == "shuffle", "shuffle blob names another design")
+    for pa, pb in zip(refs[0].pieces, shuf.pieces):
+        for sa, sb in zip((pa.sign_seg, *pa.groups),
+                          (pb.sign_seg, *pb.groups)):
+            check(sa.to_bytes() == sb.to_bytes(),
+                  "shuffle and locality segments differ")
+    print("U refactored with shuffle: every segment byte-identical to "
+          "locality's", flush=True)
+
+    truth = sum(torch.from_numpy(v).cuda().double() ** 2 for v in vs)
+    for method, kw in QOI_METHODS.items():
+        readers = [rt.ProgressiveReader(r, device="cuda") for r in refs]
+        cum = 0
+        for tau in QOI_TAUS:
+            t0 = time.perf_counter()
+            with lb.stats_scope() as st:
+                res = qq.progressive_qoi_retrieve(readers, qq.V_TOTAL, tau,
+                                                  method=method, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = sum(torch.from_numpy(v).cuda().double() ** 2
+                      for v in res.values)
+            actual = (got - truth).abs().max().item()
+            check(actual <= res.tau_estimated,
+                  f"{method} tau {tau}: actual {actual} > estimate "
+                  f"{res.tau_estimated}")
+            check(not res.converged or res.tau_estimated <= tau,
+                  f"{method} tau {tau}: converged above tau")
+            total = sum(r.total_bytes_fetched for r in readers)
+            check(total >= cum, f"{method}: cumulative bytes decreased")
+            cum = total
+            print(f"qoi {method} tau {tau:g}: {res.iterations} iterations, "
+                  f"converged {res.converged}, bitrate {res.bitrate:.4f}, "
+                  f"+{res.bytes_fetched} B (cumulative {cum} B), estimate "
+                  f"{res.tau_estimated:.6g}, actual {actual:.6g}, "
+                  f"{wall:.3f} s, {st.host_syncs / res.iterations:.2f} host "
+                  f"syncs per iteration", flush=True)
+    launches = read_launches(bp, ("loc_encode", "shuffle_encode",
+                                  "loc_decode"), "QoI-path launches")
+
+    small = velocity_field((48, 48, 48), seed=1)
+    blobs = {d: [rf.refactored_to_bytes(rf.refactor_array(
+        v, n, design="locality", device=d)) for v, n in zip(small, "UVW")]
+        for d in ("cuda", "cpu")}
+    check(blobs["cuda"] == blobs["cpu"], "card and CPU QoI blobs differ")
+    for method, kw in QOI_METHODS.items():
+        out = {}
+        for d in ("cuda", "cpu"):
+            readers = [rt.ProgressiveReader(rf.refactored_from_bytes(b),
+                                            device=d) for b in blobs["cpu"]]
+            out[d] = [qq.progressive_qoi_retrieve(readers, qq.V_TOTAL, tau,
+                                                  method=method, **kw)
+                      for tau in QOI_TAUS]
+        for a, b in zip(out["cuda"], out["cpu"]):
+            check((a.iterations, a.bytes_fetched, a.converged, a.eps_final,
+                   a.tau_estimated, a.per_iteration)
+                  == (b.iterations, b.bytes_fetched, b.converged,
+                      b.eps_final, b.tau_estimated, b.per_iteration),
+                  f"{method}: card and CPU QoI results differ")
+            check(all(x.tobytes() == y.tobytes()
+                      for x, y in zip(a.values, b.values)),
+                  f"{method}: card and CPU QoI values differ")
+    print("card == CPU on the (48, 48, 48) velocity field: cp, ma, mape "
+          f"identical at tau {QOI_TAUS}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8 --
+
+def print_spans(tr, what: str) -> None:
+    """Total host wall per tracer span name (spans on the prefetch and
+    feeder threads overlap the main thread's)."""
+    spans = tr.summary()["spans"]
+    print(f"{what} spans: " + ", ".join(
+        f"{k} {v['count']}x {v['total_s']:.3f} s"
+        for k, v in sorted(spans.items())), flush=True)
+
+
+def pipeline_phase(torch, bp):
+    """The chunked write and read pipelines on the NYX-shaped field."""
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.data.fields import gaussian_field
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+
+    t0 = time.perf_counter()
+    x = gaussian_field(NYX_SHAPE, slope=-1.8, seed=0)
+    print(f"field {NYX_SHAPE}: {time.perf_counter() - t0:.2f} s to make",
+          flush=True)
+    kw = dict(chunk_elems=1 << 24, design="shuffle", use_tune_cache=False,
+              device="cuda")
+    bp.reset_launches()
+    first = None
+    for i, piped in enumerate((True, False, True, False)):
+        w = pipe.ChunkedRefactorPipeline(pipelined=piped, **kw)
+        with obs_metrics.REGISTRY.scope(), obs_trace.tracing() as tr:
+            t0 = time.perf_counter()
+            blobs = w.refactor(x, "nyx")
+            wall = time.perf_counter() - t0
+            gauges = obs_metrics.snapshot()["gauges"]
+        if i == 2:
+            print_spans(tr, "write pipelined (warm)")
+        first = blobs if first is None else first
+        check(len(blobs) == 8, f"{len(blobs)} chunks, not 8")
+        check(blobs == first, "pipelined and serial chunk blobs differ")
+        print(f"write {'pipelined' if piped else 'serial'}: {wall:.3f} s, "
+              f"{x.nbytes / wall / 1e9:.3f} GB/s, "
+              f"{sum(len(b) for b in blobs)} wire bytes, "
+              f"write.syncs_per_chunk {gauges['write.syncs_per_chunk']}",
+              flush=True)
+    x_dev = torch.from_numpy(x.reshape(-1)).cuda()
+    outs = {}
+    for piped in (True, False):
+        with obs_trace.tracing() as tr:
+            t0 = time.perf_counter()
+            outs[piped] = pipe.ChunkedReconstructPipeline(
+                pipelined=piped, device="cuda").reconstruct(first, PIPE_TOL)
+            wall = time.perf_counter() - t0
+        print_spans(tr, f"read {'pipelined' if piped else 'serial'}")
+        err = (torch.from_numpy(outs[piped]).cuda() - x_dev).abs().max()
+        check(err.item() <= PIPE_TOL, f"read error {err.item()} > tol")
+        print(f"read {'pipelined' if piped else 'serial'} tol {PIPE_TOL:g}: "
+              f"{wall:.3f} s, max err {err.item():.6g}", flush=True)
+    check(outs[True].tobytes() == outs[False].tobytes(),
+          "pipelined and serial reads differ")
+    launches = read_launches(bp, ("shuffle_encode", "loc_decode"),
+                             "pipeline-path launches")
+
+    # the kernels against their plain versions at the pipeline's own piece
+    # shapes and batches: the plain backend on the card must write the same
+    # chunk blobs and read the same values (these runs launch no kernel)
+    t0 = time.perf_counter()
+    plain = pipe.ChunkedRefactorPipeline(pipelined=True, backend="torch",
+                                         **kw).refactor(x, "nyx")
+    check(plain == first, "kernel and plain-version chunk blobs differ")
+    plain_out = pipe.ChunkedReconstructPipeline(
+        pipelined=True, backend="torch", device="cuda").reconstruct(
+            first, PIPE_TOL)
+    check(plain_out.tobytes() == outs[True].tobytes(),
+          "kernel and plain-version reads differ")
+    check(bp.encode_shuffle_cuda.launches == launches["shuffle_encode"]
+          and bp.decode_locality_cuda.launches == launches["loc_decode"],
+          "the plain backend launched a kernel")
+    print("kernel == plain version on the card at the pipeline's shapes: "
+          f"write blobs and read values identical "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+
+    small = gaussian_field((64, 128, 128), slope=-1.8, seed=1)
+    for design in ("locality", "shuffle"):
+        got = {d: pipe.ChunkedRefactorPipeline(
+            chunk_elems=1 << 18, design=design, use_tune_cache=False,
+            device=d).refactor(small, "s") for d in ("cuda", "cpu")}
+        check(got["cuda"] == got["cpu"],
+              f"{design}: card and CPU chunk blobs differ")
+    print("card == CPU chunk blobs on (64, 128, 128), locality and shuffle",
+          flush=True)
+    return launches
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -363,11 +596,12 @@ def main(argv) -> int:
     done(t0, "phase 1")
 
     t0 = phase("2 kernels vs plain, on the card")
-    n_cases = kernels_vs_plain(torch, bp, ref)
-    print(f"{n_cases} kernel cases bit-exact with the plain version")
-    timings, copy_ms = kernel_timings(torch, bp, ref)
-    for name, r in timings.items():
-        print(f"{name} (N={FINEST_N}): kernel {r['ms'] * 1e3:.1f} us, "
+    specs = kernel_specs(bp, ref)
+    n_cases = kernels_vs_plain(torch, specs)
+    print(f"{n_cases} kernel cases bit-exact with the plain versions")
+    timings, copy_ms = kernel_timings(torch, specs)
+    for (name, case), r in timings.items():
+        print(f"{name} {case} (N={FINEST_N}): kernel {r['ms'] * 1e3:.1f} us, "
               f"plain {r['plain_ms'] * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
               f"{r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
@@ -379,6 +613,7 @@ def main(argv) -> int:
     x_np = gaussian_field(ISABEL_SHAPE, slope=-2.0, seed=0)
     print(f"field {ISABEL_SHAPE}: {time.perf_counter() - t0:.2f} s to make")
     launches, blob = main_path(torch, bp, rf, rt, x_np)
+    launches = {k: launches[k] for k in ("rb_encode", "rb_decode")}
     done(t0, "phase 3")
 
     t0 = phase("4 card vs CPU")
@@ -394,19 +629,29 @@ def main(argv) -> int:
         profiled(torch, rf, rt, x_np, warm)
         done(t0, "phase 6")
 
+    t0 = phase("7 QoI retrieval (Alg. 3), locality, at full size")
+    launches.update({k: v for k, v in qoi_phase(torch, bp).items()
+                     if k in ("loc_encode", "loc_decode")})
+    done(t0, "phase 7")
+
+    t0 = phase("8 chunked pipeline, shuffle, at full size")
+    launches["shuffle_encode"] = pipeline_phase(torch, bp)["shuffle_encode"]
+    done(t0, "phase 8")
+
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []
-    for name, key, replaces in (
-            ("rb_encode", "encode 23 planes",
-             "src/repro/kernels/bitplane.py:74"),
-            ("rb_decode", "decode 4-plane group",
-             "src/repro/kernels/bitplane.py:96")):
-        r = timings[key]
-        entries.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+    for fmt, (_, _, encoders, decoder) in specs.items():
+        for (name, _, replaces), case in (
+                [(e, "encode 23 planes") for e in encoders]
+                + [(decoder, "decode 4-plane group")]):
+            r = timings[(name, case)]
+            entries.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": replaces,
+                            "launches": launches[name],
+                            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                            "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "library_ms": None})
     print(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card_line())

@@ -50,7 +50,8 @@ _MIN_NORMAL = 2.0 ** -126
 _U32_MAX = 0xFFFFFFFF
 
 
-def _flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU flush-to-zero (and denormals-are-zero) made explicit."""
     return torch.where(x.abs() < _MIN_NORMAL, torch.zeros_like(x), x)
 
 
@@ -146,7 +147,7 @@ def align_encode(x: torch.Tensor, mag_bits: int = DEFAULT_MAG_BITS
 
     Returns (magnitude [same shape], sign 0/1 [same shape], exponent int32
     scalar); magnitude and sign are uint32 bit patterns in int32 storage."""
-    x = _flush_subnormal(x.to(torch.float32))
+    x = flush_subnormal(x.to(torch.float32))
     e = max_exponent(x)
     scale = exp2_int(mag_bits - e)
     q = torch.round(x * scale)
@@ -199,7 +200,7 @@ def align_decode(mag: torch.Tensor, sign: torch.Tensor,
     if not isinstance(e, torch.Tensor):
         e = torch.tensor(int(e), dtype=torch.int32, device=mag.device)
     scale = exp2_int(mag_bits - e.to(mag.device))
-    val = _flush_subnormal(m.to(torch.float32) / scale)
+    val = flush_subnormal(m.to(torch.float32) / scale)
     return torch.where(sign != 0, -val, val)
 
 

@@ -1,7 +1,10 @@
-"""Hopper CUDA kernels for the `register_block` bitplane format.
+"""Hopper CUDA kernels for the bitplane formats of all three designs.
 
 The kernels live in ``csrc/bitplane.cu`` (the note there says which TPU
-kernels they replace, what bounds them and what the design does about it).
+kernels they replace, what bounds them and what the design does about it):
+``rb_encode``/``rb_decode`` for ``register_block``, ``loc_encode`` and
+``shuffle_encode`` for the ``locality`` and ``shuffle`` designs, and
+``loc_decode`` for the format those two share.
 They are compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at first use, into ``build/repro_torch_kernels/`` at the
 root of the checkout, and loaded with ``ctypes``.  The library name carries
@@ -39,6 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MAX_BATCH = 65535         # gridDim.y
+ENCODE_SYMBOLS = ("rb_encode", "loc_encode", "shuffle_encode")
+DECODE_SYMBOLS = ("rb_decode", "loc_decode")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -90,10 +95,14 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(_build(SOURCES[0])))
             vp, ll_, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.rb_encode.argtypes = [vp, vp, ll_, ll_, i, i, ll_, vp]
-            lib.rb_encode.restype = i
-            lib.rb_decode.argtypes = [vp, vp, ll_, i, i, i, ll_, vp]
-            lib.rb_decode.restype = i
+            for name in ENCODE_SYMBOLS:
+                fn = getattr(lib, name)
+                fn.argtypes = [vp, vp, ll_, ll_, i, i, ll_, vp]
+                fn.restype = i
+            for name in DECODE_SYMBOLS:
+                fn = getattr(lib, name)
+                fn.argtypes = [vp, vp, ll_, i, i, i, ll_, vp]
+                fn.restype = i
             _lib = lib
     return _lib
 
@@ -116,11 +125,12 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def encode_register_block_cuda(mags: torch.Tensor,
-                               num_planes: int) -> torch.Tensor:
-    """(B, N) uint32 magnitudes (int32 storage) -> (B, num_planes, W) plane
-    words, W = ceil(N / 4096) * 128; one launch for the whole batch."""
-    _check_common(mags, 2, "encode")
+def _encode(wrapper, symbol: str, mags: torch.Tensor,
+            num_planes: int) -> torch.Tensor:
+    """(B, N) magnitudes -> (B, num_planes, W) through ``symbol``, one launch
+    for the whole batch; ``wrapper.launches`` counts it.  An empty input
+    launches nothing and counts nothing."""
+    _check_common(mags, 2, symbol)
     if not 1 <= num_planes <= 32:
         raise ValueError(f"num_planes must be in [1, 32], got {num_planes}")
     b, n = mags.shape
@@ -129,24 +139,22 @@ def encode_register_block_cuda(mags: torch.Tensor,
                       device=mags.device)
     if b == 0 or words == 0:
         return out
-    lib = load()
+    fn = getattr(load(), symbol)
     with torch.cuda.device(mags.device):
         stream = torch.cuda.current_stream(mags.device).cuda_stream
-        err = lib.rb_encode(mags.data_ptr(), out.data_ptr(), n, n, b,
-                            num_planes, words, stream)
-    _raise_on(err, "rb_encode")
-    encode_register_block_cuda.launches += 1
+        err = fn(mags.data_ptr(), out.data_ptr(), n, n, b, num_planes, words,
+                 stream)
+    _raise_on(err, symbol)
+    wrapper.launches += 1
     return out
 
 
-encode_register_block_cuda.launches = 0
-
-
-def decode_register_block_cuda(planes: torch.Tensor, num_planes_total: int,
-                               n: int) -> torch.Tensor:
-    """(B, P', W) plane prefixes -> (B, n) magnitudes with plane j at bit
-    ``num_planes_total - 1 - j``; one launch for the whole batch."""
-    _check_common(planes, 3, "decode")
+def _decode(wrapper, symbol: str, planes: torch.Tensor,
+            num_planes_total: int, n: int) -> torch.Tensor:
+    """(B, P', W) plane prefixes -> (B, n) through ``symbol``, one launch
+    for the whole batch; ``wrapper.launches`` counts it.  An empty output
+    launches nothing and counts nothing."""
+    _check_common(planes, 3, symbol)
     b, rows, words = planes.shape
     if not 1 <= num_planes_total <= 32:
         raise ValueError(f"num_planes_total must be in [1, 32], got "
@@ -162,19 +170,56 @@ def decode_register_block_cuda(planes: torch.Tensor, num_planes_total: int,
     out = torch.empty((b, n), dtype=torch.int32, device=planes.device)
     if b == 0 or n == 0:
         return out
-    lib = load()
+    fn = getattr(load(), symbol)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.rb_decode(planes.data_ptr(), out.data_ptr(), n, b, rows,
-                            num_planes_total, words, stream)
-    _raise_on(err, "rb_decode")
-    decode_register_block_cuda.launches += 1
+        err = fn(planes.data_ptr(), out.data_ptr(), n, b, rows,
+                 num_planes_total, words, stream)
+    _raise_on(err, symbol)
+    wrapper.launches += 1
     return out
 
 
-decode_register_block_cuda.launches = 0
+def encode_register_block_cuda(mags: torch.Tensor,
+                               num_planes: int) -> torch.Tensor:
+    """(B, N) uint32 magnitudes (int32 storage) -> (B, num_planes, W) plane
+    words in the ``register_block`` format, W = ceil(N / 4096) * 128."""
+    return _encode(encode_register_block_cuda, "rb_encode", mags, num_planes)
+
+
+def decode_register_block_cuda(planes: torch.Tensor, num_planes_total: int,
+                               n: int) -> torch.Tensor:
+    """(B, P', W) ``register_block`` plane prefixes -> (B, n) magnitudes
+    with plane j at bit ``num_planes_total - 1 - j``."""
+    return _decode(decode_register_block_cuda, "rb_decode", planes, num_planes_total, n)
+
+
+def encode_locality_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
+    """(B, N) magnitudes -> (B, num_planes, W) consecutive-element plane
+    words (the ``locality`` format), one ``__ballot_sync`` per word."""
+    return _encode(encode_locality_cuda, "loc_encode", mags, num_planes)
+
+
+def encode_shuffle_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
+    """The ``locality`` format's words, built by a warp shuffle OR tree (the
+    ``shuffle`` design): the same output as ``encode_locality_cuda``."""
+    return _encode(encode_shuffle_cuda, "shuffle_encode", mags, num_planes)
+
+
+def decode_locality_cuda(planes: torch.Tensor, num_planes_total: int,
+                         n: int) -> torch.Tensor:
+    """(B, P', W) ``locality``/``shuffle`` plane prefixes -> (B, n)
+    magnitudes with plane j at bit ``num_planes_total - 1 - j``."""
+    return _decode(decode_locality_cuda, "loc_decode", planes, num_planes_total, n)
+
+
+WRAPPERS = (encode_register_block_cuda, decode_register_block_cuda,
+            encode_locality_cuda, encode_shuffle_cuda, decode_locality_cuda)
 
 
 def reset_launches() -> None:
-    encode_register_block_cuda.launches = 0
-    decode_register_block_cuda.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launches()

@@ -1,12 +1,19 @@
-// Bitplane encode/decode for the `register_block` format, hand-written for
-// Hopper (sm_90a).  Plain C interface, loaded with ctypes.
+// Bitplane encode/decode for the three designs of the reference package,
+// hand-written for Hopper (sm_90a).  Plain C interface, loaded with ctypes.
 //
-// Replaces the TPU kernels of the reference package:
-//   rb_encode  <- src/repro/kernels/bitplane.py `_encode_register_block_kernel`
-//                 (with `_transpose32_butterfly`), reached through
-//                 `encode_pallas` -> `pl.pallas_call` (bitplane.py:199)
-//   rb_decode  <- src/repro/kernels/bitplane.py `_decode_register_block_kernel`,
-//                 reached through `decode_pallas` -> `pl.pallas_call` (:232)
+// Replaces the TPU kernels of src/repro/kernels/bitplane.py (every function
+// there that reaches `pl.pallas_call`):
+//   rb_encode      <- `_encode_register_block_kernel` (with
+//                     `_transpose32_butterfly`), via `encode_pallas` (:199)
+//   rb_decode      <- `_decode_register_block_kernel`, via `decode_pallas`
+//                     (:232)
+//   loc_encode     <- `_encode_locality_kernel`, via `encode_pallas` (:199)
+//   shuffle_encode <- `_encode_shuffle_kernel`, via `encode_pallas` (:199)
+//   loc_decode     <- `_decode_locality_kernel`, via `decode_pallas` (:247);
+//                     it decodes both the `locality` and `shuffle` designs,
+//                     which share one format
+//
+// --- register_block (rb_encode, rb_decode) ---------------------------------
 //
 // Format (kernels/ref.py): within 4096-element tile t, the element at flat
 // index 4096 t + 128 i + l supplies bit i of word 128 t + l of every plane;
@@ -33,8 +40,46 @@
 // are not taken here).  The kernels allocate nothing and launch on the
 // caller's stream.
 //
+// --- locality / shuffle (loc_encode, shuffle_encode, loc_decode) ----------
+//
+// Format: word w of plane j holds bit P_total - 1 - j of the 32 consecutive
+// elements 32 w .. 32 w + 31 (element 32 w + i -> bit i).  N is padded to a
+// whole 4096-element tile, as for register_block, so the plane sizes agree.
+//
+// What bounds them: they move the same bytes as register_block (4 bytes in
+// and 4 P / 32 bytes out per element on encode, the reverse on decode), but
+// as written here none of them reaches that byte bound (PERF.md has the
+// times); each design keeps the paper's form, and making it fast is later
+// work.  A 32-element word is exactly one warp's worth of consecutive
+// elements, which is what paper section 4.1 builds on:
+//   * loc_encode: a warp covers 32 consecutive words (1,024 elements).  For
+//     each of its 32 words the warp loads the word's 32 elements (128
+//     consecutive bytes, coalesced), keeping them in 32 registers.  Plane
+//     j's word k is then one `__ballot_sync` over the lanes' bit
+//     P - 1 - j of element k; lane k keeps it, and the warp stores the 32
+//     words of the plane as 128 consecutive bytes.  A ballot, a bit extract
+//     and a select per word and plane make it bound by instruction issue.
+//   * shuffle_encode (paper section 4.2, the warp shift-reduce; the
+//     counterpart of the `jnp.roll` OR tree of the TPU kernel): the same
+//     loads and stores, but each lane contributes ((x >> b) & 1) << lane and
+//     the word is formed by a 5-step `__shfl_xor_sync` OR tree.  Five
+//     shuffles per word and plane instead of one ballot make it bound by
+//     shuffle issue: this design is kept for what it is, not made into a
+//     second loc_encode.
+//   * loc_decode: one thread per element.  Element e reads word e >> 5 of
+//     each of the P' rows (32 neighbouring threads read the same word, a
+//     broadcast) and puts its bit e & 31 at bit P_total - 1 - j; stores are
+//     consecutive, coalesced.  Each warp has one row's load in flight at a
+//     time, so the kernel is bound by memory latency rather than bytes (a
+//     form that issued all 32 row loads first, predicated on the row count,
+//     measured slower).
+// Every lane of a launched warp is live (the grid covers exactly W words, so
+// 32 W elements): elements from n up to the tile boundary read as 0, which
+// makes the padded words zeros and keeps the full-warp masks valid.
+//
 // Shifts: every shift count is kept in [0, 31] (planes, total in [1, 32]
-// are checked by the Python wrapper), so no shift by 32 is ever evaluated.
+// and rows <= total are checked by the Python wrapper), so no shift by 32 is
+// ever evaluated.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -125,6 +170,98 @@ rb_decode_kernel(const uint32_t* __restrict__ planes,
   }
 }
 
+// ---------------------------------------------------- locality / shuffle --
+
+constexpr int kWarpsPerBlock = 4;
+constexpr int kLocThreads = 32 * kWarpsPerBlock;   // 128 words per CTA
+constexpr int kDecodeThreads = 256;
+
+// Loads the 1,024 consecutive elements of one warp's 32 words: v[k] is
+// element 32 (word0 + k) + lane, 0 past n.
+__device__ __forceinline__ void load_warp_words(const uint32_t* __restrict__ xr,
+                                                int64_t n, int64_t word0,
+                                                int lane, uint32_t (&v)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int64_t idx = (word0 + k) * 32 + lane;
+    v[k] = idx < n ? __ldg(xr + idx) : 0u;
+  }
+}
+
+// One CTA of 128 threads covers 128 words: warp w of the CTA the 32 words
+// from 128 blockIdx.x + 32 w; blockIdx.y is the batch row.
+// x: (batch, x_stride) magnitudes, n valid per row
+// out: (batch, planes, words)
+__global__ void __launch_bounds__(kLocThreads)
+loc_encode_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                  int64_t n, int64_t x_stride, int planes, int64_t words) {
+  const int lane = threadIdx.x & 31;
+  const int64_t word0 =
+      (int64_t)blockIdx.x * kLocThreads + (threadIdx.x >> 5) * 32;
+  const uint32_t* xr = x + (int64_t)blockIdx.y * x_stride;
+  uint32_t* outr = out + (int64_t)blockIdx.y * planes * words + word0 + lane;
+  uint32_t v[32];
+  load_warp_words(xr, n, word0, lane, v);
+  for (int j = 0; j < planes; ++j) {
+    const int b = planes - 1 - j;  // in [0, 31]
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const uint32_t w = __ballot_sync(0xffffffffu, (v[k] >> b) & 1u);
+      word = lane == k ? w : word;
+    }
+    outr[(int64_t)j * words] = word;
+  }
+}
+
+// Same grid and layout as loc_encode_kernel; the word is assembled by a
+// shift-reduce across the warp instead of a ballot.
+__global__ void __launch_bounds__(kLocThreads)
+shuffle_encode_kernel(const uint32_t* __restrict__ x,
+                      uint32_t* __restrict__ out, int64_t n, int64_t x_stride,
+                      int planes, int64_t words) {
+  const int lane = threadIdx.x & 31;
+  const int64_t word0 =
+      (int64_t)blockIdx.x * kLocThreads + (threadIdx.x >> 5) * 32;
+  const uint32_t* xr = x + (int64_t)blockIdx.y * x_stride;
+  uint32_t* outr = out + (int64_t)blockIdx.y * planes * words + word0 + lane;
+  uint32_t v[32];
+  load_warp_words(xr, n, word0, lane, v);
+  for (int j = 0; j < planes; ++j) {
+    const int b = planes - 1 - j;  // in [0, 31]
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      uint32_t w = ((v[k] >> b) & 1u) << lane;  // lane in [0, 31]
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1) {
+        w |= __shfl_xor_sync(0xffffffffu, w, off);
+      }
+      word = lane == k ? w : word;
+    }
+    outr[(int64_t)j * words] = word;
+  }
+}
+
+// One thread per element: blockIdx.x * 256 + threadIdx.x is the element,
+// blockIdx.y the batch row.
+// planes: (batch, rows, words) prefix, rows <= total
+// out: (batch, n) magnitudes with plane j at bit total - 1 - j
+__global__ void __launch_bounds__(kDecodeThreads)
+loc_decode_kernel(const uint32_t* __restrict__ planes,
+                  uint32_t* __restrict__ out, int64_t n, int rows, int total,
+                  int64_t words) {
+  const int64_t e = (int64_t)blockIdx.x * kDecodeThreads + threadIdx.x;
+  if (e >= n) return;
+  const uint32_t* pr = planes + (int64_t)blockIdx.y * rows * words + (e >> 5);
+  const int bit = (int)(e & 31);
+  uint32_t acc = 0;
+  for (int j = 0; j < rows; ++j) {
+    acc |= ((__ldg(pr + (int64_t)j * words) >> bit) & 1u) << (total - 1 - j);
+  }
+  out[(int64_t)blockIdx.y * n + e] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -143,6 +280,37 @@ int rb_decode(const void* planes, void* out, long long n, int batch,
               int rows, int total, long long words, void* stream) {
   const dim3 grid((unsigned)(words / kTileLane), (unsigned)batch);
   rb_decode_kernel<<<grid, kTileLane, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(planes), static_cast<uint32_t*>(out), n,
+      rows, total, words);
+  return (int)cudaGetLastError();
+}
+
+int loc_encode(const void* x, void* out, long long n, long long x_stride,
+               int batch, int planes, long long words, void* stream) {
+  const dim3 grid((unsigned)(words / kLocThreads), (unsigned)batch);
+  loc_encode_kernel<<<grid, kLocThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n,
+      x_stride, planes, words);
+  return (int)cudaGetLastError();
+}
+
+int shuffle_encode(const void* x, void* out, long long n, long long x_stride,
+                   int batch, int planes, long long words, void* stream) {
+  const dim3 grid((unsigned)(words / kLocThreads), (unsigned)batch);
+  shuffle_encode_kernel<<<grid, kLocThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n,
+      x_stride, planes, words);
+  return (int)cudaGetLastError();
+}
+
+int loc_decode(const void* planes, void* out, long long n, int batch,
+               int rows, int total, long long words, void* stream) {
+  const dim3 grid((unsigned)((n + kDecodeThreads - 1) / kDecodeThreads),
+                  (unsigned)batch);
+  loc_decode_kernel<<<grid, kDecodeThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(planes), static_cast<uint32_t*>(out), n,
       rows, total, words);
   return (int)cudaGetLastError();

@@ -6,10 +6,11 @@ Backend selection:
   'cuda'   -> always the CUDA kernel (raises on a CPU tensor)
   'torch'  -> the plain torch version (``kernels.ref``), an explicit choice
 
-Only the ``register_block`` design has a CUDA kernel so far; with
-``design='locality'`` or ``'shuffle'`` a CUDA tensor raises
-``NotImplementedError`` under 'auto'/'cuda' -- it never falls back to the
-plain version.  On CPU tensors every design runs the plain version.
+Every design has its CUDA kernels (``kernels.bitplane``): on a CUDA tensor
+'auto'/'cuda' launch them and never fall back to the plain version; on CPU
+tensors every design runs the plain version.  ``locality`` and ``shuffle``
+encode through different kernels into one format, which ``loc_decode``
+decodes for both.
 
 Every entry point takes ``device=``: numpy or torch input is placed there
 first; ``None`` means ``cuda`` (see ``repro_torch.device``).  A batch form is
@@ -31,6 +32,12 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.tune.config import BACKENDS
 
 DESIGNS = ("register_block", "locality", "shuffle")
+_ENCODE_KERNELS = {"register_block": _bp.encode_register_block_cuda,
+                   "locality": _bp.encode_locality_cuda,
+                   "shuffle": _bp.encode_shuffle_cuda}
+_DECODE_KERNELS = {"register_block": _bp.decode_register_block_cuda,
+                   "locality": _bp.decode_locality_cuda,
+                   "shuffle": _bp.decode_locality_cuda}
 _DEFAULT_BACKEND = "auto"
 
 
@@ -44,9 +51,6 @@ def _use_kernel(t: torch.Tensor, backend: str, design: str) -> bool:
     if backend == "torch":
         return False
     if t.device.type == "cuda":
-        if design != "register_block":
-            raise NotImplementedError(
-                f"design {design!r} has no CUDA kernel yet")
         return True
     if backend == "cuda":
         raise ValueError(f"backend='cuda' needs a CUDA tensor, got "
@@ -75,7 +79,7 @@ def encode_bitplanes_batch(mags, num_planes: int,
     if mags.dim() != 2:
         raise ValueError(f"expected (B, N) magnitudes, got {tuple(mags.shape)}")
     if _use_kernel(mags, backend, design):
-        return _bp.encode_register_block_cuda(mags.contiguous(), num_planes)
+        return _ENCODE_KERNELS[design](mags.contiguous(), num_planes)
     return _ref.encode(mags, num_planes, design)
 
 
@@ -107,8 +111,8 @@ def decode_bitplanes_batch(planes, num_planes_total: int, n: int,
     if n > 32 * planes.shape[2]:
         raise ValueError(f"n={n} does not fit {planes.shape[2]} words")
     if _use_kernel(planes, backend, design):
-        return _bp.decode_register_block_cuda(planes.contiguous(),
-                                              num_planes_total, n)
+        return _DECODE_KERNELS[design](planes.contiguous(),
+                                       num_planes_total, n)
     return _ref.decode(planes, num_planes_total, n, design)
 
 

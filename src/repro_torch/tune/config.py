@@ -47,9 +47,7 @@ class RefactorConfig:
     group_size: int = 4
     size_threshold: int = 4096
     cr_threshold: float = 1.0
-    # --- pipeline / mesh knobs: carried so that configs round-trip through
-    # JSON unchanged; nothing in the port reads them until the pipeline
-    # slice ---
+    # --- pipeline / mesh knobs (core/pipeline.py, core/sharded.py) ---
     dispatch_ahead: int = 2
     depth: int = 2
     chunk_elems: Optional[int] = None
@@ -103,7 +101,11 @@ def as_config(config: Optional[RefactorConfig] = None, *,
               design: Optional[str] = None,
               mag_bits: Optional[int] = None,
               hybrid=None,
-              backend: Optional[str] = None) -> RefactorConfig:
+              backend: Optional[str] = None,
+              dispatch_ahead: Optional[int] = None,
+              depth: Optional[int] = None,
+              chunk_elems: Optional[int] = None,
+              mesh_devices: Optional[int] = None) -> RefactorConfig:
     """Normalize a ``config=`` argument plus legacy loose kwargs into ONE
     effective ``RefactorConfig``.
 
@@ -123,4 +125,12 @@ def as_config(config: Optional[RefactorConfig] = None, *,
         upd["cr_threshold"] = hybrid.cr_threshold
     if backend is not None:
         upd["backend"] = backend
+    if dispatch_ahead is not None:
+        upd["dispatch_ahead"] = dispatch_ahead
+    if depth is not None:
+        upd["depth"] = depth
+    if chunk_elems is not None:
+        upd["chunk_elems"] = chunk_elems
+    if mesh_devices is not None:
+        upd["mesh_devices"] = mesh_devices
     return dataclasses.replace(base, **upd) if upd else base
