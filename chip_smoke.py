@@ -10,10 +10,17 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
    the build time and the card's name and power limit;
 2. hold each of the five kernels bit-exact against its plain torch version
-   on the card (N in {1, 4095, 4097, 12289, 21875000}, P in {1, 23, 32},
-   batch {1, 3}, plane offsets {0, 4, 20}) and time kernel and plain
-   version at the Hurricane-Isabel finest-piece shape (CUDA events,
-   median);
+   on the card (N in {1, 4095, 4097, 12289, 21875000}, P in {1, 23, 31,
+   32}, batch {1, 3}, plane offsets {0, 4, 20}, decoded row counts {1, 2,
+   3, 4, 5, 8, 9, 16, 17, 31} and all rows) and time kernel and plain
+   version at the Hurricane-Isabel finest-piece shape and at phase 8's
+   finest piece, where ``shuffle_encode`` and ``loc_decode`` run (CUDA
+   events, median).  A kernel's ``ms`` is a call back to back through its
+   wrapper, host path included, on one input; its ``device_ms`` is the
+   replay of a CUDA graph of its calls that cycles through enough copies
+   of the input to move at least twice the L2's size between two reads of
+   one copy, so that it is the device's time from memory, the one to hold
+   against ``bound_ms``;
 3. refactor the full Isabel-shaped field (100, 500, 500) float32 on the card,
    serialize and deserialize it, and progressively retrieve it over the
    relative tolerances 1e-1 .. 1e-6, requiring max|x - x_hat| <= bound at
@@ -50,6 +57,7 @@ limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -65,11 +73,15 @@ NYX_SHAPE = (512, 512, 512)    # data.fields.DATASETS["nyx"]
 FINEST_N = 21_875_000          # finest detail piece of the Isabel field
 MAG_BITS = 23
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+L2_BYTES = 50 * 2 ** 20        # H100 SXM data sheet
 INT32_OPS_PER_S = 16.7e12      # 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 TOLS = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5, 1e-6)
 QOI_TAUS = (1e-2, 1e-4)
 QOI_METHODS = {"cp": {}, "ma": {}, "mape": {"c": 10.0}}
 PIPE_TOL = 1e-4
+PIPE_CHUNK = 1 << 24           # phase 8's chunk_elems
+PIPE_LEVELS = 2
+DECODE_ROWS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 31)  # edges of any row bucket
 
 
 class SmokeFailure(RuntimeError):
@@ -89,20 +101,32 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 10) -> float:
+def time_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 10,
+            graph: bool = False) -> float:
     """Median over ``reps`` of the mean CUDA-event time of ``inner`` calls,
-    after ``warmup`` untimed calls."""
+    after ``warmup`` untimed calls.  With ``graph`` the ``inner`` calls are
+    captured once in a CUDA graph and replayed, so that the time is the
+    device's alone; without, a call that costs the host more than the
+    device has to do measures the host."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+
+    def run():
+        for _ in range(inner):
+            fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
     out = []
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        for _ in range(inner):
-            fn()
+        run()
         e.record()
         torch.cuda.synchronize()
         out.append(s.elapsed_time(e) / inner)
@@ -143,7 +167,7 @@ def kernels_vs_plain(torch, specs):
     g = torch.Generator(device="cuda").manual_seed(0)
     n_cases = 0
     for n in (1, 4095, 4097, 12289, FINEST_N):
-        for p in (1, 23, 32):
+        for p in (1, 23, 31, 32):
             for b in ((1,) if n == FINEST_N else (1, 3)):
                 x = torch.randint(-2 ** 31, 2 ** 31, (b, n), generator=g,
                                   dtype=torch.int64, device="cuda"
@@ -156,7 +180,8 @@ def kernels_vs_plain(torch, specs):
                               f"{name} n={n} P={p} B={b}")
                         n_cases += 1
                     for off in sorted({min(o, p - 1) for o in (0, 4, 20)}):
-                        for rows in sorted({1, min(4, p - off), p - off}):
+                        for rows in sorted({r for r in DECODE_ROWS
+                                            if r < p - off} | {p - off}):
                             pl = want[:, off:off + rows].contiguous()
                             check(torch.equal(dfn(pl, p - off, n),
                                               dec(pl, p - off, n)),
@@ -167,20 +192,32 @@ def kernels_vs_plain(torch, specs):
     return n_cases
 
 
-def kernel_timings(torch, specs):
-    """Kernel vs plain time at the main path's finest-piece shapes, for
-    every kernel; rows keyed (kernel, case)."""
-    x = torch.randint(0, 2 ** MAG_BITS, (1, FINEST_N), dtype=torch.int32,
+def kernel_timings(torch, specs, n=FINEST_N):
+    """Kernel vs plain time of every kernel at ``n`` elements (the main
+    path's finest-piece shape by default); rows keyed (kernel, case)."""
+    x = torch.randint(0, 2 ** MAG_BITS, (1, n), dtype=torch.int32,
                       device="cuda")
     rows = {}
 
     def err(a, b):
         return (a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
 
+    def timed(call, arg, nbytes, **extra):
+        """``call(arg)`` back to back on one input, and as the replay of a
+        graph cycling through copies of ``arg`` (at least 2 L2 sizes moved
+        between two reads of one copy)."""
+        copies = [arg] + [arg.clone() for _ in range(
+            -(-2 * L2_BYTES // nbytes) - 1)]
+        it = itertools.cycle(copies)
+        return dict(n=n, ms=time_ms(lambda: call(arg)),
+                    device_ms=time_ms(lambda: call(next(it)), graph=True),
+                    copies=len(copies), bytes=nbytes, **extra)
+
     for fmt, (enc, dec, encoders, (dname, dfn, _)) in specs.items():
         planes = enc(x, MAG_BITS)
         words = planes.shape[2]
         group = planes[:, :4].contiguous()
+        sign = enc(x, 1)
         # the bit transpose of a 5-stage butterfly, ~512 integer ops per 32
         # words, is the least work any of the formats needs
         ops = 16 * 32 * words
@@ -189,27 +226,37 @@ def kernel_timings(torch, specs):
             want = enc(x, p)
             plain_ms = time_ms(lambda: enc(x, p), reps=3, inner=1, warmup=1)
             for name, fn, _ in encoders:
-                rows[(name, case)] = dict(
-                    ms=time_ms(lambda: fn(x, p)), plain_ms=plain_ms,
-                    bytes=4 * FINEST_N + 4 * p * words, ops=ops,
+                rows[(name, case)] = timed(
+                    lambda a: fn(a, p), x, 4 * n + 4 * p * words,
+                    plain_ms=plain_ms, ops=ops,
                     max_abs_err=err(fn(x, p), want))
-        for case, pl in (("decode 4-plane group", group),
-                         ("decode 23 planes", planes)):
-            want = dec(pl, MAG_BITS, FINEST_N)
-            rows[(dname, case)] = dict(
-                ms=time_ms(lambda: dfn(pl, MAG_BITS, FINEST_N)),
-                plain_ms=time_ms(lambda: dec(pl, MAG_BITS, FINEST_N),
+        for case, pl, total in (("decode 4-plane group", group, MAG_BITS),
+                                ("decode 23 planes", planes, MAG_BITS),
+                                ("decode 1 sign plane", sign, 1)):
+            want = dec(pl, total, n)
+            rows[(dname, case)] = timed(
+                lambda a: dfn(a, total, n), pl,
+                4 * pl.shape[1] * words + 4 * n,
+                plain_ms=time_ms(lambda: dec(pl, total, n),
                                  reps=3, inner=1, warmup=1),
-                bytes=4 * pl.shape[1] * words + 4 * FINEST_N, ops=ops,
-                max_abs_err=err(dfn(pl, MAG_BITS, FINEST_N), want))
-    copy_dst = torch.empty_like(x)
-    copy_ms = time_ms(lambda: copy_dst.copy_(x))
+                ops=ops, max_abs_err=err(dfn(pl, total, n), want))
     for r in rows.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / INT32_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return rows, copy_ms
+    return rows
+
+
+def print_timings(timings) -> None:
+    for (name, case), r in timings.items():
+        print(f"{name} {case} (N={r['n']}): kernel {r['ms'] * 1e3:.1f} us "
+              f"a call back to back through the wrapper, device "
+              f"{r['device_ms'] * 1e3:.1f} us (graph replay over "
+              f"{r['copies']} input copies, "
+              f"{r['bytes'] / r['device_ms'] / 1e6:.0f} GB/s), "
+              f"plain {r['plain_ms'] * 1e3:.1f} us, bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})", flush=True)
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -496,8 +543,8 @@ def pipeline_phase(torch, bp):
     x = gaussian_field(NYX_SHAPE, slope=-1.8, seed=0)
     print(f"field {NYX_SHAPE}: {time.perf_counter() - t0:.2f} s to make",
           flush=True)
-    kw = dict(chunk_elems=1 << 24, design="shuffle", use_tune_cache=False,
-              device="cuda")
+    kw = dict(chunk_elems=PIPE_CHUNK, levels=PIPE_LEVELS, design="shuffle",
+              use_tune_cache=False, device="cuda")
     bp.reset_launches()
     first = None
     for i, piped in enumerate((True, False, True, False)):
@@ -578,6 +625,7 @@ def main(argv) -> int:
         return 2
     from repro_torch.core import refactor as rf
     from repro_torch.core import retrieve as rt
+    from repro_torch.core.refactor_fused import piece_sizes
     from repro_torch.data.fields import gaussian_field
     from repro_torch.kernels import bitplane as bp
     from repro_torch.kernels import ref
@@ -589,7 +637,7 @@ def main(argv) -> int:
     print(f"kernel build: {info['seconds']:.2f} s "
           f"({'built' if info['built'] else 'reused'} {info['path']})")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print("  ptxas:", line.strip())
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -599,14 +647,17 @@ def main(argv) -> int:
     specs = kernel_specs(bp, ref)
     n_cases = kernels_vs_plain(torch, specs)
     print(f"{n_cases} kernel cases bit-exact with the plain versions")
-    timings, copy_ms = kernel_timings(torch, specs)
-    for (name, case), r in timings.items():
-        print(f"{name} {case} (N={FINEST_N}): kernel {r['ms'] * 1e3:.1f} us, "
-              f"plain {r['plain_ms'] * 1e3:.1f} us, bound "
-              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
-              f"{r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
+    timings = kernel_timings(torch, specs)
+    print_timings(timings)
+    x = torch.randint(0, 2 ** MAG_BITS, (FINEST_N,), dtype=torch.int32,
+                      device="cuda")
+    copy_dst = torch.empty_like(x)
+    copy_ms = time_ms(lambda: copy_dst.copy_(x))
     print(f"device copy of {4 * FINEST_N} B: {copy_ms * 1e3:.1f} us "
           f"({2 * 4 * FINEST_N / copy_ms / 1e6:.0f} GB/s read + write)")
+    # phase 8 runs shuffle_encode and loc_decode at its own piece sizes
+    print_timings(kernel_timings(
+        torch, specs, max(piece_sizes((PIPE_CHUNK,), PIPE_LEVELS))))
     done(t0, "phase 2")
 
     t0 = phase("3 main path at full size")
@@ -649,6 +700,7 @@ def main(argv) -> int:
                             "replaces": replaces,
                             "launches": launches[name],
                             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                            "device_ms": r["device_ms"],
                             "plain_ms": r["plain_ms"],
                             "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": None})

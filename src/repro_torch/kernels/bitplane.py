@@ -201,8 +201,10 @@ def encode_locality_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
 
 
 def encode_shuffle_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
-    """The ``locality`` format's words, built by a warp shuffle OR tree (the
-    ``shuffle`` design): the same output as ``encode_locality_cuda``."""
+    """The ``locality`` format's words, formed by exchange across a warp's
+    lanes (the ``shuffle`` design): a 32x32 bit-matrix butterfly of five
+    ``__shfl_xor_sync`` per word for all planes.  The same output as
+    ``encode_locality_cuda``."""
     return _encode(encode_shuffle_cuda, "shuffle_encode", mags, num_planes)
 
 

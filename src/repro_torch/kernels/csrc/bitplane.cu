@@ -47,32 +47,43 @@
 // whole 4096-element tile, as for register_block, so the plane sizes agree.
 //
 // What bounds them: they move the same bytes as register_block (4 bytes in
-// and 4 P / 32 bytes out per element on encode, the reverse on decode), but
-// as written here none of them reaches that byte bound (PERF.md has the
-// times); each design keeps the paper's form, and making it fast is later
-// work.  A 32-element word is exactly one warp's worth of consecutive
-// elements, which is what paper section 4.1 builds on:
-//   * loc_encode: a warp covers 32 consecutive words (1,024 elements).  For
-//     each of its 32 words the warp loads the word's 32 elements (128
-//     consecutive bytes, coalesced), keeping them in 32 registers.  Plane
-//     j's word k is then one `__ballot_sync` over the lanes' bit
-//     P - 1 - j of element k; lane k keeps it, and the warp stores the 32
-//     words of the plane as 128 consecutive bytes.  A ballot, a bit extract
-//     and a select per word and plane make it bound by instruction issue.
-//   * shuffle_encode (paper section 4.2, the warp shift-reduce; the
-//     counterpart of the `jnp.roll` OR tree of the TPU kernel): the same
-//     loads and stores, but each lane contributes ((x >> b) & 1) << lane and
-//     the word is formed by a 5-step `__shfl_xor_sync` OR tree.  Five
-//     shuffles per word and plane instead of one ballot make it bound by
-//     shuffle issue: this design is kept for what it is, not made into a
-//     second loc_encode.
-//   * loc_decode: one thread per element.  Element e reads word e >> 5 of
-//     each of the P' rows (32 neighbouring threads read the same word, a
-//     broadcast) and puts its bit e & 31 at bit P_total - 1 - j; stores are
-//     consecutive, coalesced.  Each warp has one row's load in flight at a
-//     time, so the kernel is bound by memory latency rather than bytes (a
-//     form that issued all 32 row loads first, predicated on the row count,
-//     measured slower).
+// and 4 P / 32 bytes out per element on encode, the reverse on decode).  A
+// 32-element word is exactly one warp's worth of consecutive elements, which
+// is what paper section 4.1 builds on; a CTA of 4 warps covers 128 words,
+// a warp 32 consecutive words (1,024 elements, 4 KB):
+//   * loc_encode: for each of its 32 words the warp loads the word's 32
+//     elements (128 consecutive bytes, coalesced), keeping them in 32
+//     registers.  Plane j's word k is then one `__ballot_sync` over the
+//     lanes' bit P - 1 - j of element k; lane k keeps it, and the warp
+//     stores the 32 words of the plane as 128 consecutive bytes.  A ballot,
+//     a bit extract and a select per word and plane make it bound by
+//     instruction issue, not bytes.
+//   * shuffle_encode (paper section 4.2: the words are formed by exchange
+//     across the warp's lanes with `__shfl_xor_sync`, the counterpart of the
+//     `jnp.roll` OR tree of the TPU kernel): the exchange moves all planes at
+//     once, as a 32x32 bit-matrix butterfly across the lanes.  For word
+//     column k, lane l holds element 32 (word0 + k) + 31 - l, shifted so
+//     that magnitude bit P - 1 sits at bit 31; five stages, one shuffle, one
+//     rotate and one bit select each, leave plane j's word of the column in
+//     lane j.  That is 5 shuffles per word for all planes; a one-bit OR tree
+//     per plane needs 5 per word and plane, and the SM's rate of about one
+//     warp shuffle per clock then bounds it, not bytes.  The 32 columns are
+//     staged in a per-warp 32 x 33 word shared tile (the pad keeps both the
+//     column writes and the row reads free of bank conflicts), and the P
+//     live planes are stored from it, 128 consecutive bytes per warp and
+//     plane.  All 32 column loads are issued before the first butterfly, so
+//     each warp has 4 KB in flight.  About 15 shuffles and integer ops per
+//     element keep it under its byte bound, but not by much.
+//   * loc_decode: one thread per word, the shape of rb_decode.  Thread w
+//     loads word w of each of the P' rows (all loads issued first, predicated
+//     on the row count; 128 consecutive bytes per warp and row), transposes
+//     the 32 x 32 bits in registers and so holds the 32 magnitudes of
+//     elements 32 w .. 32 w + 31.  They go through the same per-warp shared
+//     tile, so that each store instruction writes 32 consecutive elements.
+//     A thread per element would read each row word as a 32-way broadcast,
+//     with one row's load in flight per warp, and memory latency would bound
+//     it; a thread per word issues 32 times fewer loads and keeps every
+//     row's load in flight at once, so that bytes bound it.
 // Every lane of a launched warp is live (the grid covers exactly W words, so
 // 32 W elements): elements from n up to the tile boundary read as 0, which
 // makes the padded words zeros and keeps the full-warp masks valid.
@@ -174,16 +185,16 @@ rb_decode_kernel(const uint32_t* __restrict__ planes,
 
 constexpr int kWarpsPerBlock = 4;
 constexpr int kLocThreads = 32 * kWarpsPerBlock;   // 128 words per CTA
-constexpr int kDecodeThreads = 256;
 
 // Loads the 1,024 consecutive elements of one warp's 32 words: v[k] is
-// element 32 (word0 + k) + lane, 0 past n.
+// element 32 (word0 + k) + slot, 0 past n; slot is the lane or, for
+// shuffle_encode, 31 - lane.
 __device__ __forceinline__ void load_warp_words(const uint32_t* __restrict__ xr,
                                                 int64_t n, int64_t word0,
-                                                int lane, uint32_t (&v)[32]) {
+                                                int slot, uint32_t (&v)[32]) {
 #pragma unroll
   for (int k = 0; k < 32; ++k) {
-    const int64_t idx = (word0 + k) * 32 + lane;
+    const int64_t idx = (word0 + k) * 32 + slot;
     v[k] = idx < n ? __ldg(xr + idx) : 0u;
   }
 }
@@ -214,52 +225,109 @@ loc_encode_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   }
 }
 
-// Same grid and layout as loc_encode_kernel; the word is assembled by a
-// shift-reduce across the warp instead of a ballot.
+// transpose32 across a warp: lane l holds row l, and the pair (k, k + J) of
+// butterfly_stage<J> is the lane pair (l, l ^ J).  The lower lane of a pair
+// takes its partner's bits (p >> J) & m, the upper one (p << J) & ~m; both
+// are a rotation of p and a bit select, with the rotation and the mask kept
+// fixed per lane, so a stage is one shuffle and two integer ops.
+// Lane 31 - b ends with bit (31 - l) = bit b of lane l's row.
+class WarpTranspose32 {
+ public:
+  __device__ __forceinline__ explicit WarpTranspose32(int lane) {
+    init_stage<0, 16>(lane, 0x0000FFFFu);
+    init_stage<1, 8>(lane, 0x00FF00FFu);
+    init_stage<2, 4>(lane, 0x0F0F0F0Fu);
+    init_stage<3, 2>(lane, 0x33333333u);
+    init_stage<4, 1>(lane, 0x55555555u);
+  }
+
+  __device__ __forceinline__ uint32_t operator()(uint32_t a) const {
+    a = stage<0, 16>(a);
+    a = stage<1, 8>(a);
+    a = stage<2, 4>(a);
+    a = stage<3, 2>(a);
+    return stage<4, 1>(a);
+  }
+
+ private:
+  template <int S, int J>
+  __device__ __forceinline__ void init_stage(int lane, uint32_t m) {
+    const bool upper = lane & J;
+    keep_[S] = upper ? m : ~m;
+    rot_[S] = upper ? J : 32 - J;  // in [1, 31]
+  }
+
+  template <int S, int J>
+  __device__ __forceinline__ uint32_t stage(uint32_t a) const {
+    const uint32_t p = __shfl_xor_sync(0xffffffffu, a, J);
+    const uint32_t r = __funnelshift_l(p, p, rot_[S]);
+    return (a & keep_[S]) | (r & ~keep_[S]);
+  }
+
+  uint32_t keep_[5];
+  int rot_[5];
+};
+
+// Per-warp staging tile of 32 x 32 words; row pitch 33 so that a column of
+// lanes and a row of lanes both touch 32 different banks.
+using WarpTile = uint32_t[32][33];
+
+// Same grid as loc_encode_kernel.
 __global__ void __launch_bounds__(kLocThreads)
 shuffle_encode_kernel(const uint32_t* __restrict__ x,
                       uint32_t* __restrict__ out, int64_t n, int64_t x_stride,
                       int planes, int64_t words) {
+  __shared__ WarpTile tiles[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
+  WarpTile& tile = tiles[threadIdx.x >> 5];
   const int64_t word0 =
       (int64_t)blockIdx.x * kLocThreads + (threadIdx.x >> 5) * 32;
   const uint32_t* xr = x + (int64_t)blockIdx.y * x_stride;
   uint32_t* outr = out + (int64_t)blockIdx.y * planes * words + word0 + lane;
+  // lane l takes element 31 - l of each word, so that the transpose leaves
+  // plane j in lane j with bit i from element i
   uint32_t v[32];
-  load_warp_words(xr, n, word0, lane, v);
-  for (int j = 0; j < planes; ++j) {
-    const int b = planes - 1 - j;  // in [0, 31]
-    uint32_t word = 0;
+  load_warp_words(xr, n, word0, 31 - lane, v);
+  const int sh = 32 - planes;  // in [0, 31]
+  const WarpTranspose32 transpose(lane);
 #pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      uint32_t w = ((v[k] >> b) & 1u) << lane;  // lane in [0, 31]
-#pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) {
-        w |= __shfl_xor_sync(0xffffffffu, w, off);
-      }
-      word = lane == k ? w : word;
-    }
-    outr[(int64_t)j * words] = word;
-  }
+  for (int k = 0; k < 32; ++k) tile[lane][k] = transpose(v[k] << sh);
+  __syncwarp();
+  for (int j = 0; j < planes; ++j) outr[(int64_t)j * words] = tile[j][lane];
 }
 
-// One thread per element: blockIdx.x * 256 + threadIdx.x is the element,
-// blockIdx.y the batch row.
+// One thread per word, as rb_decode_kernel: the grid of loc_encode_kernel,
+// thread w of a CTA decodes word 128 blockIdx.x + w; blockIdx.y is the batch
+// row.
 // planes: (batch, rows, words) prefix, rows <= total
 // out: (batch, n) magnitudes with plane j at bit total - 1 - j
-__global__ void __launch_bounds__(kDecodeThreads)
+__global__ void __launch_bounds__(kLocThreads)
 loc_decode_kernel(const uint32_t* __restrict__ planes,
                   uint32_t* __restrict__ out, int64_t n, int rows, int total,
                   int64_t words) {
-  const int64_t e = (int64_t)blockIdx.x * kDecodeThreads + threadIdx.x;
-  if (e >= n) return;
-  const uint32_t* pr = planes + (int64_t)blockIdx.y * rows * words + (e >> 5);
-  const int bit = (int)(e & 31);
-  uint32_t acc = 0;
-  for (int j = 0; j < rows; ++j) {
-    acc |= ((__ldg(pr + (int64_t)j * words) >> bit) & 1u) << (total - 1 - j);
+  __shared__ WarpTile tiles[kWarpsPerBlock];
+  const int lane = threadIdx.x & 31;
+  WarpTile& tile = tiles[threadIdx.x >> 5];
+  const int64_t word0 =
+      (int64_t)blockIdx.x * kLocThreads + (threadIdx.x >> 5) * 32;
+  const uint32_t* pr =
+      planes + (int64_t)blockIdx.y * rows * words + word0 + lane;
+  uint32_t* outr = out + (int64_t)blockIdx.y * n;
+  uint32_t a[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    a[j] = j < rows ? __ldg(pr + (int64_t)j * words) : 0u;
   }
-  out[(int64_t)blockIdx.y * n + e] = acc;
+  transpose32(a);  // a[31 - i] bit (31 - j) = plane j bit i
+  const int sh = 32 - total;  // in [0, 31]
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tile[lane][i] = a[31 - i] >> sh;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int64_t idx = (word0 + i) * 32 + lane;
+    if (idx < n) outr[idx] = tile[i][lane];
+  }
 }
 
 }  // namespace
@@ -307,9 +375,8 @@ int shuffle_encode(const void* x, void* out, long long n, long long x_stride,
 
 int loc_decode(const void* planes, void* out, long long n, int batch,
                int rows, int total, long long words, void* stream) {
-  const dim3 grid((unsigned)((n + kDecodeThreads - 1) / kDecodeThreads),
-                  (unsigned)batch);
-  loc_decode_kernel<<<grid, kDecodeThreads, 0,
+  const dim3 grid((unsigned)(words / kLocThreads), (unsigned)batch);
+  loc_decode_kernel<<<grid, kLocThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(planes), static_cast<uint32_t*>(out), n,
       rows, total, words);
