@@ -10,9 +10,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
    the build time and the card's name and power limit;
 2. hold each of the five kernels bit-exact against its plain torch version
-   on the card (N in {1, 4095, 4097, 12289, 21875000}, P in {1, 23, 31,
-   32}, batch {1, 3}, plane offsets {0, 4, 20}, decoded row counts {1, 2,
-   3, 4, 5, 8, 9, 16, 17, 31} and all rows) and time kernel and plain
+   on the card (N in {1, 4095, 4097, 12289, 21875000}, P in {1, 8, 9, 23,
+   31, 32}, batch {1, 3}, plane offsets {0, 4, 20}, decoded row counts {1,
+   2, 3, 4, 5, 8, 9, 16, 17, 31} and all rows) and time kernel and plain
    version at the Hurricane-Isabel finest-piece shape and at phase 8's
    finest piece, where ``shuffle_encode`` and ``loc_decode`` run (CUDA
    events, median).  A kernel's ``ms`` is a call back to back through its
@@ -20,7 +20,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    replay of a CUDA graph of its calls that cycles through enough copies
    of the input to move at least twice the L2's size between two reads of
    one copy, so that it is the device's time from memory, the one to hold
-   against ``bound_ms``;
+   against ``bound_ms``.  The three encoders' ``device_ms`` is also swept
+   over P in {1, 2, 4, 8, 9, 12, 16} at the Isabel finest piece (either
+   side of ``loc_encode``'s direct-gather bound);
 3. refactor the full Isabel-shaped field (100, 500, 500) float32 on the card,
    serialize and deserialize it, and progressively retrieve it over the
    relative tolerances 1e-1 .. 1e-6, requiring max|x - x_hat| <= bound at
@@ -82,6 +84,7 @@ PIPE_TOL = 1e-4
 PIPE_CHUNK = 1 << 24           # phase 8's chunk_elems
 PIPE_LEVELS = 2
 DECODE_ROWS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 31)  # edges of any row bucket
+SWEEP_PLANES = (1, 2, 4, 8, 9, 12, 16)  # both sides of kDirectPlanes = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -167,7 +170,7 @@ def kernels_vs_plain(torch, specs):
     g = torch.Generator(device="cuda").manual_seed(0)
     n_cases = 0
     for n in (1, 4095, 4097, 12289, FINEST_N):
-        for p in (1, 23, 31, 32):
+        for p in (1, 8, 9, 23, 31, 32):
             for b in ((1,) if n == FINEST_N else (1, 3)):
                 x = torch.randint(-2 ** 31, 2 ** 31, (b, n), generator=g,
                                   dtype=torch.int64, device="cuda"
@@ -245,6 +248,30 @@ def kernel_timings(torch, specs, n=FINEST_N):
         t_ops = r["ops"] / INT32_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return rows
+
+
+def encode_sweep(torch, bp, n=FINEST_N):
+    """``device_ms`` of the three encoders at each of ``SWEEP_PLANES``:
+    ``loc_encode`` gathers each plane's word bit by bit up to
+    ``kDirectPlanes`` (8) planes and transposes above, ``rb_encode`` always
+    transposes; rows keyed (kernel, P)."""
+    x = torch.randint(0, 2 ** MAG_BITS, (1, n), dtype=torch.int32,
+                      device="cuda")
+    copies = [x] + [x.clone() for _ in range(-(-2 * L2_BYTES // (4 * n)) - 1)]
+    it = itertools.cycle(copies)
+    words = -(-n // 4096) * 128  # planes are padded to whole 4096-tiles
+    rows = {}
+    for p in SWEEP_PLANES:
+        for name, fn in (("loc_encode", bp.encode_locality_cuda),
+                         ("rb_encode", bp.encode_register_block_cuda),
+                         ("shuffle_encode", bp.encode_shuffle_cuda)):
+            rows[(name, p)] = time_ms(lambda: fn(next(it), p), graph=True)
+        bound = (4 * n + 4 * p * words) / HBM_BYTES_PER_S * 1e3
+        print(f"encode sweep P={p} (N={n}): device " + ", ".join(
+            f"{name} {rows[(name, p)] * 1e3:.1f} us" for name in
+            ("loc_encode", "rb_encode", "shuffle_encode"))
+            + f"; bound {bound * 1e3:.1f} us", flush=True)
     return rows
 
 
@@ -655,6 +682,7 @@ def main(argv) -> int:
     copy_ms = time_ms(lambda: copy_dst.copy_(x))
     print(f"device copy of {4 * FINEST_N} B: {copy_ms * 1e3:.1f} us "
           f"({2 * 4 * FINEST_N / copy_ms / 1e6:.0f} GB/s read + write)")
+    encode_sweep(torch, bp)
     # phase 8 runs shuffle_encode and loc_decode at its own piece sizes
     print_timings(kernel_timings(
         torch, specs, max(piece_sizes((PIPE_CHUNK,), PIPE_LEVELS))))

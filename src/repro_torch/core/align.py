@@ -51,8 +51,10 @@ _U32_MAX = 0xFFFFFFFF
 
 
 def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU flush-to-zero (and denormals-are-zero) made explicit."""
-    return torch.where(x.abs() < _MIN_NORMAL, torch.zeros_like(x), x)
+    """XLA's CPU flush-to-zero (and denormals-are-zero) made explicit: a
+    subnormal becomes a zero of its own sign, as the x86 FTZ/DAZ flags give
+    it (``x * 0``); NaN and infinities pass."""
+    return x * (x.abs() >= _MIN_NORMAL)  # NaN * 0 is NaN
 
 
 # float32 bit patterns of the reference's exp2(k) for k = -126 .. 127 (XLA's

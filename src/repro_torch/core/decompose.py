@@ -5,11 +5,16 @@ predicted by linear interpolation of the even samples; the residuals are the
 level's detail coefficients.  The transform is exactly invertible in float
 arithmetic, so refactoring is lossless before bitplane truncation.
 
-Bit-identity: the float32 op order of the reference is kept exactly --
-``0.5 * (xe + right)`` first, then a separate subtract (split) or add
-(merge).  Each is its own torch op, rounded on its own, so nothing is
-contracted into an FMA on either the CPU or the card (no ``torch.lerp``,
-``addcmul`` or ``torch.compile`` here).
+Bit-identity: XLA's CPU compiler computes the reference's ``xe + right`` on
+its own, then fuses ``0.5 * (...)`` into the subtract (split) or add (merge)
+that follows as one fused multiply-add, and flushes every subnormal result
+to a zero of its sign (flush-to-zero; subnormal inputs read as zeros).  The
+port computes the sum as its own torch op and flushes it, then forms the
+fused result in float64 and flushes that (``_fma_half``), identically on the
+CPU and the card.  Nothing is left to a device's own contraction (no
+``torch.lerp``, ``addcmul`` or ``torch.compile`` here).  Without the
+flushes, fields far below float32's normal range (``2**-100``) reconstruct
+an ulp apart.
 
 Error propagation (max-norm, conservative):
     |x - x_hat|_inf <= eps_corner + (2^D - 1) * sum_level eps_level
@@ -23,6 +28,17 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.align import flush_subnormal as _ftz
+
+
+def _fma_half(d: torch.Tensor, s: torch.Tensor, half: float) -> torch.Tensor:
+    """``d + half * s`` rounded once to float32 and flushed, as the fused
+    multiply-add does: the product is never rounded or flushed on its own.
+    ``half * s`` is exact in float64, and so is the sum wherever it can
+    change the float32 result, so rounding to float64 then to float32 gives
+    the fused result."""
+    return _ftz(torch.add(d, s.double(), alpha=half).float())
+
 
 def _split_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     """One 1-D decomposition step along ``axis``: returns [even | detail]."""
@@ -33,21 +49,22 @@ def _split_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     # right neighbor of odd i is even i+1 (duplicate edge when absent)
     right = xe[..., 1:no + 1] if ne > no else torch.cat(
         [xe[..., 1:], xe[..., -1:]], dim=-1)
-    pred = 0.5 * (xe[..., :no] + right)
-    detail = xo - pred
+    detail = _fma_half(xo, _ftz(xe[..., :no] + right), -0.5)
     out = torch.cat([xe, detail], dim=-1)
     return torch.movedim(out, -1, axis)
 
 
 def _merge_axis(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
-    """Inverse of `_split_axis` for an axis of original length ``n``."""
+    """Inverse of `_split_axis` for an axis of original length ``n``.  Its
+    inputs hold no subnormals (``align_decode`` flushes the decoded pieces,
+    as the reference's does), so no operand is flushed here."""
     x = torch.movedim(x, axis, -1)
     ne = (n + 1) // 2
     no = n - ne
     xe, detail = x[..., :ne], x[..., ne:]
     right = xe[..., 1:no + 1] if ne > no else torch.cat(
         [xe[..., 1:], xe[..., -1:]], dim=-1)
-    xo = detail + 0.5 * (xe[..., :no] + right)
+    xo = _fma_half(detail, _ftz(xe[..., :no] + right), 0.5)
     out = torch.zeros(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     out[..., 0::2] = xe
     out[..., 1::2] = xo
@@ -90,7 +107,7 @@ def decompose(x: torch.Tensor, levels: int) -> List[torch.Tensor]:
     The corner is the coarsest approximation."""
     x = x.to(torch.float32)
     pieces_rev: List[torch.Tensor] = []
-    cur = x
+    cur = _ftz(x)  # denormals-are-zero: the arithmetic reads them as zeros
     for _ in range(levels):
         shape = tuple(cur.shape)
         for ax in range(cur.dim()):
@@ -101,8 +118,11 @@ def decompose(x: torch.Tensor, levels: int) -> List[torch.Tensor]:
         detail = torch.masked_select(cur, _detail_mask(shape, cur.device))
         pieces_rev.append(detail)
         cur = corner
+    # the corner is copied from x, never computed, so the reference keeps
+    # its subnormals: every 2**levels-th sample along each axis
+    corner = x[tuple(slice(None, None, 1 << levels) for _ in x.shape)]
     # order: [corner, detail_L (coarsest), ..., detail_1 (finest)]
-    return [cur.reshape(-1)] + pieces_rev[::-1]
+    return [corner.reshape(-1)] + pieces_rev[::-1]
 
 
 def level_shapes(shape: Sequence[int], levels: int) -> List[Tuple[int, ...]]:

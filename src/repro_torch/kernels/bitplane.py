@@ -196,7 +196,9 @@ def decode_register_block_cuda(planes: torch.Tensor, num_planes_total: int,
 
 def encode_locality_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
     """(B, N) magnitudes -> (B, num_planes, W) consecutive-element plane
-    words (the ``locality`` format), one ``__ballot_sync`` per word."""
+    words (the ``locality`` format): a thread per word, which reads its 32
+    elements from a per-warp shared tile and transposes their bits in
+    registers (or gathers each plane's bits directly, for few planes)."""
     return _encode(encode_locality_cuda, "loc_encode", mags, num_planes)
 
 

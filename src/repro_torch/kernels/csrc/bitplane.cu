@@ -51,13 +51,22 @@
 // 32-element word is exactly one warp's worth of consecutive elements, which
 // is what paper section 4.1 builds on; a CTA of 4 warps covers 128 words,
 // a warp 32 consecutive words (1,024 elements, 4 KB):
-//   * loc_encode: for each of its 32 words the warp loads the word's 32
-//     elements (128 consecutive bytes, coalesced), keeping them in 32
-//     registers.  Plane j's word k is then one `__ballot_sync` over the
-//     lanes' bit P - 1 - j of element k; lane k keeps it, and the warp
-//     stores the 32 words of the plane as 128 consecutive bytes.  A ballot,
-//     a bit extract and a select per word and plane make it bound by
-//     instruction issue, not bytes.
+//   * loc_encode: one thread per word, the mirror of loc_decode.  The warp
+//     loads its 32 words' 1,024 elements coalesced (all 32 loads issued
+//     first, so each warp has 4 KB in flight) and writes them to the per-warp
+//     32 x 33 shared tile, row k holding word k's 32 elements; lane l then
+//     reads row l, its own word.  For more than kDirectPlanes planes the
+//     thread transposes the 32 x 32 bits in registers, as rb_encode does
+//     (~500 integer ops per word, whatever P is), and stores plane j's word,
+//     128 consecutive bytes per warp and plane.  For kDirectPlanes planes or
+//     fewer it gathers each plane's word directly: element i is rotated left
+//     by i once (bit b to bit b + i), then plane b's word is the OR of 32
+//     single-bit masks, one LOP3 with an immediate mask per element and
+//     plane, and one rotate back -- ~33 P + 32 ops per word.  Half of the
+//     launches encode the sign plane (P = 1), where the transpose's fixed
+//     work would cost more than its bytes.  A warp vote, a bit extract and
+//     a select per word and plane (the form of paper section 4.1) is bound
+//     by instruction issue, ~3x its byte bound at P = 23, not by bytes.
 //   * shuffle_encode (paper section 4.2: the words are formed by exchange
 //     across the warp's lanes with `__shfl_xor_sync`, the counterpart of the
 //     `jnp.roll` OR tree of the TPU kernel): the exchange moves all planes at
@@ -199,29 +208,61 @@ __device__ __forceinline__ void load_warp_words(const uint32_t* __restrict__ xr,
   }
 }
 
+// Per-warp staging tile of 32 x 32 words; row pitch 33 so that a column of
+// lanes and a row of lanes both touch 32 different banks.
+using WarpTile = uint32_t[32][33];
+
+// loc_encode_kernel gathers the words of at most this many planes bit by bit
+// (~33 P + 32 ops per word) and transposes above it (~500).
+constexpr int kDirectPlanes = 8;
+
 // One CTA of 128 threads covers 128 words: warp w of the CTA the 32 words
-// from 128 blockIdx.x + 32 w; blockIdx.y is the batch row.
+// from 128 blockIdx.x + 32 w, lane l of the warp word word0 + l; blockIdx.y
+// is the batch row.
 // x: (batch, x_stride) magnitudes, n valid per row
 // out: (batch, planes, words)
 __global__ void __launch_bounds__(kLocThreads)
 loc_encode_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                   int64_t n, int64_t x_stride, int planes, int64_t words) {
+  __shared__ WarpTile tiles[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
+  WarpTile& tile = tiles[threadIdx.x >> 5];
   const int64_t word0 =
       (int64_t)blockIdx.x * kLocThreads + (threadIdx.x >> 5) * 32;
   const uint32_t* xr = x + (int64_t)blockIdx.y * x_stride;
   uint32_t* outr = out + (int64_t)blockIdx.y * planes * words + word0 + lane;
-  uint32_t v[32];
-  load_warp_words(xr, n, word0, lane, v);
-  for (int j = 0; j < planes; ++j) {
-    const int b = planes - 1 - j;  // in [0, 31]
-    uint32_t word = 0;
+  uint32_t a[32];
+  load_warp_words(xr, n, word0, lane, a);
 #pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const uint32_t w = __ballot_sync(0xffffffffu, (v[k] >> b) & 1u);
-      word = lane == k ? w : word;
+  for (int k = 0; k < 32; ++k) tile[k][lane] = a[k];
+  __syncwarp();
+  // tile[lane][i] is element i of this thread's word, word0 + lane
+  if (planes <= kDirectPlanes) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const uint32_t t = tile[lane][i];
+      a[i] = __funnelshift_l(t, t, i);  // bit b -> bit (b + i) mod 32
     }
-    outr[(int64_t)j * words] = word;
+#pragma unroll
+    for (int b = 0; b < kDirectPlanes; ++b) {
+      if (b < planes) {  // magnitude bit b is plane planes - 1 - b
+        uint32_t acc = 0;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc |= a[i] & (1u << ((b + i) & 31));
+        outr[(int64_t)(planes - 1 - b) * words] = __funnelshift_r(acc, acc, b);
+      }
+    }
+  } else {
+    // left-align magnitude bit (planes - 1) at bit 31 and reverse the
+    // element order, so that transposed row j is plane j's word
+    const int sh = 32 - planes;  // in [0, 31]
+#pragma unroll
+    for (int i = 0; i < 32; ++i) a[31 - i] = tile[lane][i] << sh;
+    transpose32(a);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j < planes) outr[(int64_t)j * words] = a[j];
+    }
   }
 }
 
@@ -267,10 +308,6 @@ class WarpTranspose32 {
   uint32_t keep_[5];
   int rot_[5];
 };
-
-// Per-warp staging tile of 32 x 32 words; row pitch 33 so that a column of
-// lanes and a row of lanes both touch 32 different banks.
-using WarpTile = uint32_t[32][33];
 
 // Same grid as loc_encode_kernel.
 __global__ void __launch_bounds__(kLocThreads)

@@ -152,6 +152,42 @@ def test_decompose_recompose_bit_identical(shape):
         assert np.array_equal(bits(cur_t), bits(cur_j)), i
 
 
+@pytest.mark.parametrize("scale_exp", [-100, -120, -126])
+@pytest.mark.parametrize("shape", [(33, 47), (16, 20, 24)])
+def test_decompose_and_merge_flush_like_the_compiled_reference(shape,
+                                                               scale_exp):
+    """Near float32's normal range the reference's compiled split and merge
+    flush every subnormal result to zero (XLA's CPU flush-to-zero) but fuse
+    ``0.5 * s`` into the add or subtract that follows, so that product is
+    never flushed on its own; the port does the same, bit for bit.  The
+    merges take flushed pieces, as the read path gives them."""
+    rng = np.random.default_rng(len(shape) - scale_exp)
+    x = (rng.normal(size=shape) * 2.0 ** scale_exp).astype(np.float32)
+    lv = jdc.num_levels(shape, min_size=4, max_levels=3)
+    jp = jax.jit(jdc.decompose, static_argnums=1)(jnp.asarray(x), lv)
+    tp = dc.decompose(torch.from_numpy(x), lv)
+    for a, b in zip(jp, tp):
+        assert np.array_equal(bits(b), bits(a))
+    pieces = [bits(al.flush_subnormal(torch.from_numpy(np.asarray(p))))
+              .view(np.float32) for p in jp]
+    cur_j = jnp.asarray(pieces[0]).reshape(jdc.level_shapes(shape, lv)[-1])
+    cur_t = torch.from_numpy(pieces[0]).reshape(cur_j.shape)
+    for i, ((_, jm), (_, tm)) in enumerate(zip(
+            jdc.recompose_plan(shape, lv),
+            dc.recompose_plan(shape, lv, torch.device("cpu")))):
+        cur_j = jm(cur_j, jnp.asarray(pieces[i + 1]))
+        cur_t = tm(cur_t, torch.from_numpy(pieces[i + 1]))
+        assert np.array_equal(bits(cur_t), bits(cur_j)), i
+
+
+def test_flush_subnormal_keeps_the_sign_of_zero():
+    x = torch.tensor([-1e-39, 1e-39, -0.0, 0.0, -2e-38, 3e-45, -1.0],
+                     dtype=torch.float32)
+    got = al.flush_subnormal(x)
+    want = np.array([-0.0, 0.0, -0.0, 0.0, -2e-38, 0.0, -1.0], np.float32)
+    assert np.array_equal(bits(got), bits(want))
+
+
 def test_error_bound_and_field_generator_match():
     eps = [1e-3, 2e-4, 5e-5]
     assert dc.error_bound(eps, 3, 2.5) == jdc.error_bound(eps, 3, 2.5)

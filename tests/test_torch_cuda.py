@@ -90,22 +90,27 @@ def test_locality_and_shuffle_kernels_match_plain(cuda, design):
 DECODE_ROWS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32)
 
 
+@pytest.mark.parametrize("encoder", [bp.encode_shuffle_cuda,
+                                     bp.encode_locality_cuda],
+                         ids=["shuffle_encode", "loc_encode"])
 @pytest.mark.parametrize("n", [4096 + 1000 + 17, 4096 + 2048],
                          ids=["ends-mid-warp", "ends-mid-cta"])
-@pytest.mark.parametrize("p", [1, 31, 32])
-def test_shuffle_encode_and_loc_decode_at_layout_edges(cuda, p, n):
-    """The two kernels built on a warp's 32x32 bit transpose, held against
-    the plain versions at the edges of their layout: 1, 31 and 32 planes,
-    every row count at the edge of a row bucket, a batch of 3 with plane
-    offsets, and a length that ends inside a warp's 1,024 elements or at a
-    warp boundary inside a CTA's 4,096."""
+@pytest.mark.parametrize("p", [1, 8, 9, 31, 32])
+def test_shuffle_encode_and_loc_decode_at_layout_edges(cuda, p, n, encoder):
+    """The kernels built on a 32x32 bit transpose within a warp's words (both
+    warp encoders and ``loc_decode``), held against the plain versions at
+    the edges of their layout: 1, 31 and 32 planes, 8 and 9 on either side
+    of ``loc_encode``'s direct-gather bound (``kDirectPlanes``), every row
+    count at the edge of a row bucket, a batch of 3 with plane offsets, and
+    a length that ends inside a warp's 1,024 elements or at a warp boundary
+    inside a CTA's 4,096."""
     rng = np.random.default_rng(p + n)
     mags = rng.integers(0, 2 ** 32, (3, n), dtype=np.uint64).astype(np.uint32)
     x = torch.from_numpy(mags.view(np.int32)).to(cuda)
     want = ref.encode_locality(x.cpu(), p)
-    before = bp.encode_shuffle_cuda.launches
-    got = bp.encode_shuffle_cuda(x, p)
-    assert bp.encode_shuffle_cuda.launches == before + 1
+    before = encoder.launches
+    got = encoder(x, p)
+    assert encoder.launches == before + 1
     assert torch.equal(got.cpu(), want)
     for off in sorted({0, min(4, p - 1), min(20, p - 1)}):
         for rows in sorted({r for r in DECODE_ROWS if r < p - off}

@@ -29,6 +29,7 @@ from repro_torch import tune as tn  # noqa: E402
 from repro_torch.core import lossless as ll  # noqa: E402
 from repro_torch.core import lossless_batch as lb  # noqa: E402
 from repro_torch.core import refactor as rf  # noqa: E402
+from repro_torch.core.align import MagnitudeOverflowError  # noqa: E402
 from repro_torch.core import refactor_fused as rff  # noqa: E402
 from repro_torch.core import retrieve as rt  # noqa: E402
 from repro_torch.data.fields import gaussian_field  # noqa: E402
@@ -73,6 +74,39 @@ def test_overflowing_magnitude_raises_instead_of_breaking_the_bound(path):
     assert np.abs(xh - x).max() > bound
     with pytest.raises(ValueError, match="2\\*\\*23"):
         rf.refactor_array(x, "t", device="cpu", **PATHS[path])
+
+
+TINY_TOLS = (1e-1, 1e-2, 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("k", [-90, -100, -104])
+def test_tiny_fields_byte_and_bit_identical(k):
+    """A field scaled by 2**k, down to the last k whose quantization scale
+    ``exp2(23 - e)`` stays finite: byte-identical blobs, and reconstructions
+    bit-identical at every tolerance, which needs the reference's
+    flush-to-zero and fused multiply-add in the merges."""
+    x = gaussian_field((32, 32, 32), seed=0) * np.float32(2.0 ** k)
+    want = jrf.refactored_to_bytes(jrf.refactor_array(x, "t"))
+    blob = rf.refactored_to_bytes(rf.refactor_array(x, "t", device="cpu"))
+    assert blob == want
+    jreader = jrt.ProgressiveReader(jrf.refactored_from_bytes(want))
+    reader = rt.ProgressiveReader(rf.refactored_from_bytes(blob),
+                                  device="cpu")
+    for tol in TINY_TOLS:
+        xj, bj, fj = jreader.retrieve(tol, relative=True)
+        xt, bt, ft = reader.retrieve(tol, relative=True)
+        assert (bt, ft) == (bj, fj), tol
+        assert _bits(xt) == _bits(np.asarray(xj)), tol
+
+
+@pytest.mark.parametrize("k", [-105, -110, -126])
+def test_fields_past_the_scale_range_raise(k):
+    """From 2**-105 on, this field's coarsest piece has an exponent that puts
+    ``exp2(23 - e)`` past float32's range, and the port refuses to store the
+    field."""
+    x = gaussian_field((32, 32, 32), seed=0) * np.float32(2.0 ** k)
+    with pytest.raises(MagnitudeOverflowError):
+        rf.refactor_array(x, "t", device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(), (1,), (0,), (3, 0), (1, 1), (2,),
