@@ -49,11 +49,29 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    within the tolerance; the plain backend on the card must write the same
    blobs and read the same values (the kernels held against their plain
    versions at the pipeline's own shapes and batches); then card == CPU
-   chunk blobs on a (64, 128, 128) field for both new designs.
+   chunk blobs on a (64, 128, 128) field for both new designs;
+9. the store and serving stack: ``DatasetWriter`` writes Isabel's U, V, W
+   (3 x 25,000,000 float32, chunks of 2**20, ``register_block``, pipelined,
+   checksums on) into a store under ``build/store_smoke/``; the store is
+   opened cold behind a ``CachingBackend`` and 8 session threads, released
+   by one barrier, are served through the shared ``ServingTier``: two
+   relative-tolerance ladders 1e-1 .. 1e-5 per variable (the second a step
+   behind the first after their common first step, so claims coalesce and
+   then hit the plane cache) and two MAPE QoI sessions (V_total, tau 1e-3).
+   Every array must equal a private (``serving=False``) service's on the
+   plain backend (``backend="torch"``: every shared ``rb_decode`` bucket
+   is held against the plain decode) bit for bit with equal bounds and
+   bytes, errors must stay within the bounds and
+   the QoI's actual error within tau', the tier's claims must add up with
+   one backend fetch per decoded group (plus the manifest), the
+   ``rb_decode`` launches must be fewer than the decode jobs, and a CPU
+   write of U must give the card's segment bytes and manifest entry.
 
-Phases 7 and 8 zero the launch counters before they start and require the
-``locality``/``shuffle`` kernels' counts to be > 0 after their full-size
-runs.
+Phases 7, 8 and 9 zero the launch counters before their runs and require
+the kernels of their paths to have launched; the kernels line's
+``launches`` is phase 3's count for the ``register_block`` pair (phase 9's
+are printed on a line of their own).  Each phase's wall and peak device
+memory are printed at its end.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -137,12 +155,17 @@ def time_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 10,
 
 
 def phase(name: str):
+    import torch
     print(f"== {name}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     return time.perf_counter()
 
 
 def done(t0: float, name: str) -> None:
-    print(f"-- {name}: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    import torch
+    print(f"-- {name}: {time.perf_counter() - t0:.2f} s wall, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+          f"allocated", flush=True)
 
 
 # ---------------------------------------------------------------- phase 2 --
@@ -640,6 +663,252 @@ def pipeline_phase(torch, bp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9 --
+
+STORE_TOLS = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5)
+STORE_QOI_TAU = 1e-3
+STORE_NAMES = ("U", "V", "W")
+STORE_BYTE_CACHE = 4 << 30      # the backend's byte cache: nothing is evicted
+STORE_PLANE_CACHE = 16 << 30    # the tier's decoded plane cache, on the card
+
+
+def _store_entry(root, name):
+    """(manifest entry without its segment key, segment file bytes)."""
+    from repro_torch.store import layout as lo
+    with open(os.path.join(root, lo.MANIFEST_NAME)) as f:
+        v = json.load(f)["variables"][name]
+    with open(lo.segment_path(root, v.pop("segment_file")), "rb") as f:
+        return v, f.read()
+
+
+def _run_sessions(jobs, timeout=900):
+    """Run ``jobs`` (name -> callable) on threads released together by one
+    barrier; returns name -> result, and fails on any error or hang."""
+    import threading
+    from repro_torch.obs import trace as obs_trace
+    barrier = threading.Barrier(len(jobs))
+    out, errors = {}, []
+
+    def run(name, fn):
+        try:
+            barrier.wait(timeout=timeout)
+            out[name] = fn()
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {exc!r}")
+            barrier.abort()
+    ts = [threading.Thread(target=obs_trace.wrap_for_thread(run), args=kv)
+          for kv in jobs.items()]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    check(not any(t.is_alive() for t in ts), "a session thread hung")
+    check(not errors, f"session errors: {errors}")
+    return out
+
+
+def store_phase(torch, bp, shape=ISABEL_SHAPE, device="cuda"):
+    """The store and serving stack at full size: write Isabel's U, V, W
+    with ``DatasetWriter``, open the store cold and serve 8 concurrent
+    sessions through the shared serving tier; every result is held against
+    a private (``serving=False``) service on the plain backend, and the
+    card's write against a CPU write.  Returns the phase's launch counts."""
+    import shutil
+    root = os.path.join(REPO, "build", "store_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _store_phase(torch, bp, shape, device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _store_phase(torch, bp, shape, device, root):
+    import threading
+
+    import numpy as np
+    from repro_torch.core import qoi as qq
+    from repro_torch.data.fields import velocity_field
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.store import (CachingBackend, DatasetStore,
+                                   DatasetWriter, LocalFileBackend,
+                                   RetrievalService)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def peak(what):
+        """The phase's peak device memory so far (the stage that raises it
+        is the one that sets the phase's peak)."""
+        if device == "cuda":
+            print(f"{what}: peak device memory so far "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+                  f"allocated", flush=True)
+
+    vs = dict(zip(STORE_NAMES, velocity_field(shape, seed=0)))
+    raw = sum(v.nbytes for v in vs.values())
+    card, cpu = os.path.join(root, "card"), os.path.join(root, "cpu")
+    launches = {}
+    bp.reset_launches()
+    t0 = time.perf_counter()
+    with DatasetWriter(card, device=device) as w:
+        entries = [w.write(n, vs[n]) for n in STORE_NAMES]
+    sync()
+    t_write = time.perf_counter() - t0
+    stored = sum(e.stored_bytes for e in entries)
+    print(f"store write U, V, W {shape} ({raw / 1e6:.1f} MB raw, "
+          f"{len(entries[0].chunks)} chunks of 2**20 each): {t_write:.3f} s, "
+          f"{raw / t_write / 1e9:.3f} GB/s, {stored / 1e6:.1f} MB stored",
+          flush=True)
+    launches["write"] = read_launches(bp, ("rb_encode",),
+                                      "phase-9 write launches")
+    peak("phase-9 write")
+
+    # the shared tier: 8 sessions released together, two ladders per
+    # variable (the second trails the first by one step after the first
+    # step: coalesced claims at the start, plane-cache hits after) and two
+    # QoI sessions over all three variables
+    t0 = time.perf_counter()
+    backend = CachingBackend(LocalFileBackend(card),
+                             capacity_bytes=STORE_BYTE_CACHE)
+    svc = RetrievalService(DatasetStore.open(card, backend=backend,
+                                             device=device),
+                           plane_cache_bytes=STORE_PLANE_CACHE)
+    print(f"cold open: {time.perf_counter() - t0:.3f} s", flush=True)
+    led = {n: [threading.Event() for _ in STORE_TOLS] for n in STORE_NAMES}
+
+    def ladder(name, k, service, events=None):
+        s = service.open_session()
+        steps = []
+        try:
+            for i, tol in enumerate(STORE_TOLS):
+                if events is not None and k == 1 and i > 0:
+                    events[name][i].wait(timeout=900)
+                t = time.perf_counter()
+                x, bound, fetched = s.retrieve(name, tol, relative=True)
+                steps.append((x, bound, fetched, time.perf_counter() - t))
+                if events is not None and k == 0:
+                    events[name][i].set()
+        finally:
+            if events is not None and k == 0:
+                for e in events[name]:
+                    e.set()
+        return steps
+
+    def qoi(service):
+        t = time.perf_counter()
+        res = service.open_session().retrieve_qoi(
+            STORE_NAMES, qq.V_TOTAL, STORE_QOI_TAU, method="mape")
+        return res, time.perf_counter() - t
+
+    jobs = {(n, k): (lambda n=n, k=k: ladder(n, k, svc, led))
+            for n in STORE_NAMES for k in (0, 1)}
+    jobs.update({("qoi", k): (lambda: qoi(svc)) for k in (0, 1)})
+    bp.reset_launches()
+    t0 = time.perf_counter()
+    with obs_trace.tracing() as tr:
+        shared = _run_sessions(jobs)
+        sync()
+    t_serve = time.perf_counter() - t0
+    launches["serve"] = read_launches(bp, ("rb_decode",),
+                                      "phase-9 shared serving launches")
+    peak("phase-9 shared serving")
+    snap = svc.stats()
+    tier, be = snap["serving"], snap["backend"]
+    print(f"shared serving, 8 sessions: {t_serve:.3f} s wall", flush=True)
+    print_spans(tr, "shared serving (summed over threads)")
+    for (n, k) in sorted(k for k in shared if k[0] != "qoi"):
+        print(f"  session {n}{k} steps: " + ", ".join(
+            f"{tol:g} {st[3]:.3f} s +{st[2]} B"
+            for tol, st in zip(STORE_TOLS, shared[(n, k)])), flush=True)
+    for k in (0, 1):
+        res, wall = shared[("qoi", k)]
+        print(f"  session qoi{k}: mape tau {STORE_QOI_TAU:g}, {wall:.3f} s, "
+              f"{res.iterations} iterations, +{res.bytes_fetched} B, "
+              f"estimate {res.tau_estimated:.6g}", flush=True)
+    print(f"tier: {json.dumps(tier)}")
+    print(f"backend: fetches {be['fetches']}, hit rate {be['hit_rate']:.4f}, "
+          f"{be['bytes_fetched']} B fetched, {be['bytes_served']} B served")
+    check(tier["requests"] == tier["plane_hits"] + tier["coalesced"]
+          + tier["decoded"], "tier claims do not add up")
+    check(be["fetches"] == tier["decoded"] + 1,
+          f"{be['fetches']} backend fetches for {tier['decoded']} decodes")
+    check(tier["plane_hits"] > 0, "the trailing sessions hit no cached plane")
+    check(tier["errors_propagated"] == 0, "the tier propagated an error")
+    check(launches["serve"]["rb_decode"] < tier["decoded"],
+          f"{launches['serve']['rb_decode']} rb_decode launches for "
+          f"{tier['decoded']} decode jobs: no launch was shared")
+
+    # the private service on the plain backend: one cold session per shared
+    # ladder and one QoI session, each alone on its state, must give the
+    # same bits, which holds every rb_decode bucket of the shared rounds
+    # against the plain decode (this run launches no kernel)
+    t0 = time.perf_counter()
+    priv = RetrievalService(DatasetStore.open(card, device=device),
+                            serving=False, backend="torch")
+    pjobs = {(n, 0): (lambda n=n: ladder(n, 0, priv)) for n in STORE_NAMES}
+    pjobs[("qoi", 0)] = lambda: qoi(priv)
+    bp.reset_launches()
+    with obs_trace.tracing() as tr:
+        private = _run_sessions(pjobs)
+        sync()
+    launches["private"] = read_launches(bp, (),
+                                        "phase-9 private serving launches")
+    check(not any(launches["private"].values()),
+          "the plain backend launched a kernel")
+    peak("phase-9 private serving")
+    print(f"private serving (serving=False, plain backend, 4 sessions): "
+          f"{time.perf_counter() - t0:.3f} s wall", flush=True)
+    print_spans(tr, "private serving (summed over threads)")
+    t0 = time.perf_counter()
+    for n in STORE_NAMES:
+        truth = vs[n]
+        for k in (0, 1):
+            for tol, (x, bound, fetched, _), (px, pbound, pfetched, _) in zip(
+                    STORE_TOLS, shared[(n, k)], private[(n, 0)]):
+                check(x.shape == truth.shape and x.dtype == np.float32,
+                      f"{n}{k} {tol}: shape {x.shape} {x.dtype}")
+                check(x.tobytes() == px.tobytes()
+                      and (bound, fetched) == (pbound, pfetched),
+                      f"{n}{k} tol {tol}: shared and private results differ")
+                err = float(np.abs(x - truth).max())
+                check(err <= bound, f"{n}{k} tol {tol}: error {err} > "
+                      f"bound {bound}")
+    pres, _ = private[("qoi", 0)]
+    want = sum(torch.from_numpy(vs[n]).to(device).double() ** 2
+               for n in STORE_NAMES)
+    for k in (0, 1):
+        res, _ = shared[("qoi", k)]
+        check((res.iterations, res.bytes_fetched, res.tau_estimated,
+               res.converged) == (pres.iterations, pres.bytes_fetched,
+                                  pres.tau_estimated, pres.converged)
+              and all(a.tobytes() == b.tobytes()
+                      for a, b in zip(res.values, pres.values)),
+              f"qoi{k}: shared and private QoI results differ")
+        got = sum(torch.from_numpy(v).to(device).double() ** 2
+                  for v in res.values)
+        actual = (got - want).abs().max().item()
+        check(actual <= res.tau_estimated, f"qoi{k}: actual {actual} > "
+              f"estimate {res.tau_estimated}")
+        check(not res.converged or res.tau_estimated <= STORE_QOI_TAU,
+              f"qoi{k}: converged above tau")
+    print(f"shared == private (bits, bounds, bytes) at every step, errors "
+          f"within bounds, QoI actual <= estimate: checked in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    peak("phase-9 checks")
+
+    # one variable written again on the CPU, at full shape
+    t0 = time.perf_counter()
+    with DatasetWriter(cpu, device="cpu") as w:
+        w.write("U", vs["U"])
+    check(_store_entry(cpu, "U") == _store_entry(card, "U"),
+          "card and CPU writes of U differ")
+    print(f"CPU write of U {shape}: {time.perf_counter() - t0:.3f} s, "
+          f"segment bytes and manifest entry identical to the card's",
+          flush=True)
+    return launches
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -716,6 +985,13 @@ def main(argv) -> int:
     t0 = phase("8 chunked pipeline, shuffle, at full size")
     launches["shuffle_encode"] = pipeline_phase(torch, bp)["shuffle_encode"]
     done(t0, "phase 8")
+
+    t0 = phase("9 store and serving at full size")
+    p9 = store_phase(torch, bp)
+    print(f"phase-9 launches: rb_encode {p9['write']['rb_encode']} (write), "
+          f"rb_decode {p9['serve']['rb_decode']} (shared serving)",
+          flush=True)
+    done(t0, "phase 9")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

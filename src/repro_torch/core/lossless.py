@@ -7,8 +7,10 @@ selector:
   fixup).  Encode is the GPU-parallel formulation: per-symbol code lengths ->
   prefix-sum bit offsets -> two disjoint scatter-adds (adds of disjoint bits
   equal ORs) into the packed word stream.  Decode is chunk-parallel: bit
-  offsets of every CHUNK-th symbol are stored in the segment header, and
-  every chunk of every row advances through a 2^16 peek-LUT in lock step.
+  offsets of every CHUNK-th symbol are stored in the segment header; a
+  2^16 peek-LUT gives every bit position of the stream its code's symbol
+  and the next code's position, and every chunk's code positions follow
+  by pointer doubling.
 * **RLE** — scan-based: run breaks via neighbor comparison (+ forced breaks
   every 32768 symbols so lengths fit uint16), run starts via scatter-min,
   decode via cumsum + searchsorted.
@@ -196,30 +198,51 @@ def _huffman_unpack(words: torch.Tensor, chunk_offs: torch.Tensor,
     """Chunk-parallel decode of each row: (B, L) words (zero-padded rows),
     (B, C) chunk start bits, (B, 2**16) peek LUTs -> (B, n_syms) uint8.
 
-    Every chunk of every row advances one symbol per step; a chunk never
-    holds more than CHUNK symbols, and a single-chunk stream only
-    ``n_syms``, so the loop runs ``min(CHUNK, n_syms)`` steps.  Symbols past
-    a row's end decode from zero padding and are trimmed."""
+    A chunk never holds more than CHUNK symbols, and a single-chunk stream
+    only ``n_syms``, so each chunk decodes ``steps = min(CHUNK, n_syms)``.
+    Chunk c's k-th code starts at bit ``jump^k(start_c)``, where ``jump(q)``
+    is q plus the length of the code the 16-bit window at bit q peeks.
+    ``jump`` is tabulated for every bit of the padded stream, and the start
+    bits of all steps come from pointer doubling: each of log2(steps)
+    rounds gathers the next block of starts through the table and squares
+    the table, where stepping symbol by symbol took ``steps`` rounds of
+    small ops (the read path's launch storm).  Codes past a row's end
+    decode from zero padding and are trimmed; the table is clamped at its
+    end, which no start within ``steps`` codes of a chunk reaches."""
     b, n_words = words.shape
     dev = words.device
     w = words.to(torch.int64) & _MASK32
-    # a step advances at most MAX_CODE_LEN bits, so a chunk never peeks
+    # a code advances at most MAX_CODE_LEN bits, so a chunk never peeks
     # more than CHUNK * MAX_CODE_LEN / 32 words past its start
     pad = CHUNK * MAX_CODE_LEN // 32 + 2
     w = torch.cat([w, torch.zeros((b, pad), dtype=torch.int64, device=dev)],
                   dim=1)
     pair = (w[:, :-1] << 32) | w[:, 1:]     # 64-bit window at word i
-    lut = (lut_sym.to(torch.int64) & 0xFF) | (lut_len.to(torch.int64) << 8)
-    p = chunk_offs.to(torch.int64) & _MASK32           # (B, C)
+    n_pairs = pair.shape[1]
+    n_bits = 32 * n_pairs
+    # the window at bit 32 i + r, as (B, words, 32) shifts of the words'
+    # windows: the per-bit tables are the only tables of the stream's size
+    r = torch.arange(32, dtype=torch.int64, device=dev)
+    peek = (pair[:, :, None] >> (48 - r)).bitwise_and_(0xFFFF)
+    del pair
+    sym = torch.gather(lut_sym.to(torch.uint8), 1, peek.view(b, n_bits))
+    jump = torch.gather(lut_len.to(torch.int64), 1, peek.view(b, n_bits))
+    del peek
+    jump.view(b, n_pairs, 32).add_(r).add_(
+        32 * torch.arange(n_pairs, dtype=torch.int64, device=dev)[:, None])
+    jump.clamp_(max=n_bits - 1)
     steps = min(CHUNK, n_syms)
-    out = torch.empty((b, p.shape[1], steps), dtype=torch.int64, device=dev)
-    for k in range(steps):
-        v = torch.gather(pair, 1, p >> 5)
-        peek = (v >> (48 - (p & 31))) & 0xFFFF
-        e = torch.gather(lut, 1, peek)
-        out[:, :, k] = e
-        p = p + (e >> 8)
-    return (out.reshape(b, -1)[:, :n_syms] & 0xFF).to(torch.uint8)
+    pos = (chunk_offs.to(torch.int64) & _MASK32)[:, :, None]
+    n_chunks = pos.shape[1]
+    m = 1                                   # pos holds steps [0, m)
+    while m < steps:                        # jump moves m codes
+        ahead = torch.gather(jump, 1, pos.reshape(b, -1))
+        pos = torch.cat([pos, ahead.reshape(b, n_chunks, m)], dim=2)
+        m *= 2
+        if m < steps:
+            jump = torch.gather(jump, 1, jump)
+    pos = pos[:, :, :steps].reshape(b, -1)[:, :n_syms]
+    return torch.gather(sym, 1, pos)
 
 
 def _rle_scan(syms: torch.Tensor):

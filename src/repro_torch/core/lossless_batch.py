@@ -424,10 +424,15 @@ def decode_segments(segs: Sequence[ll.Segment],
     the batch max — trailing zeros are exactly what the chunk decoder already
     assumes).  Returns uint8 host blobs aligned with ``segs``; bit-identical
     to ``[lossless.decompress_group(s) for s in segs]``, with one host sync
-    for every decoded blob."""
+    for every decoded blob.  The span ``codec.decode`` times the call."""
     if not segs:
         return []
-    dev = resolve_device(device)
+    with obs_trace.span("codec.decode", groups=len(segs)):
+        return _decode_segments(segs, resolve_device(device))
+
+
+def _decode_segments(segs: Sequence[ll.Segment],
+                     dev: torch.device) -> List[np.ndarray]:
     STATS.add(decode_calls=1, groups_decoded=len(segs))
     outs: List[Optional[np.ndarray]] = [None] * len(segs)
     pending = []  # (indices, device batch) resolved by one host_sync

@@ -23,12 +23,14 @@ bit-identical inputs, so both produce bit-identical reconstructions.
 
 ``batch_apply_pending`` drains the staged plane groups of many engines and
 decodes every same-shaped (rows, words, n, offset, device) bucket through
-ONE batched kernel launch.  Nothing here synchronizes with the host.
+ONE batched kernel launch; engines of a serving tier (``shared``, see
+``store.serving``) drain through that tier's cross-session decode first.
+Nothing here synchronizes with the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,6 +95,13 @@ class IncrementalReconstructor:
         self._dirty: set = set()
         self._pending: List[_PendingRows] = []
         self._pending_sign: List[Tuple[int, torch.Tensor]] = []
+        # serving-tier mode (store.serving): staged work is a list of
+        # (kind, piece, future) whose decoded plane groups arrive from the
+        # SHARED cross-session decoder instead of this engine's private
+        # kernel batch.  ``shared`` is the owning ServingTier (duck-typed —
+        # core never imports store); drained via ``shared.drain_engines``.
+        self.shared = None
+        self._shared_pending: List[Tuple[str, int, object]] = []
         # recompose level cache: _levels[0] = reshaped corner, _levels[i] =
         # state after merging detail piece i; x_hat = _levels[levels]
         self._levels: Optional[List[torch.Tensor]] = None
@@ -111,6 +120,18 @@ class IncrementalReconstructor:
             return
         self._pending.append(_PendingRows(
             piece, as_u32_bits(rows, self.device), row_offset))
+        STATS.add(groups_staged=1)
+
+    def stage_shared(self, kind: str, piece: int, fut) -> None:
+        """Register a serving-tier decode future (``kind`` is "sign" or
+        "group").  The decoded planes are produced (or cache-served) by the
+        shared tier and OR-applied at drain time — the same exactness
+        argument as private staging: magnitude accumulation over disjoint
+        bit ranges commutes, so apply order across sessions does not
+        matter."""
+        if self.ref.pieces[piece].n == 0:
+            return
+        self._shared_pending.append((kind, piece, fut))
         STATS.add(groups_staged=1)
 
     def _take_pending(self) -> List[_PendingRows]:
@@ -148,7 +169,7 @@ class IncrementalReconstructor:
         Decodes any still-pending plane groups (batched), align-decodes only
         the changed pieces, and re-runs only the recompose suffix below the
         coarsest changed piece; a clean engine returns the cached tensor."""
-        if self._pending or self._pending_sign:
+        if self._pending or self._pending_sign or self._shared_pending:
             batch_apply_pending([self])
         r = self.ref
         if not self._dirty and self._levels is not None:
@@ -188,6 +209,17 @@ def batch_apply_pending(engines: Sequence[IncrementalReconstructor]) -> None:
     sign planes batch the same way.  Decoded magnitudes are OR-accumulated
     into each engine's device state; no host sync happens here."""
     from repro_torch.kernels import ops as kops  # local: flat import graph
+
+    # serving-tier engines first: their staged futures resolve through the
+    # SHARED cross-session decoder (one combined, fairness-bounded batch per
+    # tier), then each result is OR-applied into its engine.  Grouped by
+    # tier so one drain merges every engine's futures into one pump.
+    tiers: Dict[int, Tuple[object, List[IncrementalReconstructor]]] = {}
+    for e in engines:
+        if e._shared_pending and e.shared is not None:
+            tiers.setdefault(id(e.shared), (e.shared, []))[1].append(e)
+    for tier, tier_engines in tiers.values():
+        tier.drain_engines(tier_engines)
 
     jobs: List[Tuple[IncrementalReconstructor, _PendingRows]] = [
         (e, p) for e in engines for p in e._take_pending()]

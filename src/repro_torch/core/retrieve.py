@@ -15,8 +15,9 @@ candidates against the conservative max-norm bound
 (``decompose.error_bound``).
 
 The reader runs on ``device`` (``None`` means ``cuda``; see
-``repro_torch.device``).  The reference's shared serving tier (``shared=``)
-is not ported yet and raises ``NotImplementedError``.
+``repro_torch.device``).  ``shared=`` routes plane-group fetches through a
+store's serving tier (``store.serving.ServingTier``): a shared cross-session
+plane cache, request coalescing and cross-session batched decode.
 """
 from __future__ import annotations
 
@@ -35,7 +36,6 @@ from repro_torch.core.refactor import Refactored
 from repro_torch.device import DeviceLike, as_u32_bits, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.store import reliability as rl
 
 
 @dataclasses.dataclass
@@ -101,11 +101,10 @@ class ProgressiveReader:
                  device: DeviceLike = None,
                  config=None,
                  degrade: bool = False,
-                 shared: Optional[object] = None):
+                 shared: Optional[object] = None,
+                 shared_scope: Tuple[str, int] = ("", 0),
+                 shared_tenant: int = 0):
         from repro_torch import tune as tn  # local: keep import graph flat
-        if shared is not None:
-            raise NotImplementedError(
-                "the shared serving tier is not ported yet")
         # config= replays a store's tuned plan (here: its backend)
         cfg = tn.as_config(config, backend=backend)
         self.ref = ref
@@ -125,6 +124,15 @@ class ProgressiveReader:
         self.engine = (rc.IncrementalReconstructor(ref, backend=self.backend,
                                                    device=self.device)
                        if incremental else None)
+        # serving-tier mode (store.serving.ServingTier): plane-group fetches
+        # route through a shared cross-session cache + coalescing claim
+        # table, and decode jobs merge with other sessions' work.
+        # Incremental-only — the oracle path stays private by construction.
+        self.shared = shared if incremental else None
+        self.shared_scope = tuple(shared_scope)
+        self.shared_tenant = shared_tenant
+        if self.engine is not None:
+            self.engine.shared = self.shared
 
     # ----------------------------------------------------------- planning --
     def planes_kept(self) -> List[int]:
@@ -214,6 +222,9 @@ class ProgressiveReader:
         store failure CAPS the piece at the failed group; a sign-segment
         failure caps the piece at 0.  Without degrade the error propagates
         and no state is mutated for the failed request."""
+        from repro_torch.store import reliability as rl  # store imports us
+        if self.shared is not None:
+            return self._fetch_to_shared(target_groups, degrade)
         deltas = self.pending_deltas(target_groups)
         self.source.prefetch(deltas)
         if degrade is None:
@@ -269,6 +280,155 @@ class ProgressiveReader:
             else:
                 stack = [st.planes] if st.planes is not None else []
                 st.planes = np.concatenate(stack + new_rows, axis=0)
+            st.groups_fetched = tg
+            st.bytes_fetched += got
+            fetched += got
+        self.total_bytes_fetched += fetched
+        return fetched
+
+    def _shared_job(self, i: int, g: int, seg: ll.Segment, key, fut,
+                    blob: np.ndarray):
+        """Package one owned plane group as a self-contained shared decode
+        job (canonical row offset ``sum(group_planes[:g])``, so the decoded
+        delta is session-independent and cacheable)."""
+        from repro_torch.store import serving as sv  # store imports us
+        pm = self.ref.pieces[i]
+        if g < 0:
+            w = pm.groups[0].meta["n_words"]
+            rows = blob.view(np.uint32).reshape(1, w)
+            kind, row_offset = "sign", 0
+        else:
+            w = seg.meta["n_words"]
+            rows = (blob.view(np.uint32).reshape(-1, w) if w
+                    else np.zeros((pm.group_planes[g], 0), np.uint32))
+            kind, row_offset = "group", sum(pm.group_planes[:g])
+        return sv.DecodeJob(
+            key=key, kind=kind, rows=rows, row_offset=row_offset, n=pm.n,
+            mag_bits=self.ref.mag_bits, design=self.ref.design,
+            backend=self.backend, device=self.device, future=fut)
+
+    def _fetch_to_shared(self, target_groups: List[int],
+                         degrade: Optional[bool]) -> int:
+        """Serving-tier variant of ``_fetch_to``: every wanted plane group is
+        CLAIMED against the shared tier first — a cache hit skips fetch and
+        decode entirely, a coalesced claim waits on the owning session's
+        in-flight decode (exactly one backend read + one decode per group
+        service-wide), and an owned claim fetches the bytes and enqueues a
+        shared decode job (deferred: merged with other sessions' jobs into
+        one batched round at drain).
+
+        Byte accounting, degrade-cap semantics, and the resulting
+        reconstruction are identical to the private path: ``bytes_fetched``
+        stays the logical stored size of every group APPLIED to this
+        session (whether its decode ran here, elsewhere, or was cached), and
+        a typed store failure — local or propagated from the owning session
+        — caps the piece exactly as a direct fetch failure would."""
+        from repro_torch.store import reliability as rl  # store imports us
+        from repro_torch.store import serving as sv
+        tier = self.shared
+        if degrade is None:
+            degrade = self.degrade
+        deltas = self.pending_deltas(target_groups)
+        if not deltas:
+            return 0
+        r = self.ref
+        # empty pieces decode to nothing (private staging drops them too):
+        # keep them out of the tier, account their logical bytes below
+        claimable = [(i, g) for i, g in deltas if r.pieces[i].n > 0]
+        keys = {d: self.shared_scope + d for d in claimable}
+        claims = tier.claim(self.shared_tenant,
+                            [keys[d] for d in claimable])
+        mine = [d for d in claimable if claims[keys[d]][0] == "mine"]
+        # byte-range prefetch only what THIS session will read: coalesced
+        # groups are fetched (once) by their owning session
+        self.source.prefetch(mine)
+
+        results: dict = {}
+        dead: dict = {}  # piece -> the exception that capped it (this call)
+
+        def _cap(i: int, g: int, exc: BaseException) -> None:
+            st = self.state[i]
+            cap = 0 if g < 0 else g
+            st.cap = cap if st.cap is None else min(st.cap, cap)
+            self.degraded.append((i, g, type(exc).__name__))
+            dead[i] = exc
+
+        # -- phase 1: owned claims — fetch + lossless decode + submit.
+        # Every owned key resolves exactly one way (submit / fail /
+        # abandon), so a coalesced waiter can never hang on this session.
+        wants: List[Tuple[int, int, ll.Segment, object]] = []
+        try:
+            for (i, g) in claimable:
+                kind, payload = claims[keys[(i, g)]]
+                if kind != "mine":
+                    continue
+                if i in dead:
+                    # an earlier group of this piece already failed: these
+                    # bytes were never read and this session will never use
+                    # them — propagate the piece's fault to any coalesced
+                    # waiters (never cached: their next request retries)
+                    tier.fail(keys[(i, g)], dead[i])
+                    continue
+                try:
+                    seg = (self.source.sign(i) if g < 0
+                           else self.source.group(i, g))
+                except (rl.StoreIOError, ValueError, OSError) as exc:
+                    tier.fail(keys[(i, g)], exc)
+                    if not degrade:
+                        raise
+                    _cap(i, g, exc)
+                    continue
+                wants.append((i, g, seg, payload))
+            blobs = lb.decode_segments([w[2] for w in wants],
+                                        device=self.device)
+            tier.submit(self.shared_tenant,
+                        [self._shared_job(i, g, seg, keys[(i, g)], fut, blob)
+                         for (i, g, seg, fut), blob in zip(wants, blobs)])
+        except BaseException as exc:
+            tier.abandon(self.shared_tenant, [keys[d] for d in mine], exc)
+            raise
+        for (i, g, _, fut) in wants:
+            results[(i, g)] = ("future", fut)
+
+        # -- phase 2a: coalesced claims — resolve ALL waits before touching
+        # any state (non-degrade contract: a failed request mutates
+        # nothing).  wait_for pumps the shared queue, so two sessions
+        # blocked on each other's claims decode each other's jobs.
+        for (i, g) in claimable:
+            kind, payload = claims[keys[(i, g)]]
+            if kind == "hit":
+                results[(i, g)] = ("value", payload)
+            elif kind == "theirs":
+                if i in dead:
+                    continue
+                try:
+                    v = tier.wait_for(payload)
+                except (rl.StoreIOError, ValueError, OSError) as exc:
+                    if not degrade:
+                        raise
+                    _cap(i, g, exc)
+                    continue
+                results[(i, g)] = ("value", v)
+
+        # -- phase 2b: stage + account exactly as the private path.  Cache
+        # hits and resolved waits stage as pre-resolved futures, owned jobs
+        # as live ones; the tier OR-applies all of them at drain time.
+        fetched = 0
+        for i, (pm, st) in enumerate(zip(r.pieces, self.state)):
+            tg = min(target_groups[i], self._limit(i))
+            if tg <= st.groups_fetched:
+                continue
+            got = 0
+            if st.groups_fetched == 0:
+                if pm.n > 0:
+                    self.engine.stage_shared(
+                        "sign", i, sv.entry_future(results[(i, -1)]))
+                got += pm.sign_seg.stored_bytes
+            for g in range(st.groups_fetched, tg):
+                if pm.n > 0:
+                    self.engine.stage_shared(
+                        "group", i, sv.entry_future(results[(i, g)]))
+                got += pm.groups[g].stored_bytes
             st.groups_fetched = tg
             st.bytes_fetched += got
             fetched += got

@@ -46,6 +46,9 @@ ENCODE_SYMBOLS = ("rb_encode", "loc_encode", "shuffle_encode")
 DECODE_SYMBOLS = ("rb_decode", "loc_decode")
 
 _lock = threading.Lock()
+# launches counters are read-modify-written by any thread that decodes
+# (concurrent sessions of a store service)
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}     # path, seconds, built (False: reused), ptxas log
 
@@ -145,7 +148,8 @@ def _encode(wrapper, symbol: str, mags: torch.Tensor,
         err = fn(mags.data_ptr(), out.data_ptr(), n, n, b, num_planes, words,
                  stream)
     _raise_on(err, symbol)
-    wrapper.launches += 1
+    with _count_lock:
+        wrapper.launches += 1
     return out
 
 
@@ -176,7 +180,8 @@ def _decode(wrapper, symbol: str, planes: torch.Tensor,
         err = fn(planes.data_ptr(), out.data_ptr(), n, b, rows,
                  num_planes_total, words, stream)
     _raise_on(err, symbol)
-    wrapper.launches += 1
+    with _count_lock:
+        wrapper.launches += 1
     return out
 
 

@@ -315,3 +315,53 @@ def test_round_robin_placement_on_cards(cuda):
     a = pl.ChunkedReconstructPipeline(mesh=2).reconstruct(want, 1e-4)
     b = pl.ChunkedReconstructPipeline(device=cuda).reconstruct(want, 1e-4)
     assert a.tobytes() == b.tobytes()
+
+
+def test_store_and_shared_tier_card_match_cpu(cuda, tmp_path):
+    """A store written on the card has the CPU write's segment bytes; four
+    concurrent sessions served through the shared tier on the card get the
+    CPU service's values, bounds and bytes, with launches shared across
+    sessions."""
+    import json
+    import threading
+    from repro_torch.store import DatasetStore, DatasetWriter, RetrievalService
+    from repro_torch.store import layout as lo
+    x = gaussian_field((40, 40, 40), slope=-2.0, seed=6)
+    for dev in ("cuda", "cpu"):
+        with DatasetWriter(str(tmp_path / dev), chunk_elems=16384,
+                           use_tune_cache=False, device=dev) as w:
+            w.write("v", x)
+
+    def entry(root):
+        with open(tmp_path / root / lo.MANIFEST_NAME) as f:
+            v = json.load(f)["variables"]["v"]
+        with open(lo.segment_path(str(tmp_path / root),
+                                  v.pop("segment_file")), "rb") as f:
+            return v, f.read()
+    assert entry("cuda") == entry("cpu")
+    cpu = RetrievalService(DatasetStore.open(str(tmp_path / "cpu"),
+                                             device="cpu")).open_session()
+    want = {tol: cpu.retrieve("v", tol) for tol in (1e-2, 1e-4)}
+    svc = RetrievalService(DatasetStore.open(str(tmp_path / "cuda")))
+    outs = [[] for _ in range(4)]
+    barrier = threading.Barrier(4)
+
+    def run(k):
+        s = svc.open_session()
+        barrier.wait(timeout=60)
+        for tol in (1e-2, 1e-4):
+            outs[k].append(s.retrieve("v", tol))
+
+    bp.reset_launches()
+    ts = [threading.Thread(target=run, args=(k,)) for k in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in ts)
+    for out in outs:
+        for (xa, ba, fa), tol in zip(out, (1e-2, 1e-4)):
+            xb, bb, fb = want[tol]
+            assert xa.tobytes() == xb.tobytes() and (ba, fa) == (bb, fb)
+    tier = svc.stats()["serving"]
+    assert 0 < bp.decode_register_block_cuda.launches < tier["decoded"]

@@ -325,8 +325,18 @@ def test_degrade_matches_reference(fail):
 
 def test_reader_rules():
     r = rf.refactor_array(np.ones((8, 8), np.float32), device="cpu")
-    with pytest.raises(NotImplementedError):
-        rt.ProgressiveReader(r, device="cpu", shared=object())
+    # shared= routes through a serving tier (same values as a private
+    # reader); the full-decode oracle stays private
+    from repro_torch.store.serving import ServingTier
+    tier = ServingTier()
+    a = rt.ProgressiveReader(r, device="cpu", shared=tier)
+    b = rt.ProgressiveReader(r, device="cpu")
+    xa, ba, fa = a.retrieve(1e-3)
+    xb, bb, fb = b.retrieve(1e-3)
+    assert _bits(xa) == _bits(xb) and (ba, fa) == (bb, fb)
+    assert tier.stats.snapshot()["decoded"] > 0
+    assert rt.ProgressiveReader(r, device="cpu", shared=tier,
+                                incremental=False).shared is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             rt.ProgressiveReader(r)
