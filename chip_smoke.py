@@ -67,7 +67,32 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ``rb_decode`` launches must be fewer than the decode jobs, and a CPU
    write of U must give the card's segment bytes and manifest entry.
 
-Phases 7, 8 and 9 zero the launch counters before their runs and require
+10. the sharded engines on a mesh that names the one card four times
+   (``["cuda:0"] * 4``): phase 8's field written through
+   ``ShardedRefactorPlan.refactor_chunks`` must give phase 8's blobs, and
+   read through ``ShardedReconstructEngine.engine_for`` phase 8's values;
+   ``encode_bitplanes_sharded``/``decode_bitplanes_sharded`` on an (8,
+   2**24) batch must equal the batch ops for every design, and a batch of 6
+   must raise.  This is the split path on one card, not several cards;
+11. the autotuner: ``tune()`` at Isabel's shape with a fresh cache under
+   ``build/tune_smoke/`` probes all 9 programs (the default first), then 3
+   ``dispatch_ahead`` and 3 ``depth`` values through the real pipelines,
+   with no failed probe; the winner's probe is no slower than the
+   default's, and a second call is a cache hit.  Then the chunk problem a
+   pipeline looks up (chunks of 2**20, levels 2) is tuned, and a
+   ``ChunkedRefactorPipeline`` with the cache on (``REPRO_TUNE_CACHE``)
+   must pick its winner and write an explicit ``config=winner`` write's
+   blobs;
+12. the exact codec and checkpoints: a Miranda-shaped float64 field (256,
+   384, 384) refactored on the card (two 32-plane limbs), serialized, and
+   retrieved at relative errors 1e-2 .. 1e-12 (within each bound, bytes
+   non-decreasing) and exactly (bit-exact); card == CPU on a slice; then
+   one decoder layer of qwen2-7b at its published widths (233M values), in
+   float32 and in bfloat16 (16 planes), saved with ``save`` and with
+   ``AsyncCheckpointer`` under ``build/ckpt_smoke/``, loaded bit-exact, and
+   loaded at rel 1e-2 (float32) / 1e-1 (bfloat16) within the bound.
+
+Phases 7-12 zero the launch counters before their runs and require
 the kernels of their paths to have launched; the kernels line's
 ``launches`` is phase 3's count for the ``register_block`` pair (phase 9's
 are printed on a line of their own).  Each phase's wall and peak device
@@ -79,6 +104,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -660,7 +686,7 @@ def pipeline_phase(torch, bp):
               f"{design}: card and CPU chunk blobs differ")
     print("card == CPU chunk blobs on (64, 128, 128), locality and shuffle",
           flush=True)
-    return launches
+    return launches, x, first, outs[True]
 
 
 # ---------------------------------------------------------------- phase 9 --
@@ -909,6 +935,394 @@ def _store_phase(torch, bp, shape, device, root):
     return launches
 
 
+# --------------------------------------------------------------- phase 10 --
+
+ONE_CARD_MESH = ["cuda:0"] * 4
+
+
+def sharded_phase(torch, bp, x, blobs, values):
+    """Phase 8's write and read through the sharded engines on a mesh that
+    names the one card four times, and the sharded kernel ops against the
+    batch ops."""
+    from repro_torch.core import refactor as rf
+    from repro_torch.core import retrieve as rt
+    from repro_torch.core import sharded as shd
+    from repro_torch.kernels import ops
+
+    flat = x.reshape(-1)
+    chunks = [flat[i:i + PIPE_CHUNK] for i in range(0, flat.size, PIPE_CHUNK)]
+    plan = shd.ShardedRefactorPlan(ONE_CARD_MESH, levels=PIPE_LEVELS,
+                                   design="shuffle")
+    bp.reset_launches()
+    shd.STATS.reset()
+    t0 = time.perf_counter()
+    refs = plan.refactor_chunks(chunks, name="nyx")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = [rf.refactored_to_bytes(r) for r in refs]
+    check(got == blobs, "sharded chunk blobs differ from phase 8's")
+    snap = shd.STATS.snapshot()
+    print(f"refactor_chunks on {len(ONE_CARD_MESH)} x cuda:0, {len(chunks)} "
+          f"chunks: "
+          f"{wall:.3f} s, {x.nbytes / wall / 1e9:.3f} GB/s, {snap['rounds']} "
+          f"windows, dispatches by mesh entry "
+          f"{snap['dispatches_by_device']}; blobs == phase 8's", flush=True)
+
+    eng = shd.ShardedReconstructEngine(ONE_CARD_MESH)
+    t0 = time.perf_counter()
+    readers = []
+    for ci, blob in enumerate(blobs):
+        ref = rf.refactored_from_bytes(blob)
+        reader = rt.ProgressiveReader(ref, device=eng.device_for(ci))
+        reader.engine = eng.engine_for(ci, ref)
+        reader.stage_retrieve(PIPE_TOL)
+        readers.append(reader)
+    eng.drain([r.engine for r in readers])
+    out = torch.cat([r.reconstruct_device()[0].reshape(-1) for r in readers])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(out.cpu().numpy().tobytes() == values.tobytes(),
+          "engine_for reads differ from phase 8's values")
+    print(f"read through engine_for, one drain of {len(readers)} engines, tol "
+          f"{PIPE_TOL:g}: {wall:.3f} s; values == phase 8's", flush=True)
+    read_launches(bp, ("shuffle_encode", "loc_decode"),
+                  "phase-10 sharded-engine launches")
+
+    mags = torch.randint(0, 2 ** MAG_BITS, (8, PIPE_CHUNK), dtype=torch.int32,
+                         device="cuda",
+                         generator=torch.Generator(device="cuda"
+                                                   ).manual_seed(10))
+    bp.reset_launches()
+    for design in ops.DESIGNS:
+        want = ops.encode_bitplanes_batch(mags, MAG_BITS, design)
+        blocks = ops.encode_bitplanes_sharded(mags, MAG_BITS, design,
+                                              mesh=ONE_CARD_MESH)
+        check(len(blocks) == 4 and torch.equal(torch.cat(blocks), want),
+              f"{design}: sharded encode differs from the batch op")
+        prefix = want[:, :8].contiguous()
+        dec = ops.decode_bitplanes_sharded(prefix, MAG_BITS, PIPE_CHUNK,
+                                           design, mesh=ONE_CARD_MESH)
+        check(torch.equal(torch.cat(dec), ops.decode_bitplanes_batch(
+            prefix, MAG_BITS, PIPE_CHUNK, design)),
+            f"{design}: sharded decode differs from the batch op")
+        del want, blocks, prefix, dec
+    try:
+        ops.encode_bitplanes_sharded(mags[:6], MAG_BITS, mesh=ONE_CARD_MESH)
+    except ValueError as exc:
+        print(f"a batch of 6 over 4 mesh entries raises: {exc}")
+    else:
+        raise SmokeFailure("a batch of 6 over 4 mesh entries did not raise")
+    read_launches(bp, ("rb_encode", "rb_decode", "loc_encode",
+                       "shuffle_encode", "loc_decode"),
+                  "phase-10 sharded-op launches (batch ops and 4 blocks)")
+    print("sharded ops == batch ops on (8, 2**24), 23 planes encoded, 8 "
+          "decoded, all three designs.  This runs the split path on one card "
+          "(4 mesh entries, all cuda:0); it says nothing of several cards.",
+          flush=True)
+
+
+# --------------------------------------------------------------- phase 11 --
+
+TUNE_CHUNK = 1 << 20    # the chunk DatasetWriter writes by default
+
+
+def _print_tune(r, what):
+    print(f"{what}: {r.tune_s:.3f} s, winner {r.config.design} "
+          f"group_size={r.config.group_size} dispatch_ahead="
+          f"{r.config.dispatch_ahead} depth={r.config.depth}", flush=True)
+    for c, sec in r.probes:
+        print(f"  probe {c.design}/group_size={c.group_size}: {sec:.4f} s")
+    for c, sec in r.dispatch_probes:
+        print(f"  probe dispatch_ahead={c.dispatch_ahead}: {sec:.4f} s")
+    for c, sec in r.depth_probes:
+        print(f"  probe depth={c.depth}: {sec:.4f} s", flush=True)
+
+
+def tune_phase(torch, bp, x_np):
+    """``tune()`` at Isabel's shape with a fresh cache under ``build/``,
+    then a pipeline with the cache on picks a tuned winner up."""
+    import shutil
+    root = os.path.join(REPO, "build", "tune_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    old = os.environ.get("REPRO_TUNE_CACHE")
+    try:
+        _tune_phase(torch, bp, x_np, root)
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TUNE_CACHE"] = old
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tune_phase(torch, bp, x_np, root):
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.tune import cache as tcache
+    from repro_torch.tune import search as ts
+
+    ts.STATS.reset()
+    bp.reset_launches()
+    r = ts.tune(ISABEL_SHAPE, cache_root=root)
+    _print_tune(r, f"tune {ISABEL_SHAPE} float32 (levels auto)")
+    st = ts.STATS.snapshot()
+    print(f"tuner stats: {st}; failures {list(r.failures)}", flush=True)
+    check(st["probes_failed"] == 0 and not r.failures,
+          f"{st['probes_failed']} tuner probes failed: {r.failures}")
+    check(not r.cache_hit and len(r.probes) == 9
+          and r.probes[0][0].design == "register_block"
+          and r.probes[0][0].group_size == 4, "the default did not head "
+          "the 9 program probes")
+    check(len(r.dispatch_probes) == 3 and len(r.depth_probes) == 3,
+          "the pipeline knobs were not probed")
+    best, win = min(r.probes, key=lambda cs: cs[1])
+    check((best.design, best.group_size)
+          == (r.config.design, r.config.group_size),
+          "the winner is not the fastest program probe")
+    check(win <= r.probes[0][1], f"winner {win} s slower than the default "
+          f"{r.probes[0][1]} s")
+    print(f"winner's program probe {win:.4f} s <= default's "
+          f"{r.probes[0][1]:.4f} s", flush=True)
+    # every design's encoder ran in the program probes; the read probes
+    # decode the winner's design
+    read_launches(bp, ("rb_encode", "loc_encode", "shuffle_encode",
+                       "rb_decode" if r.config.design == "register_block"
+                       else "loc_decode"), "phase-11 launches")
+    r2 = ts.tune(ISABEL_SHAPE, cache_root=root)
+    check(r2.cache_hit and r2.config == r.config
+          and ts.STATS.snapshot()["searches"] == st["searches"],
+          "the second tune() call was not a cache hit")
+    print(f"second tune(): cache hit in {r2.tune_s * 1e3:.2f} ms, searches "
+          f"unchanged ({st['searches']})", flush=True)
+
+    # the pipelines look the cache up by their chunk shape and levels: tune
+    # that problem (Isabel written in DatasetWriter's default chunks), then
+    # a pipeline with the cache on must pick its winner up
+    rc = ts.tune((TUNE_CHUNK,), levels=PIPE_LEVELS, cache_root=root)
+    _print_tune(rc, f"tune ({TUNE_CHUNK},) float32 levels {PIPE_LEVELS}")
+    check(ts.STATS.snapshot()["probes_failed"] == 0,
+          "chunk-problem tuner probes failed")
+    os.environ["REPRO_TUNE_CACHE"] = root
+    tcache.invalidate_memo()
+    hits = tcache.STATS.snapshot()["hits"]
+    cached = pipe.ChunkedRefactorPipeline(chunk_elems=TUNE_CHUNK,
+                                          levels=PIPE_LEVELS, device="cuda")
+    check(tcache.STATS.snapshot()["hits"] == hits + 1
+          and cached.config == rc.config.replace(chunk_elems=TUNE_CHUNK),
+          "the pipeline did not pick the cached winner")
+    t0 = time.perf_counter()
+    blobs = cached.refactor(x_np, "isabel")
+    wall = time.perf_counter() - t0
+    explicit = pipe.ChunkedRefactorPipeline(
+        chunk_elems=TUNE_CHUNK, levels=PIPE_LEVELS, config=rc.config,
+        use_tune_cache=False, device="cuda").refactor(x_np, "isabel")
+    check(blobs == explicit, "tune-cache and config=winner blobs differ")
+    print(f"pipeline with the tune cache on: picked the winner, {len(blobs)} "
+          f"chunks in {wall:.3f} s, blobs == a config=winner write",
+          flush=True)
+
+
+# --------------------------------------------------------------- phase 12 --
+
+MIRANDA_SHAPE = (256, 384, 384)    # data.fields.DATASETS["miranda"]
+EXACT_RELS = (1e-2, 1e-4, 1e-8, 1e-12, None)
+# one decoder layer of qwen2-7b (src/repro/configs/qwen2_7b.py: d_model
+# 3584, 28 heads, 4 KV heads of 128, d_ff 18944, QKV bias), leaves named as
+# src/repro/models/layers.py gqa_abstract / mlp_abstract and
+# src/repro/models/transformer.py block_abstract name them
+QWEN_D, QWEN_H, QWEN_KV, QWEN_DH, QWEN_FF = 3584, 28, 4, 128, 18944
+
+
+def qwen_layer(torch, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaf(*shape):
+        return (0.02 * torch.randn(shape, generator=g, device="cuda")
+                ).to(dtype)
+    d, h, kv, dh, ff = QWEN_D, QWEN_H, QWEN_KV, QWEN_DH, QWEN_FF
+    return {"norm1": leaf(d), "norm2": leaf(d),
+            "attn": {"wq": leaf(d, h, dh), "wk": leaf(d, kv, dh),
+                     "wv": leaf(d, kv, dh), "wo": leaf(h, dh, d),
+                     "bq": leaf(h, dh), "bk": leaf(kv, dh),
+                     "bv": leaf(kv, dh)},
+            "mlp": {"w1": leaf(d, ff), "w3": leaf(d, ff), "w2": leaf(ff, d)}}
+
+
+def _max_rel(torch, out, x):
+    """Largest |out - x| / |x| over x != 0 (float64 on the card); a zero
+    must come back as zero."""
+    a, b = out.double().reshape(-1), x.double().reshape(-1)
+    nz = b != 0
+    check(bool((a[~nz] == 0).all()), "a zero came back non-zero")
+    return ((a[nz] - b[nz]).abs() / b[nz].abs()).max().item() \
+        if bool(nz.any()) else 0.0
+
+
+def ckpt_phase(torch, bp):
+    import shutil
+    root = os.path.join(REPO, "build", "ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        miranda_phase(torch, bp)
+        # bfloat16 at 1e-1 needs 13 of its 16 planes, so every 4-plane
+        # group; at 0.125 it needs 12, so 3 of the 4 groups
+        for dtype, rels in ((torch.float32, (1e-2,)),
+                            (torch.bfloat16, (1e-1, 0.125))):
+            checkpoint_phase(torch, bp, root, dtype, rels)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def miranda_phase(torch, bp):
+    import numpy as np
+    from repro_torch.ckpt import bitcast_codec as bc
+    from repro_torch.data.fields import gaussian_field
+    from repro_torch.obs import trace as obs_trace
+
+    t0 = time.perf_counter()
+    x = gaussian_field(MIRANDA_SHAPE, slope=-3.0, seed=0, dtype=np.float64)
+    print(f"Miranda-shaped field {MIRANDA_SHAPE} float64 ({x.nbytes / 1e6:.1f}"
+          f" MB): {time.perf_counter() - t0:.2f} s to make", flush=True)
+    x_dev = torch.from_numpy(x).cuda()
+    bp.reset_launches()
+    with obs_trace.tracing() as tr:
+        t0 = time.perf_counter()
+        r = bc.exact_refactor(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_spans(tr, "exact_refactor")
+    blob = bc.exact_to_bytes(r)
+    r2 = bc.exact_from_bytes(blob)
+    check(bc.exact_to_bytes(r2) == blob, "codec blob does not round-trip")
+    print(f"exact_refactor on the card: {wall:.3f} s, "
+          f"{x.nbytes / wall / 1e9:.3f} GB/s, {len(blob)} bytes (ratio "
+          f"{x.nbytes / len(blob):.3f}), {len(r.groups)} groups of "
+          f"{r.group_planes[0]} planes, {r.groups[0].meta['n_words']} words "
+          f"a plane", flush=True)
+    prev = 0
+    for rel in EXACT_RELS:
+        with obs_trace.tracing() as tr:
+            t0 = time.perf_counter()
+            out, nb = bc.exact_retrieve(r2, rel)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print_spans(tr, f"exact_retrieve rel {rel}")
+        check(out.dtype == torch.float64 and tuple(out.shape) == MIRANDA_SHAPE
+              and out.device.type == "cuda", f"rel {rel}: {out.dtype} "
+              f"{tuple(out.shape)} on {out.device}")
+        check(nb >= prev, f"rel {rel}: bytes decreased")
+        prev = nb
+        if rel is None:
+            check(torch.equal(out.view(torch.int64), x_dev.view(torch.int64)),
+                  "the full retrieve is not bit-exact")
+            err = 0.0
+        else:
+            err = _max_rel(torch, out, x_dev)
+            check(err <= rel, f"rel {rel}: max relative error {err}")
+        print(f"exact_retrieve rel {rel}: {wall:.3f} s, {nb} bytes "
+              f"({nb / len(blob):.3f} of the blob), max relative error "
+              f"{err:.3g}{' (bit-exact)' if rel is None else ''}", flush=True)
+    read_launches(bp, ("rb_encode", "rb_decode"),
+                  "phase-12 Miranda launches (32-plane limbs)")
+    xs = x[:64, :96, :96].copy()
+    check(bc.exact_to_bytes(bc.exact_refactor(xs)) ==
+          bc.exact_to_bytes(bc.exact_refactor(xs, device="cpu")),
+          "card and CPU codec blobs differ on the (64, 96, 96) slice")
+    print("card == CPU codec blob on the (64, 96, 96) float64 slice",
+          flush=True)
+
+
+def _groups_for(name, rel, group_size=4):
+    """(plane groups a load at ``rel`` needs, groups in all) for a dtype:
+    the sign and exponent planes plus ceil(-log2 rel) mantissa planes."""
+    from repro_torch.ckpt import bitcast_codec as bc
+    fmt = bc._FMT[name]
+    planes = min(1 + fmt["n_exp"] + max(math.ceil(-math.log2(rel)), 0),
+                 fmt["bits"])
+    return -(-planes // group_size), fmt["bits"] // group_size
+
+
+def checkpoint_phase(torch, bp, root, dtype, rels):
+    from repro_torch.ckpt import manager as ck
+    from repro_torch.obs import trace as obs_trace
+
+    name = str(dtype).rsplit(".", 1)[-1]
+    tree = qwen_layer(torch, dtype)
+    leaves = [v for _, v in ck._paths(tree)]
+    raw = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"qwen2-7b layer tree, {name}: {len(leaves)} leaves, "
+          f"{sum(t.numel() for t in leaves)} values, {raw / 1e9:.3f} GB",
+          flush=True)
+    bp.reset_launches()
+    torch.cuda.synchronize()
+    with obs_trace.tracing() as tr:
+        t0 = time.perf_counter()
+        ck.save(os.path.join(root, name), 1, tree)
+        wall = time.perf_counter() - t0
+    print_spans(tr, f"save ({name})")
+    with open(os.path.join(root, name, "step_00000001",
+                           "manifest.json")) as f:
+        man = json.load(f)["leaves"]
+    stored = sum(e["stored_bytes"] for e in man.values())
+    check(man["attn.bk"]["codec"] == man["attn.bv"]["codec"] == "raw"
+          and man["mlp.w1"]["codec"] == "mdr", "codec choice per leaf")
+    print(f"save ({name}): {wall:.3f} s, {raw / wall / 1e9:.3f} GB/s, "
+          f"{stored / 1e9:.3f} GB stored (ratio {raw / stored:.3f})",
+          flush=True)
+    t0 = time.perf_counter()
+    a = ck.AsyncCheckpointer(os.path.join(root, name + "_async"))
+    a.save(2, tree)
+    t_snap = time.perf_counter() - t0
+    a.wait()
+    wall = time.perf_counter() - t0
+    check(ck.latest_step(os.path.join(root, name + "_async")) == 2,
+          "the async checkpoint is not the latest step")
+    print(f"AsyncCheckpointer ({name}): save() returned in {t_snap:.3f} s "
+          f"(host snapshot), done in {wall:.3f} s, "
+          f"{raw / wall / 1e9:.3f} GB/s", flush=True)
+    fracs = {}
+    for where, r in (("", None), ("_async", None)) + tuple(
+            ("", rel) for rel in rels):
+        torch.cuda.synchronize()
+        with obs_trace.tracing() as tr:
+            t0 = time.perf_counter()
+            out, st = ck.load(os.path.join(root, name + where),
+                              2 if where else 1, tree, rel_error=r)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if not where:
+            print_spans(tr, f"load ({name}, rel {r})")
+        got = [v for _, v in ck._paths(out)]
+        worst = 0.0
+        for (path, want), g in zip(ck._paths(tree), got):
+            check(g.dtype == want.dtype and g.shape == want.shape
+                  and g.device.type == "cuda", f"leaf {path}")
+            if r is None:
+                check(torch.equal(g.view(torch.int16 if dtype ==
+                                         torch.bfloat16 else torch.int32),
+                                  want.view(torch.int16 if dtype ==
+                                            torch.bfloat16 else torch.int32)),
+                      f"leaf {path} is not bit-exact")
+            else:
+                worst = max(worst, _max_rel(torch, g, want))
+        if r is not None:
+            check(worst <= r, f"{name} rel {r}: max relative error {worst}")
+            check(st["read_fraction"] < 1, f"{name} rel {r}: read all")
+            need, total = _groups_for(name, r)
+            check((st["read_fraction"] < fracs[("", None)])
+                  == (need < total), f"{name} rel {r}: needs {need} of "
+                  f"{total} groups, read_fraction {st['read_fraction']}")
+        fracs[(where, r)] = st["read_fraction"]
+        print(f"load{where or ''} ({name}, rel {r}): {wall:.3f} s, "
+              f"{raw / wall / 1e9:.3f} GB/s, read_fraction "
+              f"{st['read_fraction']:.4f}, "
+              + ("every leaf bit-exact" if r is None else
+                 f"max relative error {worst:.3g}"), flush=True)
+    planes = 32 if dtype == torch.float32 else 16
+    read_launches(bp, ("rb_encode", "rb_decode"),
+                  f"phase-12 {name} checkpoint launches ({planes}-plane "
+                  f"bitplanes)")
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -983,7 +1397,8 @@ def main(argv) -> int:
     done(t0, "phase 7")
 
     t0 = phase("8 chunked pipeline, shuffle, at full size")
-    launches["shuffle_encode"] = pipeline_phase(torch, bp)["shuffle_encode"]
+    p8, nyx, nyx_blobs, nyx_values = pipeline_phase(torch, bp)
+    launches["shuffle_encode"] = p8["shuffle_encode"]
     done(t0, "phase 8")
 
     t0 = phase("9 store and serving at full size")
@@ -992,6 +1407,19 @@ def main(argv) -> int:
           f"rb_decode {p9['serve']['rb_decode']} (shared serving)",
           flush=True)
     done(t0, "phase 9")
+
+    t0 = phase("10 sharded engines, split over one card")
+    sharded_phase(torch, bp, nyx, nyx_blobs, nyx_values)
+    del nyx, nyx_blobs, nyx_values
+    done(t0, "phase 10")
+
+    t0 = phase("11 the autotuner at the Isabel shape")
+    tune_phase(torch, bp, x_np)
+    done(t0, "phase 11")
+
+    t0 = phase("12 exact codec (float64 Miranda) and checkpoints")
+    ckpt_phase(torch, bp)
+    done(t0, "phase 12")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

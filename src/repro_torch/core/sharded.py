@@ -1,40 +1,47 @@
 """Chunk -> device placement for the refactor and retrieval workflows.
 
-A port of the single-process part of ``repro.core.sharded``.  Chunks are
-independent (each is refactored with its own decomposition, alignment and
-lossless state), so the data axis is the *chunk* axis.  The reference's
-``Mesh`` becomes a list of ``torch.device``s here:
+A port of ``repro.core.sharded``.  Chunks are independent (each is
+refactored with its own decomposition, alignment and lossless state), so the
+data axis is the *chunk* axis.  The reference's 1-d ``('chunk',)`` ``Mesh``
+becomes a list of ``torch.device``s here:
 
 * ``mesh=None`` is the one default device (``cuda`` unless the caller
   passes ``device="cpu"``);
-* an int ``n`` is the first ``n`` cards, ``cuda:0 .. cuda:n-1`` (on the CPU,
-  ``n`` shards of the one host device, as the reference's host-device
-  meshes are);
-* a sequence of devices is taken as given.
+* an int ``n`` is ``make_chunk_mesh(n)``: the first ``n`` cards,
+  ``cuda:0 .. cuda:n-1`` (on the CPU, ``n`` shards of the one host device,
+  as the reference's host-device meshes are);
+* a sequence of devices is taken as given.  One card may appear several
+  times (``["cuda:0"] * 4``): its chunks then run in turn on its current
+  stream, which is the split path on one card.
 
 Chunk ``ci`` lives on device ``ci % n`` (round-robin).
 
 ``ShardedRefactorPlan`` (write side) places each chunk's input on its
 owning device and runs the chunk's fused encode there
 (``refactor_fused.dispatch_encode``: kernels launch on that device's current
-stream); ``finish_many`` resolves any batch of dispatched chunks with one
-scalar gather plus one stacked codec pass (``finish_encode_many``).
+stream); ``dispatch_round`` dispatches one chunk per device, and
+``finish_many`` resolves any batch of dispatched chunks with one scalar
+gather plus one stacked codec pass (``finish_encode_many``), 3 host syncs
+for the batch.  ``refactor_chunks`` runs both a window at a time.
 
 ``ShardedReconstructEngine`` (read side) pins each chunk's incremental
-reconstruction state to its owning device; ``reconstruct.
+reconstruction state to its owning device (``engine_for``); ``reconstruct.
 batch_apply_pending`` keys its decode buckets on the device, so a stacked
 decode never mixes devices.
 
+The kernel ops' sharded forms (``kernels.ops.encode_bitplanes_sharded``,
+``decode_bitplanes_sharded``) split a batch's rows over the same device
+lists.
+
 Placement never changes values: every device runs the same code on the same
-inputs, so the output is byte-identical to the single-device path.
-The reference's ``make_chunk_mesh`` and the ``shard_map`` forms of its
-kernel ops are not ported yet.
+inputs, so the output is byte-identical to the single-device path (on
+several cards: the card tests that need two of them).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +56,8 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 MeshLike = Union[None, int, Sequence[DeviceLike]]
+
+CHUNK_AXIS = "chunk"
 
 
 # ------------------------------------------------------------------- stats --
@@ -91,6 +100,26 @@ STATS = ShardedStats()
 
 # -------------------------------------------------------------------- mesh --
 
+def make_chunk_mesh(n_devices: Optional[int] = None,
+                    device: DeviceLike = None) -> List[torch.device]:
+    """The chunk axis over the first ``n_devices`` cards, ``cuda:0 ..
+    cuda:n-1`` (``None``: every card).  When ``device`` is the CPU, ``n``
+    shards of the one host device (``None``: one).  Chunk ``ci`` lives on
+    entry ``ci % n``."""
+    base = resolve_device(device)
+    if n_devices is not None and n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    if base.type != "cuda":
+        return [base] * (1 if n_devices is None else n_devices)
+    count = torch.cuda.device_count()
+    if n_devices is None:
+        n_devices = count
+    if n_devices > count:
+        raise ValueError(
+            f"requested {n_devices} devices, only {count} available")
+    return [torch.device("cuda", k) for k in range(n_devices)]
+
+
 def resolve_mesh(mesh: MeshLike, device: DeviceLike = None
                  ) -> Optional[List[torch.device]]:
     """Normalize the ``mesh=`` knob: None / device count / device list.
@@ -99,15 +128,7 @@ def resolve_mesh(mesh: MeshLike, device: DeviceLike = None
     if mesh is None:
         return None
     if isinstance(mesh, int):
-        if mesh < 1:
-            raise ValueError(f"mesh size must be >= 1, got {mesh}")
-        base = resolve_device(device)
-        if base.type != "cuda":
-            return [base] * mesh
-        if mesh > torch.cuda.device_count():
-            raise ValueError(f"requested {mesh} cards, only "
-                             f"{torch.cuda.device_count()} available")
-        return [torch.device("cuda", k) for k in range(mesh)]
+        return make_chunk_mesh(mesh, device)
     if isinstance(mesh, (list, tuple)):
         if not mesh:
             raise ValueError("an empty device list")
@@ -236,6 +257,13 @@ class ShardedRefactorPlan:
                                        hybrid=self.hybrid, config=self.config,
                                        device=dev)
 
+    def dispatch_round(self, chunks: Sequence[Tuple[int, np.ndarray]],
+                       name: str = "var") -> List[rff.PendingChunk]:
+        """Dispatch one round: each (ci, host_chunk) to its owning device,
+        with no sync, so a round of N chunks on N cards runs concurrently."""
+        return [self.dispatch(ci, chunk, name=f"{name}.{ci}")
+                for ci, chunk in chunks]
+
     def finish_many(self, pendings: Sequence[rff.PendingChunk]
                     ) -> List[rf.Refactored]:
         """Resolve a batch of dispatched chunks — any number, any device mix:
@@ -249,6 +277,23 @@ class ShardedRefactorPlan:
         STATS.add(rounds=1, chunks_finished=len(pendings))
         with obs_trace.span("sharded.finish_many", chunks=len(pendings)):
             return rff.finish_encode_many(pendings)
+
+    def finish_round(self, pendings: Sequence[rff.PendingChunk]
+                     ) -> List[rf.Refactored]:
+        """A round is a batch of one chunk per device: ``finish_many``."""
+        return self.finish_many(pendings)
+
+    def refactor_chunks(self, chunks: Sequence[np.ndarray], name: str = "var"
+                        ) -> List[rf.Refactored]:
+        """Dispatch a window of one chunk per mesh entry, finish it with one
+        ``finish_many`` (3 host syncs), and go on to the next window;
+        results come back in chunk order."""
+        out: List[rf.Refactored] = []
+        n = self.n_shards
+        for base in range(0, len(chunks), n):
+            rnd = [(base + j, c) for j, c in enumerate(chunks[base:base + n])]
+            out.extend(self.finish_many(self.dispatch_round(rnd, name=name)))
+        return out
 
 
 # --------------------------------------------------------------- read side --
@@ -280,6 +325,13 @@ class ShardedReconstructEngine:
 
     def device_for(self, ci: int) -> torch.device:
         return self.devices[self.shard_for(ci)]
+
+    def engine_for(self, ci: int, ref: rf.Refactored, backend: str = "auto"
+                   ) -> rc.IncrementalReconstructor:
+        """Chunk ``ci``'s incremental reconstruction state, on its owning
+        device."""
+        return rc.IncrementalReconstructor(ref, backend=backend,
+                                           device=self.device_for(ci))
 
     @staticmethod
     def drain(engines: Sequence[rc.IncrementalReconstructor]) -> None:

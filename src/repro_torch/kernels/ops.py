@@ -14,7 +14,8 @@ decodes for both.
 
 Every entry point takes ``device=``: numpy or torch input is placed there
 first; ``None`` means ``cuda`` (see ``repro_torch.device``).  A batch form is
-ONE kernel launch with a batch grid axis.
+ONE kernel launch with a batch grid axis; a sharded form splits a batch's
+rows over the devices of a mesh, one batch launch per mesh entry.
 
 ``tiles_per_block`` and ``unroll`` are accepted so that the signatures (and
 ``config_kwargs``) match ``repro.kernels.ops``.  In the reference they pick a
@@ -23,6 +24,8 @@ the output; the CUDA kernel has one blocking and one transpose, so here they
 are ignored.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -125,6 +128,70 @@ def decode_bitplanes(planes, num_planes_total: int, n: int,
     planes = as_u32_bits(planes, device)
     return decode_bitplanes_batch(planes[None], num_planes_total, n, design,
                                   backend, device=planes.device)[0]
+
+
+def _shard_batch(fn, batch, mesh, axis: str, device: DeviceLike):
+    """Split ``batch``'s rows into one equal block per entry of ``mesh`` and
+    run ``fn`` on each block on that entry's device (on its current stream),
+    with no collective and no host round trip.  Returns the blocks' results
+    as a tuple in mesh order."""
+    from repro_torch.core import sharded as shd  # local: keep graph flat
+
+    if axis != shd.CHUNK_AXIS:
+        raise ValueError(f"the port's meshes have one axis, "
+                         f"{shd.CHUNK_AXIS!r}; got {axis!r}")
+    devices = shd.chunk_devices(shd.resolve_mesh(mesh, device), device)
+    batch = as_u32_bits(batch, devices[0])
+    size = len(devices)
+    if int(batch.shape[0]) % size != 0:
+        raise ValueError(
+            f"batch dim {batch.shape[0]} not divisible by mesh axis "
+            f"{axis!r} of size {size}")
+    rows = int(batch.shape[0]) // size
+    return tuple(fn(batch[k * rows:(k + 1) * rows].to(dev), dev)
+                 for k, dev in enumerate(devices))
+
+
+def encode_bitplanes_sharded(mags, num_planes: int,
+                             design: str = "register_block",
+                             backend: str = _DEFAULT_BACKEND,
+                             tiles_per_block: int = 8,
+                             unroll: str = "butterfly", *,
+                             mesh, axis: str = "chunk",
+                             device: DeviceLike = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """``encode_bitplanes_batch`` sharded over a mesh: the (B, N) rows are
+    split into ``len(mesh)`` equal blocks, and block ``k`` is encoded on
+    mesh entry ``k``'s device.  Returns the row-sharded result as a tuple of
+    (B / len(mesh), num_planes, W) blocks in mesh order, each on its device;
+    ``torch.cat`` of the blocks (on one device) is bit-identical to the
+    unsharded batch op.  B must divide by the mesh size.  ``mesh`` is a
+    device list (one card may appear several times: the blocks then run in
+    turn on its current stream) or a count (``core.sharded.resolve_mesh``);
+    ``device`` places numpy input and resolves an int mesh."""
+    return _shard_batch(
+        lambda m, dev: encode_bitplanes_batch(m, num_planes, design, backend,
+                                              device=dev),
+        mags, mesh, axis, device)
+
+
+def decode_bitplanes_sharded(planes, num_planes_total: int, n: int,
+                             design: str = "register_block",
+                             backend: str = _DEFAULT_BACKEND,
+                             tiles_per_block: int = 8,
+                             unroll: str = "butterfly", *,
+                             mesh, axis: str = "chunk",
+                             device: DeviceLike = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """``decode_bitplanes_batch`` sharded over a mesh: (B, P, W) plane
+    prefixes split into one block of rows per mesh entry, each decoded on
+    its entry's device.  Returns the (B / len(mesh), n) blocks in mesh
+    order, as ``encode_bitplanes_sharded`` does.  B must divide by the mesh
+    size."""
+    return _shard_batch(
+        lambda p, dev: decode_bitplanes_batch(p, num_planes_total, n, design,
+                                              backend, device=dev),
+        planes, mesh, axis, device)
 
 
 def decode_bitplanes_offset(planes, num_planes_total: int, n: int,

@@ -75,6 +75,9 @@ class RefactorConfig:
                                cr_threshold=self.cr_threshold,
                                force=force)
 
+    def replace(self, **kw: Any) -> "RefactorConfig":
+        return dataclasses.replace(self, **kw)
+
     # ---------------------------------------------------------------- json --
     def to_json(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

@@ -365,3 +365,169 @@ def test_store_and_shared_tier_card_match_cpu(cuda, tmp_path):
             assert xa.tobytes() == xb.tobytes() and (ba, fa) == (bb, fb)
     tier = svc.stats()["serving"]
     assert 0 < bp.decode_register_block_cuda.launches < tier["decoded"]
+
+
+# ------------------------------------- sharded engines, tuner, ckpt (slice 6)
+
+ONE_CARD_MESH = ["cuda:0"] * 4
+
+
+@pytest.mark.parametrize("design", ["register_block", "locality", "shuffle"])
+def test_sharded_ops_on_one_card_match_batch_op(cuda, design):
+    """A mesh naming one card four times runs the split path on it: four
+    batch launches, whose blocks are the batch op's rows bit for bit."""
+    rng = np.random.default_rng(7)
+    mags = torch.from_numpy(rng.integers(0, 2 ** 23, (8, 12289)
+                                         ).astype(np.int32)).to(cuda)
+    want = ops.encode_bitplanes_batch(mags, 23, design, device=cuda)
+    bp.reset_launches()
+    blocks = ops.encode_bitplanes_sharded(mags, 23, design,
+                                          mesh=ONE_CARD_MESH)
+    assert sum(w.launches for w in bp.WRAPPERS) == 4
+    assert torch.equal(torch.cat(blocks), want)
+    prefix = want[:, :8].contiguous()
+    dec = ops.decode_bitplanes_sharded(prefix, 23, 12289, design,
+                                       mesh=ONE_CARD_MESH)
+    assert torch.equal(torch.cat(dec), ops.decode_bitplanes_batch(
+        prefix, 23, 12289, design, device=cuda))
+    with pytest.raises(ValueError, match="not divisible"):
+        ops.encode_bitplanes_sharded(mags[:6], 23, mesh=ONE_CARD_MESH)
+
+
+def test_sharded_engines_on_one_card_match_cpu(cuda):
+    x = gaussian_field((20, 64, 64), seed=8).reshape(-1)
+    chunks = [x[i:i + 16384] for i in range(0, x.size, 16384)]
+    want = [rf.refactored_to_bytes(r) for r in shd.ShardedRefactorPlan(
+        None, levels=2, device="cpu").refactor_chunks(chunks)]
+    got = shd.ShardedRefactorPlan(ONE_CARD_MESH, levels=2).refactor_chunks(
+        chunks)
+    assert [rf.refactored_to_bytes(r) for r in got] == want
+    eng = shd.ShardedReconstructEngine(ONE_CARD_MESH)
+    readers = []
+    for ci, blob in enumerate(want):
+        ref = rf.refactored_from_bytes(blob)
+        reader = rt.ProgressiveReader(ref, device=eng.device_for(ci))
+        reader.engine = eng.engine_for(ci, ref)
+        reader.stage_retrieve(1e-4)
+        readers.append(reader)
+    eng.drain([r.engine for r in readers])
+    out = np.concatenate([r.reconstruct()[0].reshape(-1) for r in readers])
+    ref_out = pl.ChunkedReconstructPipeline(device="cpu").reconstruct(want,
+                                                                      1e-4)
+    assert out.tobytes() == ref_out.tobytes()
+    # the pipelines on the same mesh: the four entries share one side
+    # stream for their uploads, each placement waited on by its own event
+    piped = pl.ChunkedRefactorPipeline(chunk_elems=16384, levels=2,
+                                       mesh=ONE_CARD_MESH,
+                                       use_tune_cache=False).refactor(x)
+    assert piped == pl.ChunkedRefactorPipeline(
+        chunk_elems=16384, levels=2, use_tune_cache=False,
+        device="cpu").refactor(x)
+    out = pl.ChunkedReconstructPipeline(mesh=ONE_CARD_MESH).reconstruct(
+        piped, 1e-4)
+    assert out.tobytes() == pl.ChunkedReconstructPipeline(
+        device="cpu").reconstruct(piped, 1e-4).tobytes()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int32",
+                                   "float64"])
+def test_codec_card_matches_cpu(cuda, dtype):
+    from repro_torch.ckpt import bitcast_codec as bc
+    g = torch.Generator().manual_seed(3)
+    if dtype == "int32":
+        x = torch.randint(-2 ** 31, 2 ** 31, (20000,), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    else:
+        x = (torch.randn(20000, generator=g, dtype=torch.float64)
+             * 2.0 ** torch.randint(-30, 30, (20000,), generator=g)
+             ).to(bc.TORCH_DTYPES[dtype])
+    bp.reset_launches()
+    card = bc.exact_refactor(x.to(cuda))
+    assert bp.encode_register_block_cuda.launches == (2 if dtype == "float64"
+                                                      else 1)
+    blob = bc.exact_to_bytes(card)
+    assert blob == bc.exact_to_bytes(bc.exact_refactor(x, device="cpu"))
+    for rel in (1e-2, None):
+        a, na = bc.exact_retrieve(bc.exact_from_bytes(blob), rel)
+        b, nb = bc.exact_retrieve(bc.exact_from_bytes(blob), rel,
+                                  device="cpu")
+        assert a.device.type == "cuda" and na == nb
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+    assert torch.equal(a.cpu(), x)
+
+
+def test_tune_on_the_card_then_cache_hit(cuda, tmp_path):
+    from repro_torch.tune import search as ts
+    ts.STATS.reset()
+    r1 = ts.tune((1 << 16,), levels=2, cache_root=tmp_path)
+    assert not r1.cache_hit and not r1.failures
+    assert ts.STATS.snapshot()["probes_failed"] == 0
+    assert len(r1.probes) == 9
+    assert min(s for _, s in r1.probes) <= r1.probes[0][1]
+    r2 = ts.tune((1 << 16,), levels=2, cache_root=tmp_path)
+    assert r2.cache_hit and r2.config == r1.config
+    assert ts.STATS.snapshot()["searches"] == 1
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    from repro_torch.ckpt import manager as ck
+    g = torch.Generator().manual_seed(5)
+    tree = {"w": torch.randn(256, 64, generator=g),
+            "h": [torch.randn(4096, generator=g).to(torch.bfloat16)],
+            "b": torch.randn(16, generator=g), "step": torch.tensor(7)}
+    card_tree = {"w": tree["w"].to(cuda), "h": [tree["h"][0].to(cuda)],
+                 "b": tree["b"].to(cuda), "step": tree["step"].to(cuda)}
+    ck.save(tmp_path / "card", 7, card_tree)
+    ck.save(tmp_path / "cpu", 7, tree, device="cpu")
+    for name in ("w.mdr", "h.0.mdr", "b.raw", "step.raw"):
+        assert ((tmp_path / "card" / "step_00000007" / name).read_bytes()
+                == (tmp_path / "cpu" / "step_00000007" / name).read_bytes())
+    on_cpu, _ = ck.load(tmp_path / "card", 7, tree, device="cpu")
+    on_card, _ = ck.load(tmp_path / "cpu", 7, tree)
+    for a, b, want in zip((on_cpu["w"], on_cpu["h"][0], on_cpu["step"]),
+                          (on_card["w"], on_card["h"][0], on_card["step"]),
+                          (tree["w"], tree["h"][0], tree["step"])):
+        assert a.device.type == "cpu" and b.device.type == "cuda"
+        assert torch.equal(a, want) and torch.equal(b.cpu(), want)
+
+
+def test_sharded_engines_and_ops_across_cards(cuda):
+    """Chunks round-robin over every card: the same blobs and values as the
+    CPU, and the sharded ops' blocks, one per card, are the batch op's
+    rows."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    mesh = shd.make_chunk_mesh()
+    x = gaussian_field((20, 64, 64), seed=9).reshape(-1)
+    chunks = [x[i:i + 8192] for i in range(0, x.size, 8192)]
+    want = [rf.refactored_to_bytes(r) for r in shd.ShardedRefactorPlan(
+        None, levels=2, device="cpu").refactor_chunks(chunks)]
+    shd.STATS.reset()
+    got = shd.ShardedRefactorPlan(mesh, levels=2).refactor_chunks(chunks)
+    assert [rf.refactored_to_bytes(r) for r in got] == want
+    assert set(shd.STATS.snapshot()["dispatches_by_device"]) == set(
+        range(len(mesh)))
+    eng = shd.ShardedReconstructEngine(mesh)
+    readers = []
+    for ci, blob in enumerate(want):
+        ref = rf.refactored_from_bytes(blob)
+        reader = rt.ProgressiveReader(ref, device=eng.device_for(ci))
+        reader.engine = eng.engine_for(ci, ref)
+        reader.stage_retrieve(1e-4)
+        readers.append(reader)
+    eng.drain([r.engine for r in readers])
+    out = np.concatenate([r.reconstruct()[0].reshape(-1) for r in readers])
+    assert out.tobytes() == pl.ChunkedReconstructPipeline(
+        device="cpu").reconstruct(want, 1e-4).tobytes()
+    rng = np.random.default_rng(11)
+    mags = rng.integers(0, 2 ** 23, (2 * len(mesh), 12289)).astype(np.int32)
+    want_planes = ops.encode_bitplanes_batch(mags, 23, device="cpu")
+    blocks = ops.encode_bitplanes_sharded(mags, 23, mesh=mesh)
+    assert [b.device for b in blocks] == mesh
+    assert torch.equal(torch.cat([b.cpu() for b in blocks]), want_planes)
+    dec = ops.decode_bitplanes_sharded(want_planes[:, :8].contiguous(), 23,
+                                       12289, mesh=mesh)
+    assert torch.equal(torch.cat([d.cpu() for d in dec]),
+                       ops.decode_bitplanes_batch(
+                           want_planes[:, :8].contiguous(), 23, 12289,
+                           device="cpu"))

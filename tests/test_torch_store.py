@@ -99,8 +99,9 @@ def _same_store(a, b):
 # ------------------------------------------------ import isolation (satellite)
 
 def test_port_imports_no_jax_or_repro():
-    """Every ``repro_torch`` module imports with ``jax`` and ``repro``
-    blocked by a meta-path finder that raises; neither gets loaded."""
+    """Every ``repro_torch`` module (the tuner's search and ``ckpt``
+    included) imports with ``jax`` and ``repro`` blocked by a meta-path
+    finder that raises; neither gets loaded."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -116,8 +117,11 @@ def test_port_imports_no_jax_or_repro():
         for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             importlib.import_module(m.name)
             names.append(m.name)
-        assert "repro_torch.store.service" in names
-        assert "repro_torch.store.serving" in names
+        for name in ("repro_torch.store.service", "repro_torch.store.serving",
+                     "repro_torch.tune.search", "repro_torch.ckpt",
+                     "repro_torch.ckpt.bitcast_codec",
+                     "repro_torch.ckpt.manager"):
+            assert name in names, name
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -127,7 +131,7 @@ def test_port_imports_no_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 30
+    assert int(r.stdout.strip()) >= 34
 
 
 def test_entry_points_default_to_the_card(tmp_path, field):
