@@ -90,7 +90,22 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    one decoder layer of qwen2-7b at its published widths (233M values), in
    float32 and in bfloat16 (16 planes), saved with ``save`` and with
    ``AsyncCheckpointer`` under ``build/ckpt_smoke/``, loaded bit-exact, and
-   loaded at rel 1e-2 (float32) / 1e-1 (bfloat16) within the bound.
+   loaded at rel 1e-2 (float32) / 1e-1 (bfloat16) within the bound;
+13. serve, the LLM path (``repro_torch.models``, ``launch.driver``; plain
+   torch, no kernel of its own): every arch at its SMOKE size, one
+   ``tree_init`` on the CPU copied to the card, card against CPU (logits
+   within 1e-4 of max|logit|, jamba's 1e-3; greedy tokens equal;
+   prefill(x[:-1]) + decode_step(x[-1]) against forward(x); hubert's
+   forward only); qwen2-7b at its published widths and full depth
+   (``tree_init`` on the card, float32 weights, bfloat16 compute), batch 4,
+   prompt 256, 32 new tokens with the weights held in bfloat16, then cast
+   on every call, then the int8 KV cache: prefill s, ms/token against the
+   weight + cache read bound, the caches' bytes, int8 against bfloat16
+   (teacher-forced top-1 agreement, max relative logit difference), and
+   decode against forward at the last position within 5e-2 of max|logit|;
+   deepseek-v2-236b cut to its first 2 layers (dense + MoE, MLA) with 16
+   new tokens; rwkv6-3b at full depth, with the ``ssm.scan`` loops' share
+   of prefill.  Each model is freed before the next.
 
 Phases 7-12 zero the launch counters before their runs and require
 the kernels of their paths to have launched; the kernels line's
@@ -1323,11 +1338,297 @@ def checkpoint_phase(torch, bp, root, dtype, rels):
                   f"bitplanes)")
 
 
+# --------------------------------------------------------------- phase 13 --
+
+# card against CPU at the smoke sizes (float32 compute, TF32 off), relative
+# to max|logit|; jamba's smoke Mamba state reaches 1e7 and its float32
+# rounding differences grow through 8 layers
+SMOKE_TOL = {"jamba-v0.1-52b": 1e-3}
+# qwen2-7b, bfloat16 compute over 28 layers: prefill(x[:-1]) +
+# decode_step(x[-1]) against forward(x) at the last position, relative to
+# max|logit| (two different bfloat16 paths to the same logits)
+FULL_TOL = 5e-2
+SERVE_BATCH, SERVE_PROMPT = 4, 256
+
+
+def _rel(torch, a, b):
+    a, b = a.double(), b.double().to(a.device)
+    return ((a - b).abs().max() / a.abs().max()).item()
+
+
+def _tree_bytes(tree, skip=("embed",)):
+    """Bytes of a tree's leaves, the embedding table left out (a decode
+    step gathers B of its rows)."""
+    total = 0
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            total += _tree_bytes(v, ())
+        elif k not in skip:
+            total += v.numel() * v.element_size()
+    return total
+
+
+def _cache_bytes(model, batch, max_len):
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size() for t in
+               tree_leaves(model.init_cache_structs(batch, max_len)))
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def smoke_archs(torch):
+    """Every arch at its SMOKE size: one tree_init on the CPU copied to the
+    card; logits, greedy tokens and prefill + decode against forward."""
+    from repro_torch.configs.base import list_archs, smoke_config
+    from repro_torch.launch import driver
+    from repro_torch.models.model import Model
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    for arch in list_archs():
+        cfg = smoke_config(arch)
+        tol = SMOKE_TOL.get(arch, 1e-4)
+        cpu = Model(cfg, device="cpu", seed=0)
+        card = Model(cfg, cpu.params, device="cuda")
+        with torch.inference_mode():
+            if cfg.encoder_only:
+                emb = torch.randn(2, 24, cfg.d_model,
+                                  generator=torch.Generator().manual_seed(1))
+                a = cpu.forward(None, embeds=emb)
+                b = card.forward(None, embeds=emb.cuda())
+                err = _rel(torch, a, b)
+                check(err <= tol and bool(torch.isfinite(b).all()),
+                      f"{arch}: card forward off by {err}")
+                print(f"{arch}: forward card vs CPU {err:.2e} (<= {tol:g})",
+                      flush=True)
+                continue
+            toks, vis = driver.build_inputs(cfg, 2, 24, seed=1, device="cpu")
+            vis_c = None if vis is None else vis.cuda()
+            full = card.forward(None, tokens=toks.cuda(), vision_states=vis_c)
+            err = _rel(torch, cpu.forward(None, tokens=toks,
+                                          vision_states=vis), full)
+            _, cache = card.prefill(None, tokens=toks[:, :-1].cuda(),
+                                    vision_states=vis_c, max_len=28)
+            out, _ = card.decode_step(None, cache, 23, toks[:, -1:].cuda(),
+                                      vision_states=vis_c)
+            dec = _rel(torch, full[:, -1], out[:, 0])
+        a = driver.greedy_decode(cpu, None, toks[:, :8], 6, vis)
+        b = driver.greedy_decode(card, card.compute_params(),
+                                 toks[:, :8].cuda(), 6, vis_c)
+        gl = _rel(torch, a.logits, b.logits)
+        check(err <= tol and dec <= tol and gl <= tol,
+              f"{arch}: card vs CPU {err}, decode vs forward {dec}, "
+              f"greedy logits {gl} (tolerance {tol})")
+        check(torch.equal(a.tokens, b.tokens.cpu()),
+              f"{arch}: greedy tokens differ between card and CPU")
+        print(f"{arch}: forward card vs CPU {err:.2e}, decode vs forward "
+              f"{dec:.2e}, greedy logits {gl:.2e} (<= {tol:g}); tokens "
+              f"equal", flush=True)
+
+
+def _serve(torch, model, params, what, new_tokens, warm=True):
+    """Greedy-serve the phase's prompts (one warm-up call first): prints
+    prefill s, ms/token and the weight + cache read bound."""
+    from repro_torch.launch import driver
+    cfg = model.cfg
+    prompts, _ = driver.build_inputs(cfg, SERVE_BATCH, SERVE_PROMPT, seed=1,
+                                     device="cuda")
+    if warm:
+        driver.greedy_decode(model, params, prompts, 3)
+    res = driver.greedy_decode(model, params, prompts, new_tokens)
+    check(tuple(res.tokens.shape) == (SERVE_BATCH, new_tokens)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
+          and bool(torch.isfinite(res.logits).all()),
+          f"{what}: tokens or logits out of range")
+    w = _tree_bytes(params if params is not None else model.params)
+    c = _cache_bytes(model, SERVE_BATCH, SERVE_PROMPT + new_tokens)
+    bound_ms = (w + c) / HBM_BYTES_PER_S * 1e3
+    print(f"{what}: prefill {res.prefill_s:.4f} s (batch {SERVE_BATCH} x "
+          f"{SERVE_PROMPT}), {new_tokens - 1} decode steps "
+          f"{res.ms_per_token:.3f} ms/token; bound {bound_ms:.3f} ms/token "
+          f"({w / 1e9:.3f} GB of weights + {c / 1e9:.4f} GB of cache over "
+          f"3.35 TB/s), {bound_ms / res.ms_per_token:.2f} of it", flush=True)
+    return res, prompts
+
+
+def qwen_full(torch, profile=False):
+    """qwen2-7b at its published widths and full depth; with ``profile``,
+    a torch.profiler pass over its decode steps."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model, count_params
+    cfg = get_config("qwen2-7b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    fp32 = _tree_bytes(model.params, ())
+    t0 = time.perf_counter()
+    held = model.compute_params()
+    torch.cuda.synchronize()
+    print(f"qwen2-7b: {cfg.n_layers} layers, {count_params(cfg)} params, "
+          f"float32 {fp32 / 1e9:.3f} GB, tree_init on the card "
+          f"{t_init:.3f} s; bfloat16 copy {_tree_bytes(held, ()) / 1e9:.3f}"
+          f" GB in {time.perf_counter() - t0:.3f} s", flush=True)
+    res, prompts = _serve(torch, model, held, "qwen2-7b bf16 cache, held "
+                          "bf16 weights", 32)
+    _serve(torch, model, None, "qwen2-7b bf16 cache, float32 weights cast "
+           "on every call", 32, warm=False)
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_int8_scale=8.0)
+    m8 = Model(cfg8, model.params, device="cuda")   # the same tensors
+    res8, _ = _serve(torch, m8, held, "qwen2-7b int8 cache, held bf16 "
+                     "weights", 32)
+    b16 = _cache_bytes(model, SERVE_BATCH, SERVE_PROMPT + 32)
+    b8 = _cache_bytes(m8, SERVE_BATCH, SERVE_PROMPT + 32)
+    print(f"KV cache at {SERVE_PROMPT + 32} positions: int8 {b8} B "
+          f"(codes + bf16 scales) vs bf16 {b16} B, {b8 / b16:.4f}",
+          flush=True)
+    # the int8 cache fed the bf16 run's tokens (teacher-forced): both runs'
+    # logits at the same 32 positions
+    with torch.inference_mode():
+        logits, cache = m8.prefill(held, tokens=prompts,
+                                   max_len=SERVE_PROMPT + 32)
+        steps = [logits[:, -1]]
+        for i in range(31):
+            logits, cache = m8.decode_step(held, cache, SERVE_PROMPT + i,
+                                           res.tokens[:, i:i + 1])
+            steps.append(logits[:, -1])
+        l8 = torch.stack(steps, dim=1)
+    agree = (l8.argmax(-1) == res.tokens).float().mean().item()
+    rel = _rel(torch, res.logits, l8)
+    check(math.isfinite(rel) and agree > 0, "int8 cache logits")
+    print(f"int8 vs bf16 cache over 32 steps (teacher-forced): top-1 "
+          f"agreement {agree:.4f}, max relative logit difference {rel:.4f}; "
+          f"free-running tokens equal on "
+          f"{(res8.tokens == res.tokens).float().mean().item():.4f}",
+          flush=True)
+    with torch.inference_mode():
+        full = model.forward(held, tokens=prompts)
+        _, cache = model.prefill(held, tokens=prompts[:, :-1],
+                                 max_len=SERVE_PROMPT)
+        out, _ = model.decode_step(held, cache, SERVE_PROMPT - 1,
+                                   prompts[:, -1:])
+        err = _rel(torch, full[:, -1], out[:, 0])
+        agree = (full[:, -1].argmax(-1) == out[:, 0].argmax(-1)
+                 ).float().mean().item()
+    check(err <= FULL_TOL, f"qwen2-7b: decode vs forward at the last "
+          f"position {err} > {FULL_TOL}")
+    print(f"qwen2-7b decode vs forward at position {SERVE_PROMPT - 1}: "
+          f"{err:.4f} of max|logit| (<= {FULL_TOL:g}), argmax equal on "
+          f"{agree:.2f}", flush=True)
+    print(f"qwen2-7b peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    if profile:
+        _profile_decode(torch, model, held, prompts)
+
+
+def _profile_decode(torch, model, params, prompts, n=4):
+    """``n`` decode steps under torch.profiler: wall and device busy time a
+    step, the device's idle share, kernel launches a step and the top ops
+    by self CPU time."""
+    with torch.inference_mode():
+        _, cache = model.prefill(params, tokens=prompts,
+                                 max_len=SERVE_PROMPT + n)
+        tok = prompts[:, -1:]
+
+        def steps():
+            for i in range(n):
+                model.decode_step(params, cache, SERVE_PROMPT + i, tok)
+        steps()
+        prof, walls = _profile(torch, steps)
+    evs = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    busy = sum(_dev_us(e) for e in evs
+               if e.key != "Activity Buffer Request") / 1e3
+    launches = sum(e.count for e in evs if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    wall = walls[1] * 1e3
+    print(f"qwen2-7b decode (profiled, {n} steps): {wall / n:.3f} ms a step "
+          f"wall, device busy {busy / n:.3f} ms a step, idle share "
+          f"{1 - busy / wall:.3f}, {launches / n:.0f} kernel launches a "
+          f"step", flush=True)
+    for e in evs[:8]:
+        print(f"  decode op {e.key}: {e.count / n:.0f} calls a step, self "
+              f"cpu {e.self_cpu_time_total / 1e3 / n:.3f} ms a step, self "
+              f"device {_dev_us(e) / 1e3 / n:.3f} ms a step", flush=True)
+
+
+def deepseek_cut(torch):
+    """deepseek-v2-236b (MLA + MoE) at its published widths, cut to its
+    first two layers: the dense layer and one MoE layer."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model, count_params
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=2)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"deepseek-v2-236b cut to 2 layers: {count_params(cfg)} params, "
+          f"{_tree_bytes(model.params, ()) / 1e9:.3f} GB bf16, tree_init "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    _serve(torch, model, model.compute_params(), "deepseek-v2-236b/2", 16)
+    m = cfg.moe
+    routed = min(m.n_experts, SERVE_BATCH * m.top_k)
+    expert = 3 * cfg.d_model * m.d_expert * 2
+    print(f"  (a decode step's {SERVE_BATCH} tokens route to at most "
+          f"{routed} of {m.n_experts} experts; the capacity dispatch runs "
+          f"all {m.n_experts}: {(m.n_experts - routed) * expert / 1e9:.3f} GB"
+          f" a step beyond the routed experts)", flush=True)
+    print(f"deepseek-v2-236b/2 peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+
+
+def rwkv_full(torch):
+    """rwkv6-3b at its published widths and full depth; the scan's share
+    of prefill from the ``ssm.scan`` spans."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model, count_params
+    from repro_torch.obs import trace as obs_trace
+    cfg = get_config("rwkv6-3b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    held = model.compute_params()
+    torch.cuda.synchronize()
+    print(f"rwkv6-3b: {cfg.n_layers} layers, {count_params(cfg)} params, "
+          f"float32 {_tree_bytes(model.params, ()) / 1e9:.3f} GB, init and "
+          f"bf16 copy {time.perf_counter() - t0:.3f} s", flush=True)
+    with obs_trace.tracing() as tr:
+        res, _ = _serve(torch, model, held, "rwkv6-3b", 32)
+    scan = [s for s in tr.spans() if s.name == "ssm.scan"]
+    pre = [s for s in scan if s.attrs.get("steps") == SERVE_PROMPT]
+    scan_s = sum(s.duration_s for s in pre[-cfg.n_layers:])
+    print(f"rwkv6-3b prefill: the ssm.scan loops (host wall, "
+          f"{cfg.n_layers} x {SERVE_PROMPT} steps) {scan_s:.4f} s of "
+          f"{res.prefill_s:.4f} s, {scan_s / res.prefill_s:.3f}", flush=True)
+    print(f"rwkv6-3b peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+
+
+def serve_phase(torch, profile=False):
+    print(f"device memory allocated at the phase's start (earlier phases' "
+          f"objects): {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB",
+          flush=True)
+    t0 = time.perf_counter()
+    smoke_archs(torch)
+    print(f"smoke archs: {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, run in (("qwen2-7b", lambda: qwen_full(torch, profile)),
+                      ("deepseek-v2-236b/2", lambda: deepseek_cut(torch)),
+                      ("rwkv6-3b", lambda: rwkv_full(torch))):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        _free(torch)
+        print(f"{name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 6, the torch.profiler pass")
+                    help="add phase 6, the torch.profiler pass, and a "
+                         "profiled pass over qwen2-7b's decode steps")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1420,6 +1721,11 @@ def main(argv) -> int:
     t0 = phase("12 exact codec (float64 Miranda) and checkpoints")
     ckpt_phase(torch, bp)
     done(t0, "phase 12")
+
+    t0 = phase("13 serve: the LLM path (smoke archs, qwen2-7b, "
+               "deepseek-v2/2, rwkv6-3b)")
+    serve_phase(torch, args.profile)
+    done(t0, "phase 13")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

@@ -1,0 +1,257 @@
+"""Model facade: abstract params, init, loss, prefill, decode.
+
+A port of ``repro.models.model``.  One ``nn.Module`` serves every
+architecture; behaviour is driven by ``ModelConfig`` (``stack_plan`` picks
+the block pattern).  The module holds the parameters as the reference's
+tree: each ``state_dict()`` key is the reference's flattened tree path
+(``blocks.dense.sub0_attn.attn.wq`` holds the stacked (L, D, H, dh)
+tensor), so a tree saved by either package's ``ckpt.manager`` loads into
+the other.  ``params`` gives that tree as nested dicts of the module's
+parameters; every method takes a tree (``None``: the module's own), as the
+reference's pure functions do, so a serving loop can pass the copy that
+``compute_params`` holds in the compute dtype.  The reference's sharding
+constraints are no-ops on one device and are left out.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import compute_dtype, einsum, norm
+from repro_torch.models.params import (PSpec, tree_init, tree_map,
+                                       tree_param_count)
+
+# leaves the layers read in float32 (norm weights, the router, RWKV's decay
+# and bonus, Mamba's A and skip); every other leaf is read through
+# ``.to(compute_dtype)`` and so may be held in the compute dtype
+FLOAT32_LEAVES = frozenset({
+    "norm1", "norm2", "final_norm", "norm", "q_norm", "kv_norm", "router",
+    "w0", "decay_a", "decay_b", "u", "ln_w", "a_log", "d_skip"})
+
+
+def model_abstract(cfg: ModelConfig) -> Dict[str, Any]:
+    p: Dict[str, Any] = {}
+    vtp = "tp" if cfg.vocab_size % 16 == 0 else None  # hubert: V=504 replicated
+    if not cfg.external_embed:
+        p["embed"] = PSpec((cfg.vocab_size, cfg.d_model), (vtp, "fsdp"))
+    p["blocks"] = T.stack_abstract(cfg)
+    p["final_norm"] = PSpec((cfg.d_model,), (None,), init="ones")
+    if not cfg.tie_embeddings:
+        p["head"] = PSpec((cfg.d_model, cfg.vocab_size), ("fsdp", vtp))
+    if cfg.mtp_depth:
+        p["mtp"] = {
+            "proj": PSpec((2 * cfg.d_model, cfg.d_model), ("fsdp", None)),
+            "block": T.block_abstract(cfg, "attn"),
+            "norm": PSpec((cfg.d_model,), (None,), init="ones"),
+        }
+    return p
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    from repro_torch.models.moe import moe_abstract
+    total = tree_param_count(model_abstract(cfg))
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        expert_p = tree_param_count(
+            {k: v for k, v in moe_abstract(cfg).items()
+             if k in ("w1", "w2", "w3")})
+        n_moe_layers = (cfg.n_layers - m.first_dense) // m.layer_period
+        inactive = expert_p * n_moe_layers * (1 - m.top_k / m.n_experts)
+        total -= int(inactive)
+    return total
+
+
+def _register(mod: nn.Module, tree: Dict[str, Any]) -> None:
+    """A parameter tree into ``mod`` under the tree's own names: sub-dicts
+    become child modules and tensors parameters."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            child = nn.Module()
+            _register(child, v)
+            mod.add_module(k, child)
+        else:
+            mod.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+
+def _as_tree(mod: nn.Module) -> Dict[str, Any]:
+    out: Dict[str, Any] = dict(mod._parameters)
+    for k, child in mod._modules.items():
+        out[k] = _as_tree(child)
+    return out
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+class Model(nn.Module):
+    """The model for ``cfg`` on ``device`` (``None`` means ``cuda``), its
+    parameters ``tree_init``'s draw from a generator seeded with ``seed``,
+    or the tree ``params`` (same names, shapes and dtypes, e.g. from
+    ``params_from_reference``) placed on the device."""
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 device: DeviceLike = None, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params = tree_init(model_abstract(cfg), gen, cfg.param_dtype,
+                               dev)
+        else:
+            params = tree_map(lambda t: t.to(dev), params)
+        _register(self, params)
+
+    # ---------------------------------------------------------------- setup --
+    @property
+    def params(self) -> Dict[str, Any]:
+        """The parameter tree: nested dicts of this module's parameters."""
+        return _as_tree(self)
+
+    def compute_params(self, params: Optional[Dict] = None) -> Dict[str, Any]:
+        """A copy of the tree held in the compute dtype, for serving: every
+        leaf the layers read through ``.to(compute_dtype)`` cast once, the
+        float32-read leaves (``FLOAT32_LEAVES``) as they are.  It gives the
+        bits of the tree it copies and spares each call the cast (qwen2-7b:
+        15.2 GB of bfloat16 beside 30.5 GB of float32)."""
+        cdt = compute_dtype(self.cfg)
+
+        def cast(tree):
+            return {k: cast(v) if isinstance(v, dict)
+                    else v if k in FLOAT32_LEAVES else v.to(cdt)
+                    for k, v in tree.items()}
+        return cast(self.params if params is None else params)
+
+    def _tree(self, params):
+        return self.params if params is None else params
+
+    # ------------------------------------------------------------- forward --
+    def _embed(self, params, tokens=None, embeds=None) -> torch.Tensor:
+        cdt = compute_dtype(self.cfg)
+        if embeds is not None:
+            return embeds.to(cdt)
+        # gather, then cast: the bits of casting the table first
+        return params["embed"][tokens].to(cdt)
+
+    def _head_weight(self, params) -> torch.Tensor:
+        cdt = compute_dtype(self.cfg)
+        if self.cfg.tie_embeddings:
+            return params["embed"].to(cdt).T
+        return params["head"].to(cdt)
+
+    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        x = norm(x, params["final_norm"], self.cfg.norm)
+        return einsum("bsd,dv->bsv", x, self._head_weight(params)).float()
+
+    def forward(self, params=None, tokens=None, embeds=None,
+                vision_states=None, positions=None) -> torch.Tensor:
+        """Full-sequence forward -> float32 logits (B,S,V)."""
+        params = self._tree(params)
+        x = self._embed(params, tokens, embeds)
+        b, s, _ = x.shape
+        if positions is None:
+            positions = _positions(b, s, x.device)
+        x, _, _ = T.stack_apply(params["blocks"], x, self.cfg, positions,
+                                vision_states=vision_states)
+        return self._head(params, x)
+
+    # ---------------------------------------------------------------- loss --
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Cross-entropy + MoE aux (+ 0.1 x the MTP loss): the value only;
+        the backward pass belongs to the training path."""
+        cfg = self.cfg
+        params = self._tree(params)
+        x = self._embed(params, batch.get("tokens"), batch.get("embeds"))
+        b, s, _ = x.shape
+        positions = _positions(b, s, x.device)
+        h, _, aux = T.stack_apply(params["blocks"], x, cfg, positions,
+                                  vision_states=batch.get("vision_states"))
+        logits = self._head(params, h)
+        loss = _xent(logits, batch["labels"]) + aux
+        if cfg.mtp_depth and "tokens" in batch:
+            loss = loss + 0.1 * self._mtp_loss(params, h, batch, positions)
+        return loss
+
+    def _mtp_loss(self, params, h, batch, positions) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: one extra depth, predicts t+2."""
+        cfg = self.cfg
+        cdt = compute_dtype(cfg)
+        mtp = params["mtp"]
+        tokens, labels = batch["tokens"], batch["labels"]
+        # combine hidden state at t with embedding of token t+1
+        nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        z = torch.cat([h, params["embed"][nxt].to(cdt)], dim=-1)
+        z = einsum("bsd,dk->bsk", z, mtp["proj"].to(cdt))
+        z, _, _ = T.block_apply(mtp["block"], z, cfg, "attn", positions)
+        z = norm(z, mtp["norm"], cfg.norm)
+        logits2 = einsum("bsd,dv->bsv", z, self._head_weight(params)).float()
+        lab2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        return _xent(logits2, lab2)
+
+    # -------------------------------------------------------------- serving --
+    def prefill(self, params=None, tokens=None, embeds=None,
+                vision_states=None, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Run the prompt; returns (last-position logits, decode cache)."""
+        params = self._tree(params)
+        x = self._embed(params, tokens, embeds)
+        b, s, _ = x.shape
+        h, caches, _ = T.stack_apply(params["blocks"], x, self.cfg,
+                                     _positions(b, s, x.device),
+                                     vision_states=vision_states)
+        logits = self._head(params, h[:, -1:, :])
+        if max_len is not None and max_len > s:
+            caches = _pad_caches(caches, max_len, seq_axis=2)
+        return logits, caches
+
+    def init_cache_structs(self, batch: int, max_len: int):
+        """The decode cache's shapes and dtypes as ``meta`` tensors."""
+        return T.stack_cache_abstract(self.cfg, batch, max_len)
+
+    def decode_step(self, params, cache, index: int, tokens: torch.Tensor,
+                    vision_states=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One-token decode: tokens (B,1) at position ``index``.  The cache
+        is updated in place and returned."""
+        params = self._tree(params)
+        index = int(index)
+        x = self._embed(params, tokens)
+        b = x.shape[0]
+        positions = torch.full((b, 1), index, dtype=torch.int32,
+                               device=x.device)
+        h, new_cache, _ = T.stack_apply(params["blocks"], x, self.cfg,
+                                        positions, caches=cache,
+                                        cache_index=index,
+                                        vision_states=vision_states)
+        return self._head(params, h), new_cache
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)
+
+
+_SEQ_CACHE_KEYS = ("k", "v", "ckv", "kr", "ks", "vs")  # caches with a seq axis
+
+
+def _pad_caches(caches, max_len: int, seq_axis: int):
+    """Zero-pad the sequence axis of every cache leaf that has one."""
+    def pad(tree):
+        out = {}
+        for k, x in tree.items():
+            if isinstance(x, dict):
+                out[k] = pad(x)
+            elif k in _SEQ_CACHE_KEYS and x.shape[seq_axis] < max_len:
+                shape = list(x.shape)
+                shape[seq_axis] = max_len - x.shape[seq_axis]
+                out[k] = torch.cat([x, x.new_zeros(shape)], dim=seq_axis)
+            else:
+                out[k] = x
+        return out
+    return pad(caches)

@@ -1,0 +1,215 @@
+"""Attention-free sequence mixers: RWKV6 (Finch) and Mamba (selective SSM).
+
+A port of ``repro.models.ssm``.  Prefill runs the recurrence as a Python
+loop over tokens (the reference's ``lax.scan``; its chunked
+rematerialization changes no value and matters only for a backward pass),
+and decode is the same step applied once to the carried state.  The loop
+runs inside an ``ssm.scan`` span (host wall; the loop is launch-bound on
+the card, so that is its share of a prefill).
+
+RWKV6 has the data-dependent decay ``w_t = exp(-exp(w0 + lora(x_t)))``
+and Finch's ddlerp token-shift mixers (arXiv:2404.05892).  Mamba is the
+selective SSM (S4D discretization, input-dependent Delta/B/C) with the
+depthwise causal conv, as in Jamba's Mamba layers.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import compute_dtype, einsum, sigmoid, silu
+from repro_torch.models.params import PSpec
+from repro_torch.obs import trace as obs_trace
+
+RWKV_HEAD_DIM = 64
+DDLERP_RANK = 32
+DECAY_RANK = 64
+
+
+# ------------------------------------------------------------------- RWKV6 --
+
+def rwkv_time_mix_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d = cfg.d_model
+    h = d // RWKV_HEAD_DIM
+    tp = "tp" if h % 16 == 0 else None
+    return {
+        "mu_x": PSpec((d,), (None,), init="zeros"),
+        "mu": PSpec((5, d), (None, None), init="zeros"),       # w,k,v,r,g
+        "ddlerp_a": PSpec((d, 5 * DDLERP_RANK), ("fsdp", None)),
+        "ddlerp_b": PSpec((5, DDLERP_RANK, d), (None, None, None),
+                          init="zeros"),
+        "w0": PSpec((d,), (None,), init="zeros"),
+        "decay_a": PSpec((d, DECAY_RANK), ("fsdp", None)),
+        "decay_b": PSpec((DECAY_RANK, d), (None, None), init="zeros"),
+        "u": PSpec((d,), (None,), init="zeros"),               # bonus
+        "wr": PSpec((d, d), ("fsdp", tp)),
+        "wk": PSpec((d, d), ("fsdp", tp)),
+        "wv": PSpec((d, d), ("fsdp", tp)),
+        "wg": PSpec((d, d), ("fsdp", tp)),
+        "ln_w": PSpec((d,), (None,), init="ones"),             # per-head groupnorm
+        "wo": PSpec((d, d), (tp, "fsdp")),
+    }
+
+
+def _shifted(x: torch.Tensor, state: Optional[Dict], cdt) -> torch.Tensor:
+    """The token-shift input: the previous token (zero, or the carried
+    ``shift`` state, before the first)."""
+    if state is None:
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+    return state["shift"][:, None, :].to(cdt)
+
+
+def _rwkv_ddlerp(p, x, sx, cdt):
+    """Finch data-dependent lerp: five mixed inputs (w,k,v,r,g)."""
+    dx = sx - x
+    xxx = x + dx * p["mu_x"].to(cdt)
+    a = torch.tanh(einsum("btd,dr->btr", xxx, p["ddlerp_a"].to(cdt)))
+    a = a.reshape(*a.shape[:-1], 5, DDLERP_RANK)
+    mix = p["mu"].to(cdt) + einsum("btir,ird->btid", a,
+                                   p["ddlerp_b"].to(cdt))
+    return [x + dx * mix[..., i, :] for i in range(5)]
+
+
+def rwkv_time_mix_apply(p, x: torch.Tensor, cfg: ModelConfig,
+                        state: Optional[Dict] = None
+                        ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,S,D). state (decode): {'shift': (B,D), 'wkv': (B,H,K,V)}."""
+    cdt = compute_dtype(cfg)
+    b, s, d = x.shape
+    hd = RWKV_HEAD_DIM
+    h = d // hd
+    sx = _shifted(x, state, cdt)
+    S = (torch.zeros((b, h, hd, hd), device=x.device) if state is None
+         else state["wkv"])
+    xw, xk, xv, xr, xg = _rwkv_ddlerp(p, x, sx, cdt)
+
+    # data-dependent decay (the Finch signature); the low-rank product
+    # contracts x with decay_a first, as the reference's einsum path does
+    wlog = p["w0"].float() + (xw.float() @ p["decay_a"].float()
+                              ) @ p["decay_b"].float()
+    w = torch.exp(-torch.exp(torch.clamp(wlog, -8.0, 4.0)))    # (B,S,D) in (0,1)
+
+    r = einsum("btd,de->bte", xr, p["wr"].to(cdt))
+    k = einsum("btd,de->bte", xk, p["wk"].to(cdt))
+    v = einsum("btd,de->bte", xv, p["wv"].to(cdt))
+    g = silu(einsum("btd,de->bte", xg, p["wg"].to(cdt)))
+
+    rh = r.reshape(b, s, h, hd).float()
+    kh = k.reshape(b, s, h, hd).float()
+    vh = v.reshape(b, s, h, hd).float()
+    wh = w.reshape(b, s, h, hd)
+    u = p["u"].float().reshape(h, hd)[None, :, :, None]
+
+    outs = []
+    with obs_trace.span("ssm.scan", kind="rwkv6", steps=s):
+        for t in range(s):
+            kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]   # (B,H,K,V)
+            outs.append(torch.einsum("bhk,bhkv->bhv", rh[:, t], S + u * kv))
+            S = wh[:, t, :, :, None] * S + kv
+    out = torch.stack(outs, dim=1)                            # (B,S,H,V)
+
+    # per-head groupnorm
+    mean = torch.mean(out, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(out - mean), dim=-1, keepdim=True)
+    out = (out - mean) * torch.rsqrt(var + 64e-5)
+    out = out.reshape(b, s, d) * p["ln_w"].float()
+    y = einsum("btd,de->bte", out.to(cdt) * g, p["wo"].to(cdt))
+    return y, {"shift": x[:, -1, :], "wkv": S}
+
+
+def rwkv_channel_mix_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": PSpec((d,), (None,), init="zeros"),
+        "mu_r": PSpec((d,), (None,), init="zeros"),
+        "wk": PSpec((d, f), ("fsdp", "tp")),
+        "wv": PSpec((f, d), ("tp", "fsdp")),
+        "wr": PSpec((d, d), ("fsdp", None)),
+    }
+
+
+def rwkv_channel_mix_apply(p, x: torch.Tensor, cfg: ModelConfig,
+                           state: Optional[Dict] = None
+                           ) -> Tuple[torch.Tensor, Dict]:
+    cdt = compute_dtype(cfg)
+    sx = _shifted(x, state, cdt)
+    xk = x + (sx - x) * p["mu_k"].to(cdt)
+    xr = x + (sx - x) * p["mu_r"].to(cdt)
+    k = einsum("btd,df->btf", xk, p["wk"].to(cdt))
+    k = torch.square(torch.relu(k))
+    v = einsum("btf,fd->btd", k, p["wv"].to(cdt))
+    r = sigmoid(einsum("btd,de->bte", xr, p["wr"].to(cdt)))
+    return r * v, {"shift": x[:, -1, :]}
+
+
+# ------------------------------------------------------------------- Mamba --
+
+def mamba_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d = cfg.d_model
+    ssm = cfg.ssm
+    din = ssm.expand * d
+    dtr = ssm.dt_rank or d // 16
+    ds = ssm.d_state
+    return {
+        "in_proj": PSpec((d, 2 * din), ("fsdp", "tp")),
+        "conv_w": PSpec((ssm.conv_width, din), (None, "tp")),
+        "conv_b": PSpec((din,), ("tp",), init="zeros"),
+        "w_dt_down": PSpec((din, dtr), ("tp", None)),
+        "w_dt_up": PSpec((dtr, din), (None, "tp")),
+        "dt_bias": PSpec((din,), ("tp",), init="zeros"),
+        "w_b": PSpec((din, ds), ("tp", None)),
+        "w_c": PSpec((din, ds), ("tp", None)),
+        "a_log": PSpec((din, ds), ("tp", None), init="zeros"),
+        "d_skip": PSpec((din,), ("tp",), init="ones"),
+        "out_proj": PSpec((din, d), ("tp", "fsdp")),
+    }
+
+
+def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,S,D).  state (decode): {'conv': (B,W-1,din), 'ssm': (B,din,ds)}."""
+    cdt = compute_dtype(cfg)
+    ssm = cfg.ssm
+    b, s, d = x.shape
+    din = ssm.expand * d
+    wconv = ssm.conv_width
+
+    xz = einsum("btd,de->bte", x, p["in_proj"].to(cdt))
+    xin, z = xz[..., :din], xz[..., din:]
+
+    # depthwise causal conv
+    if state is None:
+        pad = torch.zeros((b, wconv - 1, din), dtype=cdt, device=x.device)
+    else:
+        pad = state["conv"].to(cdt)
+    xpad = torch.cat([pad, xin], dim=1)                        # (B, S+W-1, din)
+    conv = sum(xpad[:, i:i + s, :] * p["conv_w"][i].to(cdt)
+               for i in range(wconv)) + p["conv_b"].to(cdt)
+    xc = silu(conv)
+
+    # the low-rank delta contracts xc with w_dt_down first, as the
+    # reference's einsum path does
+    dt = einsum("bte,er->btr", xc, p["w_dt_down"].to(cdt))
+    dt = einsum("btr,rf->btf", dt, p["w_dt_up"].to(cdt)) + p["dt_bias"].to(cdt)
+    dt = dt.float()
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))             # softplus
+    Bm = einsum("bte,es->bts", xc, p["w_b"].to(cdt)).float()
+    Cm = einsum("bte,es->bts", xc, p["w_c"].to(cdt)).float()
+    A = -torch.exp(p["a_log"].float())                         # (din, ds)
+
+    h = (state["ssm"] if state is not None
+         else torch.zeros((b, din, ssm.d_state), device=x.device))
+    xc32 = xc.float()
+    ys = []
+    with obs_trace.span("ssm.scan", kind="mamba", steps=s):
+        for t in range(s):
+            da = torch.exp(dt[:, t, :, None] * A[None])        # (B,din,ds)
+            h = (da * h
+                 + (dt[:, t] * xc32[:, t])[..., None] * Bm[:, t, None, :])
+            ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+    y = torch.stack(ys, dim=1) + xc32 * p["d_skip"].float()
+    y = y.to(cdt) * silu(z)
+    out = einsum("bte,ed->btd", y, p["out_proj"].to(cdt))
+    return out, {"conv": xpad[:, -(wconv - 1):, :], "ssm": h}

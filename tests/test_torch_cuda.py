@@ -531,3 +531,58 @@ def test_sharded_engines_and_ops_across_cards(cuda):
                        ops.decode_bitplanes_batch(
                            want_planes[:, :8].contiguous(), 23, 12289,
                            device="cpu"))
+
+
+# ------------------------------------------------- the LLM serving path --
+
+# card against CPU, float32 compute (TF32 off): relative to max|logit|;
+# jamba's Mamba state reaches 1e7 at its smoke size, so float32 rounding
+# differences grow through its 8 layers (tests/_torch_model_oracle.py)
+SERVE_TOL = {"jamba-v0.1-52b": 1e-3}
+
+
+def _close_rel(a, b, tol):
+    a, b = a.double().cpu(), b.double().cpu()
+    assert a.shape == b.shape
+    err, top = (a - b).abs().max().item(), a.abs().max().item()
+    assert err <= tol * top, (err, top)
+
+
+@pytest.mark.parametrize("arch", [
+    "rwkv6-3b", "deepseek-67b", "h2o-danube-3-4b", "command-r-plus-104b",
+    "qwen2-7b", "hubert-xlarge", "jamba-v0.1-52b", "deepseek-v2-236b",
+    "deepseek-v3-671b", "llama-3.2-vision-90b"])
+def test_smoke_models_on_the_card_match_the_cpu(cuda, arch):
+    """One ``tree_init`` on the CPU, copied to the card: logits within the
+    tolerance, the greedy driver's tokens equal, and prefill(x[:-1]) +
+    decode_step(x[-1]) against forward(x) on the card."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import driver
+    from repro_torch.models.model import Model
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = smoke_config(arch)
+    tol = SERVE_TOL.get(arch, 1e-4)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, cpu.params, device=cuda)
+    with torch.inference_mode():
+        if cfg.encoder_only:
+            emb = torch.randn(2, 24, cfg.d_model,
+                              generator=torch.Generator().manual_seed(1))
+            _close_rel(cpu.forward(None, embeds=emb),
+                       card.forward(None, embeds=emb.to(cuda)), tol)
+            return
+        toks, vis = driver.build_inputs(cfg, 2, 24, seed=1, device="cpu")
+        vis_c = None if vis is None else vis.to(cuda)
+        full = card.forward(None, tokens=toks.to(cuda), vision_states=vis_c)
+        _close_rel(cpu.forward(None, tokens=toks, vision_states=vis), full,
+                   tol)
+        _, cache = card.prefill(None, tokens=toks[:, :-1].to(cuda),
+                                vision_states=vis_c, max_len=28)
+        out, _ = card.decode_step(None, cache, 23, toks[:, -1:].to(cuda),
+                                  vision_states=vis_c)
+        _close_rel(full[:, -1], out[:, 0], tol)
+    a = driver.greedy_decode(cpu, None, toks[:, :8], 6, vis)
+    b = driver.greedy_decode(card, card.compute_params(),
+                             toks[:, :8].to(cuda), 6, vis_c)
+    assert torch.equal(a.tokens, b.tokens.cpu())
+    _close_rel(a.logits, b.logits, tol)

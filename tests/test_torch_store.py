@@ -99,9 +99,10 @@ def _same_store(a, b):
 # ------------------------------------------------ import isolation (satellite)
 
 def test_port_imports_no_jax_or_repro():
-    """Every ``repro_torch`` module (the tuner's search and ``ckpt``
-    included) imports with ``jax`` and ``repro`` blocked by a meta-path
-    finder that raises; neither gets loaded."""
+    """Every ``repro_torch`` module (the tuner's search, ``ckpt``, the
+    configs, models and serving driver included) imports with ``jax`` and
+    ``repro`` blocked by a meta-path finder that raises; neither gets
+    loaded."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -120,7 +121,11 @@ def test_port_imports_no_jax_or_repro():
         for name in ("repro_torch.store.service", "repro_torch.store.serving",
                      "repro_torch.tune.search", "repro_torch.ckpt",
                      "repro_torch.ckpt.bitcast_codec",
-                     "repro_torch.ckpt.manager"):
+                     "repro_torch.ckpt.manager", "repro_torch.configs.base",
+                     "repro_torch.configs.qwen2_7b",
+                     "repro_torch.models.model", "repro_torch.models.moe",
+                     "repro_torch.models.ssm", "repro_torch.launch.driver",
+                     "repro_torch.launch.serve"):
             assert name in names, name
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -131,7 +136,7 @@ def test_port_imports_no_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 34
+    assert int(r.stdout.strip()) >= 61
 
 
 def test_entry_points_default_to_the_card(tmp_path, field):
