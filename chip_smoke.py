@@ -105,9 +105,27 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    decode against forward at the last position within 5e-2 of max|logit|;
    deepseek-v2-236b cut to its first 2 layers (dense + MoE, MLA) with 16
    new tokens; rwkv6-3b at full depth, with the ``ssm.scan`` loops' share
-   of prefill.  Each model is freed before the next.
+   of prefill.  Each model is freed before the next;
+14. train (``repro_torch.train``): every arch at its SMOKE size, one
+   ``tree_init`` on the CPU copied to the card, 4 ``Trainer`` steps of
+   batch 2 x 16 with 8-plane error-feedback compression and checkpoints
+   every 2 steps under ``build/train_smoke/`` on the card and on the CPU
+   (step 1's loss within 1e-4 relative, jamba's 1e-3, the later steps'
+   within 5e-3, jamba's 5e-2; each parameter within 2 x lr a step, their
+   mean within 0.1 x lr, jamba's lr), and a card run crashed at step 2 and
+   resumed bit-identical (params, AdamW state, EF residual) to the uncrashed one;
+   then h2o-danube-3-4b at its published widths, depth cut from 24 to 2,
+   4 steps of batch 2 x 4096 (AdamW lr 3e-4, bf16 compute, remat, float32
+   params and state, 8-plane compression), each step's wall against its
+   bound, the step-4 checkpoint's snapshot, save and load seconds with the
+   ``ckpt.*`` spans (loaded bit-exact), ``rb_encode``/``rb_decode``
+   launches a step and no plain bitplane call, ``ef_quantize`` through
+   the kernels bit-identical to its plain path on every gradient leaf
+   (the 122.9M-value embedding's included), and the two kernels timed at
+   the embedding's N; with ``--profile``, one more danube step under
+   ``torch.profiler``.
 
-Phases 7-12 zero the launch counters before their runs and require
+Phases 7-12 and 14 zero the launch counters before their runs and require
 the kernels of their paths to have launched; the kernels line's
 ``launches`` is phase 3's count for the ``register_block`` pair (phase 9's
 are printed on a line of their own).  Each phase's wall and peak device
@@ -442,13 +460,21 @@ def _dev_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def _busy_ms(evs) -> float:
+    """Device busy ms: the device-side events' time (kernels, copies,
+    sets), the profiler's own buffer requests left out.  An op's self
+    device time repeats its kernels' time, so ops are not summed."""
+    from torch.autograd import DeviceType
+    return sum(_dev_us(e) for e in evs if e.device_type == DeviceType.CUDA
+               and e.key != "Activity Buffer Request") / 1e3
+
+
 def _prof_report(prof, what: str, walls, n: int = 10) -> None:
     """Host walls of the profiler's start-up, the run and its exit; device
     busy ms (the profiler's own buffer requests left out); the bitplane
     kernels' device time; and the top ops by self CPU time."""
     evs = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    busy = sum(_dev_us(e) for e in evs
-               if e.key != "Activity Buffer Request") / 1e3
+    busy = _busy_ms(evs)
     print(f"{what} (profiled): start-up {walls[0]:.3f} s, run "
           f"{walls[1]:.3f} s, exit {walls[2]:.3f} s (host walls); device "
           f"busy {busy:.1f} ms")
@@ -1540,8 +1566,7 @@ def _profile_decode(torch, model, params, prompts, n=4):
         steps()
         prof, walls = _profile(torch, steps)
     evs = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    busy = sum(_dev_us(e) for e in evs
-               if e.key != "Activity Buffer Request") / 1e3
+    busy = _busy_ms(evs)
     launches = sum(e.count for e in evs if e.key in (
         "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
     wall = walls[1] * 1e3
@@ -1623,12 +1648,406 @@ def serve_phase(torch, profile=False):
         print(f"{name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+# --------------------------------------------------------------- phase 14 --
+
+TRAIN_ROOT = os.path.join(REPO, "build", "train_smoke")
+TRAIN_STEPS = 4
+SMOKE_LR = 1e-3
+# card against CPU after 4 Trainer steps at the smoke sizes (float32
+# compute, TF32 off, one CPU tree_init, the same batches).  Step 1's loss
+# (the same parameters) within phase 13's logit tolerance, relative to the
+# CPU's; the later steps' within 5e-3, since by then parameters have
+# stepped apart: Adam moves a parameter by about lr * sign(m) a step, and
+# one whose gradient is at the rounding noise's level (after the 8-plane
+# compression, a leaf whose gradient is all noise) may step the other way.
+# So each parameter within 2 x lr a step, and the mean over all parameters
+# within 0.1 x lr (no more than 5% of them stepping apart).  jamba's smoke
+# Mamba state reaches 1e7: its later losses within 5e-2 and the mean
+# within lr.
+TRAIN_LOSS_TOL = {"jamba-v0.1-52b": (1e-3, 5e-2)}    # (step 1, later)
+TRAIN_MEAN_TOL = {"jamba-v0.1-52b": 1.0}             # x lr
+DANUBE_LAYERS, DANUBE_BATCH, DANUBE_SEQ = 2, 2, 4096  # SHAPES["train_4k"]
+BF16_FLOPS = 989e12             # H100 SXM, dense bf16 on the tensor cores
+FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
+
+
+class _PlainCalls:
+    """Counts calls of the plain bitplane encode and decode while active
+    (``kernels.ops`` reaches them through the module's attributes)."""
+
+    def __init__(self, ref):
+        self.ref, self.n = ref, {"encode": 0, "decode": 0}
+
+    def __enter__(self):
+        self.orig = {k: getattr(self.ref, k) for k in self.n}
+
+        def counted(k):
+            def call(*a, **kw):
+                self.n[k] += 1
+                return self.orig[k](*a, **kw)
+            return call
+        for k in self.n:
+            setattr(self.ref, k, counted(k))
+        return self.n
+
+    def __exit__(self, *exc):
+        for k, f in self.orig.items():
+            setattr(self.ref, k, f)
+
+
+def _rb_launches(bp):
+    return {"rb_encode": bp.encode_register_block_cuda.launches,
+            "rb_decode": bp.decode_register_block_cuda.launches}
+
+
+def _trainer(model, ckpt_dir, ckpt_every, lr, data_fn):
+    """The reference launcher's Trainer settings: AdamW, warmup
+    max(steps // 10, 1), 8-plane gradient compression, every step logged."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    return loop.Trainer(
+        model, adamw.AdamWConfig(lr=lr, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                                 total_steps=TRAIN_STEPS),
+        loop.TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=ckpt_every,
+                           ckpt_dir=ckpt_dir, log_every=1,
+                           grad_compress_planes=8), data_fn)
+
+
+def _state_leaves(tree):
+    """A training state's leaves: params, AdamW step, m and v, EF residual
+    (a Trainer result, or the checkpoint tree)."""
+    from repro_torch.models.params import tree_leaves
+    opt = tree.get("opt", tree.get("opt_state"))
+    return (tree_leaves(tree["params"]) + [opt.step] + tree_leaves(opt.m)
+            + tree_leaves(opt.v) + tree_leaves(tree["ef"]))
+
+
+def train_smoke_archs(torch):
+    """Every arch at SMOKE: the Trainer on the card against the CPU from one
+    CPU tree_init, then a card run crashed at step 2 and resumed against
+    the uncrashed card run, bit for bit."""
+    from repro_torch.configs.base import list_archs, smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import loop
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    failed = []
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        cfg = smoke_config(arch)
+        cpu = Model(cfg, device="cpu", seed=0)
+        card = Model(cfg, cpu.params, device="cuda")
+
+        def run(model, name, dev):
+            return _trainer(model, os.path.join(TRAIN_ROOT, arch, name), 2,
+                            SMOKE_LR, loop.synthetic_data(cfg, 2, 16, seed=1,
+                                                          device=dev))
+        want = run(cpu, "cpu", "cpu").run()
+        got = run(card, "card", "cuda").run()
+        tol = TRAIN_LOSS_TOL.get(arch, (1e-4, 5e-3))
+        mean_tol = TRAIN_MEAN_TOL.get(arch, 0.1) * SMOKE_LR
+        loss_err = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                    for a, b in zip(want["metrics"], got["metrics"])]
+        d = torch.cat([(a.double() - b.double().cpu()).abs().reshape(-1)
+                       for a, b in zip(tree_leaves(want["params"]),
+                                       tree_leaves(got["params"]))])
+        p_max, p_mean = d.max().item(), d.mean().item()
+        try:
+            run(card, "crash", "cuda").run(crash_at=2)
+            crashed = False
+        except RuntimeError as e:
+            crashed = "injected crash" in str(e)
+        resumed = run(card, "crash", "cuda").run()
+        exact = (crashed and resumed["final_step"] == TRAIN_STEPS
+                 and [m["step"] for m in resumed["metrics"]] == [3, 4]
+                 and all(torch.equal(a, b) for a, b in
+                         zip(_state_leaves(resumed), _state_leaves(got))))
+        ok = (all(math.isfinite(m["loss"]) for m in got["metrics"])
+              and loss_err[0] <= tol[0] and max(loss_err) <= tol[1]
+              and p_max <= 2 * TRAIN_STEPS * SMOKE_LR
+              and p_mean <= mean_tol and exact)
+        print(f"{arch}: {TRAIN_STEPS} steps card vs CPU: losses "
+              + " ".join(f"{e:.2e}" for e in loss_err)
+              + f" (<= {tol[0]:g}, then {tol[1]:g}), "
+              f"final params max {p_max:.2e} (<= "
+              f"{2 * TRAIN_STEPS * SMOKE_LR:g}), mean {p_mean:.2e} "
+              f"(<= {mean_tol:g}); crashed at 2 and resumed "
+              + ("== uncrashed bit for bit (params, AdamW state, EF "
+                 "residual)" if exact else "DIFFERS from uncrashed")
+              + f"; {'ok' if ok else 'FAILED'}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        if not ok:
+            failed.append(arch)
+    check(not failed, f"training card vs CPU or crash/resume failed: {failed}")
+
+
+def step_bound(cfg, n_params, batch, seq):
+    """The least time one training step could take: (ms, what bounds it,
+    details).  Operations: the bf16 matmuls (forward, the remat
+    re-forward of the layers, backward at twice the forward) over 989
+    TFLOP/s, plus the attention products, float32 in the port, over 67
+    TFLOP/s, counting the (query, key) pairs the causal window needs.
+    Bytes: AdamW (read p, g, m, v; write p, m, v), the EF pass (read g, r;
+    write q, r) and one read of the float32 weights, over 3.35 TB/s."""
+    tokens = batch * seq
+    layer = cfg.d_model * (cfg.head_dim * (2 * cfg.n_heads
+                                           + 2 * cfg.n_kv_heads)
+                           + 3 * cfg.d_ff)
+    head = cfg.d_model * cfg.vocab_size
+    window = cfg.attn_window or seq
+    pairs = batch * cfg.n_heads * sum(min(q + 1, window) for q in range(seq))
+    bf16 = (4 * 2 * tokens * layer * cfg.n_layers + 3 * 2 * tokens * head)
+    fp32 = 4 * 2 * 2 * pairs * cfg.head_dim * cfg.n_layers
+    ops_ms = (bf16 / BF16_FLOPS + fp32 / FP32_FLOPS) * 1e3
+    nbytes = 12 * 4 * n_params
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms
+            else "bytes", f"{bf16 / 1e12:.2f} TFLOP bf16 + {fp32 / 1e12:.2f} "
+            f"TFLOP float32 = {ops_ms:.2f} ms; {nbytes / 1e9:.2f} GB = "
+            f"{bytes_ms:.2f} ms")
+
+
+def ef_kernel_timings(torch, bp, ref, n):
+    """rb_encode and rb_decode at the embedding gradient's N, the shapes
+    ``ef_quantize`` gives them (8 magnitude planes and the sign plane):
+    kernel and plain time and the byte bound, as phase 2 times them."""
+    words = -(-n // 4096) * 128
+    rows = []
+    for what, p, hi in (("8 planes", 8, 2 ** 8), ("1 sign plane", 1, 2)):
+        x = torch.randint(0, hi, (1, n), dtype=torch.int32, device="cuda")
+        planes = ref.encode_register_block(x, p)
+        for name, call, plain, arg, nbytes in (
+                ("rb_encode", lambda a: bp.encode_register_block_cuda(a, p),
+                 lambda: ref.encode_register_block(x, p), x,
+                 4 * n + 4 * p * words),
+                ("rb_decode",
+                 lambda a: bp.decode_register_block_cuda(a, p, n),
+                 lambda: ref.decode_register_block(planes, p, n), planes,
+                 4 * p * words + 4 * n)):
+            want = plain()
+            check(torch.equal(call(arg), want), f"{name} {what} at N={n}")
+            r = dict(name=name, case=what, n=n, ms=time_ms(lambda: call(arg)),
+                     device_ms=time_ms(lambda: call(arg), graph=True),
+                     plain_ms=time_ms(plain, reps=3, inner=1, warmup=1),
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+            rows.append(r)
+            print(f"{name} {what} (N={n}, the embedding's gradient): kernel "
+                  f"{r['ms'] * 1e3:.1f} us a call back to back, device "
+                  f"{r['device_ms'] * 1e3:.1f} us ({nbytes / r['device_ms'] / 1e6:.0f} "
+                  f"GB/s), plain {r['plain_ms'] * 1e3:.1f} us, bound "
+                  f"{r['bound_ms'] * 1e3:.1f} us (bytes), "
+                  f"{r['device_ms'] / r['bound_ms']:.2f}x", flush=True)
+        del x, planes
+    return rows
+
+
+def _profile_step(torch, trainer, res, batch):
+    """One more danube training step under torch.profiler: its wall, the
+    device's busy time and idle share, kernel launches, and the top ops by
+    self device time."""
+    from repro_torch.distributed.grad_compress import ef_quantize
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import value_and_grad
+    state = (res["params"], res["opt_state"], res["ef"])
+    trainer._step(*state, batch)        # warm: the profiled step's twin
+    # Trainer._step's three stages on the device's timeline
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    _, grads = value_and_grad(lambda p: trainer.model.loss(p, batch),
+                              state[0])
+    ev[1].record()
+    qs = tree_unflatten(grads, [ef_quantize(g, r, 8)[0] for g, r in
+                                zip(tree_leaves(grads),
+                                    tree_leaves(state[2]))])
+    ev[2].record()
+    adamw.update(qs, state[1], state[0], trainer.opt_cfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    stages = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    print(f"danube step stages (CUDA events): loss and gradient "
+          f"{stages[0]:.1f} ms, ef_quantize {stages[1]:.1f} ms, AdamW "
+          f"{stages[2]:.1f} ms", flush=True)
+    del grads, qs
+    prof, walls = _profile(torch, lambda: trainer._step(*state, batch))
+    evs = sorted(prof.key_averages(), key=lambda e: -_dev_us(e))
+    busy = _busy_ms(evs)
+    launches = sum(e.count for e in evs if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    wall = walls[1] * 1e3
+    print(f"danube step (profiled): {wall:.1f} ms wall, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {launches} "
+          f"kernel launches", flush=True)
+    for e in [e for e in evs if e.key.startswith("aten::")][:10]:
+        print(f"  danube op {e.key}: {e.count} calls, self device "
+              f"{_dev_us(e) / 1e3:.1f} ms, self cpu "
+              f"{e.self_cpu_time_total / 1e3:.1f} ms", flush=True)
+    from torch.autograd import DeviceType
+    kernels = [e for e in evs if e.device_type == DeviceType.CUDA]
+    for e in kernels[:10]:
+        print(f"  danube kernel {e.key[:90]}: {e.count} launches, device "
+              f"{_dev_us(e) / 1e3:.1f} ms", flush=True)
+
+
+def danube_train(torch, bp, ref, profile=False):
+    """h2o-danube-3-4b at its published widths, depth cut from 24 to 2:
+    4 Trainer steps of batch 2 x 4096 with the reference launcher's
+    settings, one checkpoint at step 4, loaded back bit-exact; ef_quantize
+    on the card against its plain path on every gradient leaf.  With
+    ``profile``, one more step under torch.profiler."""
+    import dataclasses
+    from repro_torch.ckpt import manager as ck
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.grad_compress import ef_quantize
+    from repro_torch.models.model import Model, count_params
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.train import loop
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"),
+                              n_layers=DANUBE_LAYERS)
+    check(cfg.remat and cfg.compute_dtype == "bfloat16"
+          and cfg.param_dtype == "float32", "danube's training settings")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = count_params(cfg)
+    leaves = tree_leaves(model.params)
+    print(f"h2o-danube-3-4b, {cfg.n_layers} of 24 layers: {n_params} params "
+          f"in {len(leaves)} leaves (largest {max(t.numel() for t in leaves)}"
+          f"), tree_init on the card {time.perf_counter() - t0:.3f} s; "
+          f"batch {DANUBE_BATCH} x {DANUBE_SEQ}, bf16 compute, remat, "
+          f"float32 params and AdamW state, 8-plane EF compression",
+          flush=True)
+    bound_ms, bound_by, detail = step_bound(cfg, n_params, DANUBE_BATCH,
+                                            DANUBE_SEQ)
+    print(f"step bound {bound_ms:.2f} ms ({bound_by}): {detail}", flush=True)
+
+    data = loop.synthetic_data(cfg, DANUBE_BATCH, DANUBE_SEQ, seed=1,
+                               device="cuda")
+    marks = []
+
+    def data_fn(step):
+        marks.append(_rb_launches(bp))   # launches before each step
+        return data(step)
+    root = os.path.join(TRAIN_ROOT, "danube")
+    trainer = _trainer(model, root, TRAIN_STEPS, 3e-4, data_fn)
+    bp.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _PlainCalls(ref) as plain, obs_trace.tracing() as tr:
+        t0 = time.perf_counter()
+        res = trainer.run()
+        wall = time.perf_counter() - t0
+    end = _rb_launches(bp)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(plain == {"encode": 0, "decode": 0},
+          f"the training run called the plain bitplane path: {plain}")
+    per_step = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+    last = {k: end[k] - marks[-1][k] for k in end}
+    ckpt_launches = {k: last[k] - per_step[0][k] for k in last}
+    check(len(per_step) == TRAIN_STEPS - 1
+          and all(s == per_step[0] for s in per_step)
+          and per_step[0]["rb_encode"] == 2 * len(leaves)
+          and per_step[0]["rb_decode"] == 2 * len(leaves)
+          and ckpt_launches["rb_encode"] > 0,
+          f"launches: per step {per_step}, last step and checkpoint {last}")
+    for m in res["metrics"]:
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"danube step {m['step']}: loss {m['loss']}, grad norm "
+              f"{m['grad_norm']}")
+        print(f"danube step {m['step']}: wall {m['dt'] * 1e3:.1f} ms "
+              f"({bound_ms / (m['dt'] * 1e3):.3f} of the {bound_ms:.2f} ms "
+              f"bound), loss {m['loss']:.4f}, grad norm "
+              f"{m['grad_norm']:.4f}", flush=True)
+    print(f"danube run {wall:.2f} s; launches a step: {per_step[0]} "
+          f"(ef_quantize: a sign plane and 8 magnitude planes a leaf); the "
+          f"checkpoint's: {ckpt_launches}; plain bitplane calls: {plain}; "
+          f"peak device memory {peak:.3f} GiB", flush=True)
+
+    tree = {"params": res["params"], "opt": res["opt_state"], "ef": res["ef"]}
+    raw = sum(t.numel() * t.element_size() for t in _state_leaves(tree))
+    spans = tr.summary()["spans"]
+    snap_s = spans["ckpt.snapshot"]["total_s"]
+    save_s = spans["ckpt.save"]["total_s"]
+    stored = sum(e["stored_bytes"] for e in json.load(open(os.path.join(
+        root, f"step_{TRAIN_STEPS:08d}", "manifest.json")))["leaves"].values())
+    print_spans(tr, "danube run")
+    print(f"danube checkpoint at step {TRAIN_STEPS}: {raw / 1e9:.3f} GB "
+          f"(params, AdamW m and v, EF residual), snapshot to the host "
+          f"{snap_s:.3f} s ({raw / snap_s / 1e9:.3f} GB/s), encode and write "
+          f"{save_s:.3f} s ({raw / save_s / 1e9:.3f} GB/s), "
+          f"{stored / 1e9:.3f} GB stored (ratio {raw / stored:.3f})",
+          flush=True)
+    torch.cuda.synchronize()
+    with obs_trace.tracing() as tr:
+        t0 = time.perf_counter()
+        out, _ = ck.load(root, TRAIN_STEPS, tree, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    print_spans(tr, "danube load")
+    check(all(a.dtype == b.dtype and a.device.type == "cuda"
+              and torch.equal(a, b) for a, b in
+              zip(_state_leaves(out), _state_leaves(tree))),
+          "the danube checkpoint does not load back bit-exact")
+    print(f"danube checkpoint load: {load_s:.3f} s "
+          f"({raw / load_s / 1e9:.3f} GB/s), every leaf bit-exact",
+          flush=True)
+    del out
+
+    # the gradient leaves at the final params on step 4's batch, with the
+    # final residual: ef_quantize through the kernels against its plain path
+    batch = data(TRAIN_STEPS - 1)
+    if profile:
+        _profile_step(torch, trainer, res, batch)
+    _, grads = value_and_grad(lambda p: model.loss(p, batch), res["params"])
+    for g, r in zip(tree_leaves(grads), tree_leaves(res["ef"])):
+        before = _rb_launches(bp)
+        q, nr = ef_quantize(g, r, 8)
+        after = _rb_launches(bp)
+        qp, nrp = ef_quantize(g, r, 8, backend="torch")
+        check(after["rb_encode"] - before["rb_encode"] == 2
+              and after["rb_decode"] - before["rb_decode"] == 2
+              and _rb_launches(bp) == after,
+              f"ef_quantize launches at N={g.numel()}")
+        check(torch.equal(q.view(torch.int32), qp.view(torch.int32))
+              and torch.equal(nr.view(torch.int32), nrp.view(torch.int32)),
+              f"ef_quantize through the kernels differs from its plain "
+              f"path at N={g.numel()}")
+    print(f"ef_quantize (8 planes) through rb_encode/rb_decode == its plain "
+          f"path, bit for bit, on all {len(leaves)} gradient leaves (N up to "
+          f"{max(g.numel() for g in tree_leaves(grads))})", flush=True)
+    n_emb = model.params["embed"].numel()
+    del grads, res, tree, trainer, model, batch
+    _free(torch)
+    ef_kernel_timings(torch, bp, ref, n_emb)
+
+
+def train_phase(torch, bp, ref, profile=False):
+    import shutil
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        train_smoke_archs(torch)
+        print(f"smoke archs: {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        danube_train(torch, bp, ref, profile)
+        _free(torch)
+        print(f"h2o-danube-3-4b/2: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 6, the torch.profiler pass, and a "
-                         "profiled pass over qwen2-7b's decode steps")
+                    help="add phase 6, the torch.profiler pass, and "
+                         "profiled passes over qwen2-7b's decode steps and "
+                         "a danube training step")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1726,6 +2145,11 @@ def main(argv) -> int:
                "deepseek-v2/2, rwkv6-3b)")
     serve_phase(torch, args.profile)
     done(t0, "phase 13")
+
+    t0 = phase("14 train: smoke archs card vs CPU and crash/resume; "
+               "h2o-danube-3-4b at full width, 2 of 24 layers")
+    train_phase(torch, bp, ref, args.profile)
+    done(t0, "phase 14")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

@@ -18,11 +18,13 @@ checkpoint written by either package loads in the other:
 * async:       snapshot-to-host happens on the caller thread;
                encode+write runs on a background thread.
 
-A tree is nested dicts, lists and tuples of tensors (numpy arrays and Python
-or numpy scalars are leaves too), as in a ``state_dict``; ``None`` holds no
-leaf.  Leaves are named and ordered as ``jax.tree_util`` flattens the same
-nesting: a dict's keys SORTED, path parts joined by ``.``, a repeated
-sanitized name suffixed ``__N`` in that order.  Dtypes are written under
+A tree is nested dicts, lists, tuples and ``NamedTuple``s of tensors (numpy
+arrays and Python or numpy scalars are leaves too), as in a ``state_dict``
+or an ``optim.adamw.AdamWState``; ``None`` holds no leaf.  Leaves are named
+and ordered as ``jax.tree_util`` flattens the same nesting: a dict's keys
+SORTED, a ``NamedTuple``'s fields by name, a list's or tuple's items by
+index, path parts joined by ``.``, a repeated sanitized name suffixed
+``__N`` in that order.  Dtypes are written under
 numpy's names (``float32``, ``bfloat16``, ``int64``, ...).  Leaves of a
 codec dtype with at least 1024 elements are refactored
 (``bitcast_codec``, on ``device``: ``None`` means ``cuda``); the others are
@@ -57,10 +59,17 @@ def _paths(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     if isinstance(tree, dict):
         return [pl for k in sorted(tree) for pl in _paths(tree[k],
                                                           prefix + (k,))]
+    if _is_namedtuple(tree):
+        return [pl for k, v in zip(tree._fields, tree)
+                for pl in _paths(v, prefix + (k,))]
     if isinstance(tree, (list, tuple)):
         return [pl for i, v in enumerate(tree) for pl in _paths(v,
                                                                 prefix + (i,))]
     return [(prefix, tree)]
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
 def _unflatten(like, leaves) -> Any:
@@ -71,6 +80,8 @@ def _unflatten(like, leaves) -> Any:
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
     if isinstance(like, (list, tuple)):
         out = [_unflatten(v, leaves) for v in like]
+        if _is_namedtuple(like):
+            return type(like)(*out)
         return tuple(out) if isinstance(like, tuple) else out
     return next(leaves)
 
@@ -241,18 +252,24 @@ class AsyncCheckpointer:
         self.last_error: Optional[BaseException] = None
 
     def save(self, step: int, tree: Any, meta: Optional[Dict] = None):
+        """Snapshot ``tree`` to the host (span ``ckpt.snapshot``), then
+        encode and write it on a background thread (span ``ckpt.save``, in
+        the caller's trace)."""
         self.wait()
-        host_tree = _unflatten(tree, iter([_snapshot(v)
-                                           for _, v in _paths(tree)]))
+        with obs_trace.span("ckpt.snapshot", step=step):
+            host_tree = _unflatten(tree, iter([_snapshot(v)
+                                               for _, v in _paths(tree)]))
 
         def work():
             try:
-                save(self.ckpt_dir, step, host_tree, meta=meta,
-                     device=self.device)
+                with obs_trace.span("ckpt.save", step=step):
+                    save(self.ckpt_dir, step, host_tree, meta=meta,
+                         device=self.device)
             except BaseException as e:  # noqa: BLE001 - raised at wait()
                 self.last_error = e
 
-        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread = threading.Thread(target=obs_trace.wrap_for_thread(work),
+                                        daemon=True)
         self._thread.start()
 
     def wait(self):

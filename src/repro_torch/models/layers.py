@@ -42,10 +42,30 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, *[o.to(dt) for o in ops])
 
 
+class _Logistic(torch.autograd.Function):
+    """The sigmoid's value as XLA expands it, its gradient as JAX's
+    ``logistic`` rule, ``g * (s * (1 - s))``: autograd through the
+    expansion would give ``0 * exp(-x) = 0 * inf = NaN`` where ``exp(-x)``
+    overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as XLA expands it: ``1 / (1 + exp(-x))``, each op
     rounded to x's dtype (``torch.sigmoid`` rounds once, which differs in
-    about a third of bfloat16 values)."""
+    about a third of bfloat16 values), differentiable as JAX's."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Logistic.apply(x)
     return 1 / (1 + torch.exp(-x))
 
 

@@ -163,8 +163,9 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------------- loss --
     def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Cross-entropy + MoE aux (+ 0.1 x the MTP loss): the value only;
-        the backward pass belongs to the training path."""
+        """Cross-entropy + MoE aux (+ 0.1 x the MTP loss), differentiable
+        with respect to the leaves of ``params`` (``train.step``'s
+        ``value_and_grad`` takes its gradient)."""
         cfg = self.cfg
         params = self._tree(params)
         x = self._embed(params, batch.get("tokens"), batch.get("embeds"))
@@ -204,7 +205,8 @@ class Model(nn.Module):
         b, s, _ = x.shape
         h, caches, _ = T.stack_apply(params["blocks"], x, self.cfg,
                                      _positions(b, s, x.device),
-                                     vision_states=vision_states)
+                                     vision_states=vision_states,
+                                     build_caches=True)
         logits = self._head(params, h[:, -1:, :])
         if max_len is not None and max_len > s:
             caches = _pad_caches(caches, max_len, seq_axis=2)

@@ -12,8 +12,11 @@ with a model axis and waits for the mesh-bound paths.
 Ties: ``jax.lax.top_k`` puts the lower expert index first among equal
 probabilities and ``_rank_in_expert`` ranks with a stable sort, so both are
 stable sorts here and capacity drops fall on the reference's tokens.  The
-combine's ``index_add_`` sums a token's k contributions in index order on
-the CPU and in any order on the card.
+combine sums a token's k contributions in assignment order, from zero, on
+every device: the bits of the CPU's ``index_add_``, where the card's
+``index_add_`` adds them in whatever order its atomics land, so that two
+runs on the card (a resumed training run and an uncrashed one) agree bit
+for bit.
 """
 from __future__ import annotations
 
@@ -122,8 +125,10 @@ def _moe_apply_gspmd(p, x: torch.Tensor, cfg: ModelConfig):
 
     gathered = y[torch.clamp(slot, 0, e * cap - 1)]
     w_keep = (w_flat * keep).to(cdt)[:, None]
+    contrib = (gathered * w_keep).reshape(t, k, d)   # token-major, as tok_flat
     out = torch.zeros((t, d), dtype=cdt, device=x.device)
-    out.index_add_(0, tok_flat, gathered * w_keep)
+    for j in range(k):
+        out = out + contrib[:, j]
 
     if m.n_shared:
         out = out + mlp_apply(p["shared"], x, cfg).reshape(t, d)

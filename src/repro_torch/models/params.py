@@ -89,14 +89,18 @@ def tree_init(tree, generator: torch.Generator, default_dtype: str,
         return out
 
     # draw in the flattening order, then rebuild the nesting
-    leaves = iter([init(ps) for ps in tree_leaves(tree)])
-    return _rebuild(tree, leaves)
+    return tree_unflatten(tree, [init(ps) for ps in tree_leaves(tree)])
 
 
-def _rebuild(like, leaves):
-    if isinstance(like, dict):
-        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
-    return next(leaves)
+def tree_unflatten(like, leaves):
+    """``like``'s nesting with ``leaves`` (in ``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        return next(it)
+    return rebuild(like)
 
 
 def tree_param_count(tree) -> int:

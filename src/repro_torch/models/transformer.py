@@ -11,8 +11,13 @@ groups*; each group repeats a pattern of sub-layers with stacked parameters
   vision_cross   (N/5) x [4 self-attn + 1 gated cross-attn]
 
 Caches are stacked the same way.  Prefill builds them; decode updates the
-stacked cache in place.  ``cfg.remat`` changes no value and is not read on
-this no-grad path.
+stacked cache in place; the forward and the loss build none.  With
+``cfg.remat``, and when autograd records, each repeat runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around its
+scan step): the backward pass keeps only each repeat's input and
+recomputes the rest.  A stacked leaf is ``unbind``-ed once per group, so
+the backward pass stacks the repeats' gradients once instead of adding a
+full-size gradient per repeat.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -198,43 +204,60 @@ def _store(dst: Dict, src: Dict) -> None:
     tree_map(put, dst, src)
 
 
+def _repeat_apply(g: StackGroup, cfg: ModelConfig, positions, cache_index,
+                  vision_states, h: torch.Tensor, p_layer: Dict,
+                  c_layer: Optional[Dict]):
+    """One repeat of a group's pattern: (h, the last sub-layer's aux, the
+    repeat's new caches)."""
+    new_c = {}
+    for i, kind in enumerate(g.kinds):
+        key = f"sub{i}_{kind}"
+        sub_c = c_layer[key] if c_layer is not None else None
+        h, nc, aux = block_apply(p_layer[key], h, cfg, kind, positions,
+                                 cache=sub_c, cache_index=cache_index,
+                                 vision_states=vision_states)
+        new_c[key] = nc if nc is not None else {}
+    return h, aux, new_c
+
+
 def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *,
                 caches: Optional[Dict] = None,
                 cache_index: Optional[int] = None,
-                vision_states: Optional[torch.Tensor] = None
+                vision_states: Optional[torch.Tensor] = None,
+                build_caches: bool = False
                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Run all stack groups.  Returns (x, caches, total_aux): the caches
-    built by a prefill (``caches=None``), or the ``caches`` given, updated
-    in place by a decode step."""
+    built by a prefill (``build_caches``), the ``caches`` given, updated in
+    place by a decode step, or ``{}`` (the forward and the loss)."""
     total_aux = torch.zeros((), device=x.device)
     new_caches: Dict[str, Any] = {}
+    remat = (cfg.remat and caches is None and not build_caches
+             and torch.is_grad_enabled())
 
     for g in stack_plan(cfg):
-        gp = params[g.name]
         gc = caches.get(g.name) if caches is not None else None
+        layers = tree_map(lambda t: t.unbind(0), params[g.name])
+        run = functools.partial(_repeat_apply, g, cfg, positions,
+                                cache_index, vision_states)
         built = []
         for r in range(g.repeats):
-            p_layer = tree_map(lambda t: t[r], gp)
+            p_layer = tree_map(lambda ts: ts[r], layers)
             c_layer = tree_map(lambda t: t[r], gc) if gc is not None else None
-            new_c = {}
-            for i, kind in enumerate(g.kinds):
-                key = f"sub{i}_{kind}"
-                sub_c = c_layer[key] if c_layer is not None else None
-                x, nc, aux = block_apply(
-                    p_layer[key], x, cfg, kind, positions,
-                    cache=sub_c, cache_index=cache_index,
-                    vision_states=vision_states)
-                new_c[key] = nc if nc is not None else {}
+            if remat:
+                x, aux, _ = checkpoint(run, x, p_layer, None,
+                                       use_reentrant=False)
+            else:
+                x, aux, new_c = run(x, p_layer, c_layer)
+                if c_layer is not None:
+                    _store(c_layer, new_c)
+                elif build_caches:
+                    built.append(new_c)
             # the reference's scan carries only the last sub-layer's aux
             # of each repeat (jamba's period of 8 adds one of its 4 MoE
             # layers' aux); kept so that the loss matches it
             total_aux = total_aux + aux
-            if c_layer is not None:
-                _store(c_layer, new_c)
-            else:
-                built.append(new_c)
-        if gc is None:
+        if build_caches:
             new_caches[g.name] = _stack(built)
     return x, (new_caches if caches is None else caches), total_aux
 

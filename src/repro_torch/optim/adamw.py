@@ -1,0 +1,166 @@
+"""AdamW with dtype-configurable moment states, global-norm clipping and a
+linear-warmup/cosine schedule.
+
+A port of ``repro.optim.adamw``.  Trees are nested dicts of tensors (the
+``Model.params`` layout); ``update`` is functional and returns new trees.
+``state_partition_specs`` belongs with the mesh-bound paths and has no
+counterpart yet.
+
+Bit-identity with the reference's jitted ``update`` (XLA on the CPU), a
+rule per op, each found against XLA's output:
+
+* XLA contracts ``a * b + c`` into one fused multiply-add: the moments
+  (``m * b1`` and ``v * b2`` are the products contracted for a float32
+  state; for a bfloat16 state ``g * (1 - b1)`` and ``g**2 * (1 - b2)``,
+  and the step reads ``v`` formed once more with ``v * b2`` contracted),
+  the decoupled
+  weight decay (``wd * p``), the parameter step (``lr * delta``) and the
+  schedule's ``0.1 + 0.9 * cos``.  The port forms each in float64 and
+  rounds once, which is the FMA's value (a float32 product is exact in
+  float64; the second rounding can differ from a true FMA only when the
+  float64 sum lands within 2**-53 of a float32 midpoint);
+* XLA rewrites ``(a / b) / c`` into ``a / (b * c)`` (the bias-corrected
+  first moment over the denominator) and a division by a constant into a
+  product with its float32 reciprocal (the schedule);
+* torch's CPU float32 ``sqrt`` is not correctly rounded; the square roots
+  are taken in float64 and rounded once (``core/qoi.py`` does the same);
+* XLA's CPU arithmetic flushes subnormals to zero; the update flushes
+  explicitly (``core/align.py`` ``flush_subnormal``).
+
+What stays apart: XLA reduces a leaf's sum of squares in an order of its
+own; the port accumulates the global norm in float64, so under clipping
+(``scale < 1``) the scaled gradient, and all after it, can differ in the
+last bit.  XLA's CPU ``cos`` is glibc's ``cosf``, within an ulp of the
+cosine the port rounds from float64, and XLA's ``pow`` differs from
+torch's by an ulp at some arguments: so the learning rate and the bias
+corrections can differ by an ulp at some steps (no step of the warmup,
+where the cosine's argument is 0).  On the card the scalars are the
+card's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.core.align import flush_subnormal
+from repro_torch.models.params import (DTYPES, tree_leaves, tree_map,
+                                       tree_unflatten)
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor        # int32 scalar
+    m: Any
+    v: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    state_dtype: str = "float32"
+
+
+def init(params, cfg: AdamWConfig) -> AdamWState:
+    """Zero moments in ``cfg.state_dtype`` beside each parameter, step 0 on
+    the parameters' device."""
+    dt = DTYPES[cfg.state_dtype]
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at float32 ``step``: linear warmup, then a cosine
+    from 1 down to 0.1 of ``cfg.lr``."""
+    dev = step.device
+    inv_warm = _f32(1.0, dev) / max(cfg.warmup_steps, 1)
+    inv_decay = _f32(1.0, dev) / max(cfg.total_steps - cfg.warmup_steps, 1)
+    warm = torch.minimum(step * inv_warm, _f32(1.0, dev))
+    prog = torch.clamp((step - cfg.warmup_steps) * inv_decay, 0.0, 1.0)
+    # float32 argument, cosine in float64 rounded once (XLA calls cosf)
+    cos = 0.5 * (1.0 + torch.cos((math.pi * prog).double()).float())
+    return cfg.lr * warm * _fma(cos, _f32(0.9, dev).double(), _f32(0.1, dev))
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (through float64)."""
+    return torch.sqrt(x.double()).float()
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The float32 norm of all leaves together, accumulated in float64."""
+    leaves = tree_leaves(tree)
+    total = sum(torch.sum(torch.square(g.double())) for g in leaves)
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float64)).float()
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA's contracted FMA."""
+    return (a.double() * b + c.double()).float()
+
+
+def _moment(old: torch.Tensor, b: float, x: torch.Tensor,
+            old_product: bool) -> torch.Tensor:
+    """``old * b + x * (1 - b)`` in float32, the product with the old
+    moment contracted into the FMA, or else the other product."""
+    bt = _f32(b, x.device)
+    if old_product:
+        return flush_subnormal(_fma(old.float(), bt.double(), x * (1 - b)))
+    omb = _f32(1 - b, x.device)
+    return flush_subnormal(_fma(x, omb.double(), old.float() * bt))
+
+
+def _upd(p, g, m, v, scale, lr, c1, c2, cfg: AdamWConfig, sdt):
+    g = flush_subnormal(g.float() * scale)
+    g2 = flush_subnormal(torch.square(g))
+    f32_state = sdt == torch.float32
+    m32 = _moment(m, cfg.b1, g, f32_state)
+    v32 = _moment(v, cfg.b2, g2, f32_state)
+    # with a bfloat16 state XLA forms v once more for the step, in a fusion
+    # of its own that contracts the other product
+    v_step = v32 if f32_state else _moment(v, cfg.b2, g2, True)
+    denom = flush_subnormal(c1 * (_sqrt(flush_subnormal(v_step / c2))
+                                  + cfg.eps))
+    p32 = p.float()
+    delta = flush_subnormal(_fma(p32, _f32(cfg.weight_decay,
+                                           g.device).double(),
+                                 flush_subnormal(m32 / denom)))
+    newp = flush_subnormal(_fma(delta, -lr.double(), p32))
+    return newp.to(p.dtype), m32.to(sdt), v32.to(sdt)
+
+
+def update(grads, state: AdamWState, params, cfg: AdamWConfig
+           ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step: returns (new params, new state, {"grad_norm",
+    "lr"}), all on the parameters' device."""
+    step = state.step + 1
+    gnorm = global_norm(grads)
+    dev = gnorm.device
+    scale = torch.minimum(_f32(1.0, dev),
+                          cfg.clip_norm / torch.clamp_min(gnorm, 1e-9))
+    stepf = step.float()
+    lr = _schedule(cfg, stepf)
+    c1 = 1 - torch.pow(_f32(cfg.b1, dev), stepf)
+    c2 = 1 - torch.pow(_f32(cfg.b2, dev), stepf)
+    sdt = DTYPES[cfg.state_dtype]
+    outs = [_upd(p, g, m, v, scale, lr, c1, c2, cfg, sdt)
+            for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                                  tree_leaves(state.m), tree_leaves(state.v))]
+    pick = lambda i: tree_unflatten(params, [o[i] for o in outs])
+    return (pick(0), AdamWState(step=step, m=pick(1), v=pick(2)),
+            {"grad_norm": gnorm, "lr": lr})

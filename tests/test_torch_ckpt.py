@@ -356,3 +356,101 @@ def test_entry_points_default_to_the_card(tmp_path):
     ck.save(tmp_path, 1, tree, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ck.load(tmp_path, 1, tree)
+
+
+# ------------------------------------------- training state across packages --
+
+def _train_trees():
+    """The ``Trainer``'s checkpoint tree, ``{"params", "opt": AdamWState,
+    "ef"}``, in both packages with the same values."""
+    import jax
+    from repro.optim import adamw as jadamw
+    from repro_torch.optim import adamw
+
+    rng = np.random.default_rng(4)
+    leaf = lambda *s: rng.normal(size=s).astype(np.float32)
+    p, m, v, ef = ({"w": leaf(64, 64), "b": leaf(8)} for _ in range(4))
+    jt = {"params": p, "ef": ef,
+          "opt": jadamw.AdamWState(step=jnp.asarray(7, jnp.int32),
+                                   m=jax.tree.map(jnp.asarray, m),
+                                   v=jax.tree.map(jnp.asarray, v))}
+    to_t = lambda d: {k: torch.from_numpy(x.copy()) for k, x in d.items()}
+    tt = {"params": to_t(p), "ef": to_t(ef),
+          "opt": adamw.AdamWState(step=torch.tensor(7, dtype=torch.int32),
+                                  m=to_t(m), v=to_t(v))}
+    return jt, tt
+
+
+def test_named_tuples_are_named_by_field_and_rebuilt(tmp_path):
+    from repro_torch.optim import adamw
+    jt, tt = _train_trees()
+    jck.save(tmp_path / "ref", 1, jt)
+    ck.save(tmp_path / "port", 1, tt, device="cpu")
+    man = _same_checkpoint(_step_dir(tmp_path / "ref", 1),
+                           _step_dir(tmp_path / "port", 1))
+    # a NamedTuple flattens in field order, a dict in sorted key order
+    assert list(man["leaves"]) == [
+        "ef.b", "ef.w", "opt.step", "opt.m.b", "opt.m.w", "opt.v.b",
+        "opt.v.w", "params.b", "params.w"]
+    got, _ = ck.load(tmp_path / "ref", 1, tt, device="cpu")
+    assert type(got["opt"]) is adamw.AdamWState
+    assert int(got["opt"].step) == 7 and got["opt"].step.dtype == torch.int32
+    for g, w in zip(_leaves(got), _leaves(tt)):
+        assert torch.equal(g, w)
+    want, _ = jck.load(tmp_path / "port", 1, jt)
+    assert type(want["opt"]).__name__ == "AdamWState"
+    for g, w in zip(_leaves(got), [np.asarray(x) for x in
+                                   __import__("jax").tree.leaves(want)]):
+        assert _bytes(g) == _bytes(w)
+
+
+def _tiny_trainers(ckpt_dir, total):
+    """A reference and a port ``Trainer`` of one tiny model (the
+    reference's ``tests/test_ckpt_train.py`` config), 8-plane gradient
+    compression, checkpoints in ``ckpt_dir``."""
+    import jax
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro.models.model import Model as JModel
+    from repro.optim import adamw as jadamw
+    from repro.train import loop as jloop
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_from_reference
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    kw = dict(name="tiny", family="dense", n_layers=2, d_model=64,
+              n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
+              compute_dtype="float32", remat=False)
+    jm = JModel(JModelConfig(**kw))
+    m = Model(ModelConfig(**kw), params_from_reference(
+        jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))), "cpu"),
+        device="cpu")
+    okw = dict(lr=1e-3, warmup_steps=2, total_steps=total)
+    tkw = dict(total_steps=total, ckpt_every=2, ckpt_dir=str(ckpt_dir),
+               log_every=1, grad_compress_planes=8)
+    ref = jloop.Trainer(jm, jadamw.AdamWConfig(**okw),
+                        jloop.TrainerConfig(**tkw),
+                        jloop.synthetic_data(jm.cfg, 4, 16, seed=1))
+    port = loop.Trainer(m, adamw.AdamWConfig(**okw), loop.TrainerConfig(**tkw),
+                        loop.synthetic_data(m.cfg, 4, 16, seed=1,
+                                            device="cpu"))
+    return ref, port
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_trainer_checkpoint_resumes_in_the_other_package(tmp_path, writer):
+    import shutil
+    first = _tiny_trainers(tmp_path / "a", 4)[writer == "port"]
+    first.run()
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    ref, _ = _tiny_trainers(tmp_path / "a", 5)
+    _, port = _tiny_trainers(tmp_path / "b", 5)
+    want, got = ref.run(), port.run()
+    assert want["final_step"] == got["final_step"] == 5
+    assert [r["step"] for r in got["metrics"]] == [5]   # resumed at step 4
+    assert got["metrics"][0]["loss"] == pytest.approx(
+        want["metrics"][0]["loss"], rel=1e-5)
+    assert got["metrics"][0]["grad_norm"] == pytest.approx(
+        want["metrics"][0]["grad_norm"], rel=1e-4)
+    assert int(got["opt_state"].step) == 5

@@ -586,3 +586,84 @@ def test_smoke_models_on_the_card_match_the_cpu(cuda, arch):
                              toks[:, :8].to(cuda), 6, vis_c)
     assert torch.equal(a.tokens, b.tokens.cpu())
     _close_rel(a.logits, b.logits, tol)
+
+
+# ------------------------------------------------------------------ training --
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 100_003])
+@pytest.mark.parametrize("planes", [1, 8, 23])
+def test_ef_quantize_on_the_card_equals_the_plain_path(cuda, n, planes):
+    """``ef_quantize`` through ``rb_encode``/``rb_decode`` (two of each a
+    call: the sign plane and the magnitude planes) against its plain path
+    on the card, bit for bit."""
+    from repro_torch.distributed.grad_compress import ef_quantize
+    g = torch.Generator(device=cuda).manual_seed(n + planes)
+    x = torch.randn(n, generator=g, device=cuda)
+    r = torch.randn(n, generator=g, device=cuda) * 1e-3
+    enc, dec = (bp.encode_register_block_cuda.launches,
+                bp.decode_register_block_cuda.launches)
+    q, nr = ef_quantize(x, r, planes)
+    assert bp.encode_register_block_cuda.launches == enc + 2
+    assert bp.decode_register_block_cuda.launches == dec + 2
+    qp, nrp = ef_quantize(x, r, planes, backend="torch")
+    assert bp.encode_register_block_cuda.launches == enc + 2
+    assert torch.equal(q.view(torch.int32), qp.view(torch.int32))
+    assert torch.equal(nr.view(torch.int32), nrp.view(torch.int32))
+    qc, nrc = ef_quantize(x.cpu(), r.cpu(), planes)
+    assert torch.equal(q.cpu().view(torch.int32), qc.view(torch.int32))
+
+
+def _smoke_trainer(arch, model, ckpt_dir, device, steps=2):
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    return loop.Trainer(
+        model, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps),
+        loop.TrainerConfig(total_steps=steps, ckpt_every=1,
+                           ckpt_dir=str(ckpt_dir), log_every=1,
+                           grad_compress_planes=8),
+        loop.synthetic_data(model.cfg, 2, 24, seed=1, device=device))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-v2-236b",
+                                  "jamba-v0.1-52b"])
+def test_one_trainer_step_on_the_card_matches_the_cpu(cuda, tmp_path, arch):
+    """One step from one CPU ``tree_init``: the loss within phase 13's
+    logit tolerance, each parameter within 2 x lr of the CPU's (Adam's
+    first step is about lr * sign(g) a parameter)."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    cpu = Model(smoke_config(arch), device="cpu", seed=0)
+    card = Model(smoke_config(arch), cpu.params, device=cuda)
+    want = _smoke_trainer(arch, cpu, tmp_path / "cpu", "cpu", 1).run()
+    got = _smoke_trainer(arch, card, tmp_path / "card", cuda, 1).run()
+    tol = SERVE_TOL.get(arch, 1e-4)
+    assert got["metrics"][0]["loss"] == pytest.approx(
+        want["metrics"][0]["loss"], rel=tol)
+    for a, b in zip(tree_leaves(want["params"]), tree_leaves(got["params"])):
+        assert b.device.type == "cuda"
+        assert float((a - b.cpu()).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-v2-236b"])
+def test_crash_and_resume_on_the_card_is_bit_exact(cuda, tmp_path, arch):
+    """A card run crashed after step 1 and resumed ends bit-identical to an
+    uncrashed card run: params, AdamW state and EF residual (the MoE
+    combine adds in a fixed order; the gathers' gradients are ordered
+    reductions)."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    card = Model(smoke_config(arch), device=cuda, seed=0)
+    full = _smoke_trainer(arch, card, tmp_path / "a", cuda, 3).run()
+    with pytest.raises(RuntimeError, match="injected crash"):
+        _smoke_trainer(arch, card, tmp_path / "b", cuda, 3).run(crash_at=1)
+    resumed = _smoke_trainer(arch, card, tmp_path / "b", cuda, 3).run()
+    assert [m["step"] for m in resumed["metrics"]] == [2, 3]
+
+    def leaves(res):
+        opt = res["opt_state"]
+        return (tree_leaves(res["params"]) + [opt.step] + tree_leaves(opt.m)
+                + tree_leaves(opt.v) + tree_leaves(res["ef"]))
+    for a, b in zip(leaves(full), leaves(resumed)):
+        assert torch.equal(a, b)
