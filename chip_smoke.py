@@ -123,12 +123,30 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    the kernels bit-identical to its plain path on every gradient leaf
    (the 122.9M-value embedding's included), and the two kernels timed at
    the embedding's N; with ``--profile``, one more danube step under
-   ``torch.profiler``.
+   ``torch.profiler``;
+15. the mesh-bound paths (``repro_torch.distributed``, ``launch.mesh``):
+   a NCCL world of one rank and a (1, 1) ``('data', 'model')`` mesh.
+   ``make_compressed_allreduce`` over vectors of the sizes of
+   h2o-danube-3-4b/2's 12 gradient leaves (122,880,000 values the
+   largest): the output equal to ``ef_quantize(x, 0)``'s q and the
+   residual to x - q bit for bit, through ``rb_encode``/``rb_decode``
+   (two launches of each a leaf) and equal to the plain path; qwen2-7b at
+   its published widths and full depth (bf16 weights held) with
+   ``cell_policy``'s decode_32k policy (a 32,768-deep, seq-sharded cache),
+   batch 4 of the shape's 128, a 256-token prompt and 16 new tokens with
+   ``seq_shard_decode`` against the plain decode at the same cache length:
+   greedy tokens equal and logits bit-identical (at one rank the combine
+   multiplies by ``exp(0)``), ms/token against the weight + cache read
+   bound; one ``make_train_step`` step under the mesh for every smoke arch
+   equal to the step without one bit for bit; a checkpoint saved under the
+   mesh byte-identical to one saved without, restored bit-exact by
+   ``load(shardings=)``.  With two or more cards it also runs the ``-k
+   cards`` card tests (one NCCL rank per card, worlds of 2 and up to 4).
 
-Phases 7-12 and 14 zero the launch counters before their runs and require
-the kernels of their paths to have launched; the kernels line's
-``launches`` is phase 3's count for the ``register_block`` pair (phase 9's
-are printed on a line of their own).  Each phase's wall and peak device
+Phases 7-12, 14 and 15 zero the launch counters before their runs and
+require the kernels of their paths to have launched; the kernels line's
+``launches`` is phase 3's count for the ``register_block`` pair (phases 9's
+and 15's are printed on lines of their own).  Each phase's wall and peak device
 memory are printed at its end.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -2041,6 +2059,295 @@ def train_phase(torch, bp, ref, profile=False):
         shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 15 --
+
+MESH_ROOT = os.path.join(REPO, "build", "mesh_smoke")
+SEQ_BATCH, SEQ_PROMPT, SEQ_NEW = 4, 256, 16   # decode_32k cut to batch 4
+
+
+def _wire(shd):
+    snap = shd.WIRE.snapshot()
+    return {k: v for k, v in snap.items() if v}
+
+
+def compressed_allreduce_check(torch, bp, mesh):
+    """``make_compressed_allreduce`` over 'data' on vectors of the sizes of
+    h2o-danube-3-4b/2's gradient leaves: at one rank the output is
+    ``ef_quantize(x, 0)``'s q bit for bit and the residual x - q; the
+    kernels equal their plain versions (``backend="torch"``) bit for bit;
+    rb_encode/rb_decode launches and the payload's bytes."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import grad_compress as gc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import model_abstract
+    from repro_torch.models.params import tree_leaves
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"),
+                              n_layers=DANUBE_LAYERS)
+    sizes = [ps.size for ps in tree_leaves(model_abstract(cfg))]
+    f = gc.make_compressed_allreduce(mesh, "data", planes=8)
+    f_plain = gc.make_compressed_allreduce(mesh, "data", planes=8,
+                                           backend="torch")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bp.reset_launches()
+    launches = {"rb_encode": 0, "rb_decode": 0}
+    wire = {}
+    t_kernel = 0.0
+    for n in sizes:
+        x = torch.randn((n,), generator=gen, device="cuda") * 1e-3
+        before = _rb_launches(bp)
+        shd.WIRE.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, res = f(x)
+        torch.cuda.synchronize()
+        t_kernel += time.perf_counter() - t0
+        for k, v in shd.WIRE.snapshot().items():
+            wire[k] = wire.get(k, 0) + v
+        after = _rb_launches(bp)
+        for k in launches:
+            launches[k] += after[k] - before[k]
+        check(after["rb_encode"] - before["rb_encode"] == 2
+              and after["rb_decode"] - before["rb_decode"] == 2,
+              f"compressed_psum launches at N={n}: {before} -> {after}")
+        q, _ = gc.ef_quantize(x, torch.zeros_like(x), 8)
+        check(torch.equal(out.view(torch.int32), q.view(torch.int32)),
+              f"compressed_psum at one rank != ef_quantize's q at N={n}")
+        check(torch.equal(res[:n].view(torch.int32),
+                          (x - q).view(torch.int32)),
+              f"compressed_psum's residual != x - q at N={n}")
+        out_p, res_p = f_plain(x)
+        check(torch.equal(out.view(torch.int32), out_p.view(torch.int32))
+              and torch.equal(res.view(torch.int32), res_p.view(torch.int32)),
+              f"compressed_psum through the kernels != its plain path at "
+              f"N={n}")
+        del x, out, res, q, out_p, res_p
+    payload = sum(4 * (1 + 8) * (-(-n // 4096) * 128) + 4 for n in sizes)
+    print(f"compressed all-reduce, 8 planes, over {len(sizes)} vectors of "
+          f"danube/2's gradient leaf sizes (N up to {max(sizes)}): output "
+          f"== ef_quantize's q and residual == x - q bit for bit, kernels "
+          f"== plain bit for bit; {t_kernel:.3f} s through the kernels; "
+          f"launches {launches}; gathered payload {payload} B "
+          f"({payload / (4 * sum(sizes)):.4f} of the float32 gradients); "
+          f"collectives at one rank {wire} (ring model: no byte on the "
+          f"wire at n = 1)", flush=True)
+    return launches
+
+
+def _decode(torch, model, params, prompts, n_new, max_len, mesh=None,
+            policy=None):
+    """Prefill to a ``max_len``-deep cache, then ``n_new - 1`` greedy decode
+    steps; under ``mesh`` the caches are cut by ``cache_shardings``.
+    Returns (tokens, logits, prefill s, decode ms/token)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.step import cache_shardings
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, tokens=prompts,
+                                      max_len=max_len)
+        if mesh is not None:
+            named = cache_shardings(cache, policy, mesh)
+
+            def cut(c, n):
+                return ({k: cut(c[k], n[k]) for k in c} if isinstance(c, dict)
+                        else shd.local_shard(c, n.spec, n.mesh))
+            cache = cut(cache, named)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        toks, steps = [tok], [logits[:, -1]]
+        t0 = time.perf_counter()
+        for i in range(n_new - 1):
+            logits, cache = model.decode_step(params, cache,
+                                              prompts.shape[1] + i, tok)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            steps.append(logits[:, -1])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (n_new - 1)
+    return torch.cat(toks, 1), torch.stack(steps, 1), prefill_s, ms
+
+
+def seqshard_decode_check(torch, mesh):
+    """qwen2-7b at its published widths and full depth, bf16 weights held,
+    decode_32k's policy on the mesh (cache 32,768 deep, seq-sharded), batch
+    4 of its 128, a 256-token prompt and 16 new tokens with
+    ``seq_shard_decode`` against the plain decode at the same cache
+    length: greedy tokens equal, logits bit-identical at one rank."""
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.driver import build_inputs
+    from repro_torch.launch.policy import cell_policy
+    from repro_torch.models.model import Model
+    cfg = get_config("qwen2-7b")
+    policy = cell_policy(cfg, SHAPES["decode_32k"], mesh)
+    check(policy.seq_shard and policy.cache_len == 32768,
+          f"decode_32k's policy on {mesh}: {policy}")
+    model = Model(cfg, device="cuda", seed=0)
+    held = model.compute_params()
+    sharded = Model(dataclasses.replace(cfg, seq_shard_decode=True), held,
+                    device="cuda")
+    prompts, _ = build_inputs(cfg, SEQ_BATCH, SEQ_PROMPT, device="cuda")
+    plain = _decode(torch, model, held, prompts, SEQ_NEW, policy.cache_len)
+    _free(torch)
+    shd.WIRE.reset()
+    with shd.use_mesh(mesh):
+        got = _decode(torch, sharded, held, prompts, SEQ_NEW,
+                      policy.cache_len, mesh, policy)
+    wire = _wire(shd)
+    check(torch.equal(got[0], plain[0]), "seq-sharded decode's greedy "
+          "tokens differ from the plain decode's")
+    exact = torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32))
+    rel = _rel(torch, plain[1], got[1])
+    check(exact, f"seq-sharded decode's logits are not the plain decode's "
+          f"bits at one rank (max relative difference {rel})")
+    weights = _tree_bytes(held)
+    cache = _cache_bytes(model, SEQ_BATCH, policy.cache_len)
+    bound_ms = (weights + cache) / HBM_BYTES_PER_S * 1e3
+    print(f"qwen2-7b seq-sharded flash decode, cache {policy.cache_len} deep "
+          f"(decode_32k, batch {SEQ_BATCH} of 128), prompt {SEQ_PROMPT}, "
+          f"{SEQ_NEW} new tokens: greedy tokens equal, logits bit-identical "
+          f"to the plain decode; {got[3]:.2f} ms/token (plain {plain[3]:.2f})"
+          f", prefill {got[2]:.3f} s; bound {bound_ms:.2f} ms/token (bf16 "
+          f"weights {weights / 1e9:.3f} GB + cache {cache / 1e9:.3f} GB at "
+          f"3.35 TB/s); collectives {wire}", flush=True)
+    del model, sharded, held, plain, got
+    _free(torch)
+
+
+def mesh_train_check(torch, mesh):
+    """One make_train_step step under the mesh for every smoke arch against
+    the same step without it, on the card: loss, AdamW state and new
+    parameters bit for bit."""
+    from repro_torch.configs.base import ShapeConfig, list_archs, smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.policy import cell_policy
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.step import make_train_step
+    for arch in list_archs():
+        cfg = smoke_config(arch)
+        model = Model(cfg, device="cuda", seed=0)
+        policy = cell_policy(cfg, ShapeConfig("t", 16, 2, "train"), mesh)
+        opt_cfg = adamw.AdamWConfig(lr=SMOKE_LR, warmup_steps=1,
+                                    total_steps=4)
+        fn = make_train_step(model, opt_cfg, policy)
+        batch = loop.synthetic_data(cfg, 2, 16, seed=1, device="cuda")(0)
+        opt = adamw.init(model.params, opt_cfg)
+        p1, o1, m1 = fn(model.params, opt, batch)
+        with shd.use_mesh(mesh):
+            p2, o2, m2 = fn(model.params, opt, batch)
+        same = (torch.equal(m1["loss"], m2["loss"])
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(p1) + tree_leaves(o1.m) + tree_leaves(o1.v),
+                    tree_leaves(p2) + tree_leaves(o2.m) + tree_leaves(o2.v))))
+        check(same, f"{arch}: the step under the mesh differs from the step "
+              f"without one")
+    print(f"make_train_step under the mesh == without it, bit for bit (loss, "
+          f"AdamW m and v, new parameters), for all {len(list_archs())} "
+          f"smoke archs", flush=True)
+
+
+def mesh_ckpt_check(torch, mesh):
+    """A tree saved under the mesh (rank 0 writes) gives the files of a
+    save without one; ``load(shardings=)`` restores each rank's block
+    bit-exact."""
+    from repro_torch.ckpt import manager as ck
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.policy import CellPolicy
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import train_shardings
+    import shutil
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    try:
+        model = Model(smoke_config("deepseek-v2-236b"), device="cuda", seed=0)
+        opt_cfg = adamw.AdamWConfig()
+        tree = {"params": model.params, "opt": adamw.init(model.params,
+                                                          opt_cfg)}
+        p_sh, o_sh = train_shardings(model, CellPolicy(("data",), 1,
+                                                       "float32", 16),
+                                     mesh, opt_cfg)
+        named = {"params": p_sh, "opt": o_sh}
+        a, b = os.path.join(MESH_ROOT, "mesh"), os.path.join(MESH_ROOT,
+                                                             "plain")
+        with shd.use_mesh(mesh):
+            ck.save(a, 1, tree, device="cuda", shardings=named)
+        ck.save(b, 1, tree, device="cuda")
+        da, db = os.path.join(a, "step_00000001"), os.path.join(b,
+                                                                "step_00000001")
+        ma = json.load(open(os.path.join(da, "manifest.json")))
+        mb = json.load(open(os.path.join(db, "manifest.json")))
+        ma.pop("time"), mb.pop("time")
+        check(ma == mb, "manifests differ between a save under the mesh "
+              "and one without")
+        for e in ma["leaves"].values():
+            check(open(os.path.join(da, e["file"]), "rb").read()
+                  == open(os.path.join(db, e["file"]), "rb").read(),
+                  f"{e['file']} differs between the saves")
+        with shd.use_mesh(mesh):
+            got, _ = ck.load(a, 1, tree, device="cuda", shardings=named)
+        check(all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(got["params"]) + tree_leaves(got["opt"].m),
+            tree_leaves(tree["params"]) + tree_leaves(tree["opt"].m))),
+            "load(shardings=) is not bit-exact")
+        print(f"checkpoint under the mesh: {len(ma['leaves'])} leaf files "
+              f"byte-identical to a save without it; load(shardings=) "
+              f"bit-exact", flush=True)
+    finally:
+        shutil.rmtree(MESH_ROOT, ignore_errors=True)
+
+
+def mesh_cards_check() -> None:
+    """With two or more cards, the ``-k cards`` card tests (one NCCL rank
+    per card, worlds of 2 and up to 4)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("one card: the mesh-bound paths ran at world size 1 (the "
+              "multi-rank checks are the -k cards tests, which need two "
+              "or more cards)", flush=True)
+        return
+    r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+                        "-k", "cards", "-p", "no:cacheprovider",
+                        os.path.join(REPO, "tests", "test_torch_cuda.py")],
+                       cwd=REPO, capture_output=True, text=True, timeout=900,
+                       env=dict(os.environ, PYTHONPATH=os.path.join(
+                           REPO, "src")))
+    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    print(f"{n} cards: the -k cards tests: {tail}", flush=True)
+    check(r.returncode == 0, f"the -k cards tests failed:\n{r.stdout[-3000:]}")
+
+
+def mesh_phase(torch, bp):
+    """Phase 15: a NCCL world of one rank, a (1, 1) ('data', 'model') mesh,
+    and the mesh-bound paths through it; then, with more cards, the
+    multi-rank card tests.  Returns the rb_encode/rb_decode launches of the
+    compressed all-reduce."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, device="cuda")
+    try:
+        print(f"mesh {mesh}: NCCL world of {dist.get_world_size()} on "
+              f"{torch.cuda.get_device_name(0)}", flush=True)
+        launches = compressed_allreduce_check(torch, bp, mesh)
+        _free(torch)
+        seqshard_decode_check(torch, mesh)
+        mesh_train_check(torch, mesh)
+        mesh_ckpt_check(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    mesh_cards_check()
+    return launches
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2150,6 +2457,13 @@ def main(argv) -> int:
                "h2o-danube-3-4b at full width, 2 of 24 layers")
     train_phase(torch, bp, ref, args.profile)
     done(t0, "phase 14")
+
+    t0 = phase("15 the mesh-bound paths (NCCL, a (1, 1) mesh; more cards: "
+               "the -k cards tests)")
+    p15 = mesh_phase(torch, bp)
+    print(f"phase-15 launches: rb_encode {p15['rb_encode']}, rb_decode "
+          f"{p15['rb_decode']} (compressed all-reduce)", flush=True)
+    done(t0, "phase 15")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

@@ -15,6 +15,11 @@ checkpoint written by either package loads in the other:
                on ``device``: one device, or a matching tree of devices.  A
                checkpoint written from the card loads on the CPU and the
                other way round.
+* elastic:     under a mesh (``sharding.use_mesh``) ``save`` gathers the
+               leaves that ``shardings`` says are cut, rank 0 writes and
+               every rank waits for it: the files are those of a save from
+               one device.  ``load(..., shardings=)`` gives each rank its
+               block of each leaf under any mesh.
 * async:       snapshot-to-host happens on the caller thread;
                encode+write runs on a background thread.
 
@@ -47,6 +52,7 @@ import torch
 from repro_torch.ckpt import bitcast_codec as bc
 from repro_torch.core import lossless as ll
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.obs import trace as obs_trace
 
 _SANITIZE = re.compile(r"[^\w.\-]+")
@@ -124,11 +130,48 @@ def _raw_bytes(t: torch.Tensor) -> bytes:
     return t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
 
 
+def _specs_for(like, shardings) -> List[Any]:
+    """The ``sharding.Named`` of each leaf of ``like``, in ``_paths``
+    order, from a matching tree; one ``Named`` holds for the whole subtree
+    it stands in."""
+    if isinstance(shardings, shd.Named):
+        return [shardings] * len(_paths(like))
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        return [s for k in sorted(like) for s in _specs_for(like[k],
+                                                            shardings[k])]
+    if _is_namedtuple(like):
+        return [s for k, v in zip(like._fields, like)
+                for s in _specs_for(v, getattr(shardings, k))]
+    if isinstance(like, (list, tuple)):
+        return [s for v, sv in zip(like, shardings)
+                for s in _specs_for(v, sv)]
+    return [shardings]
+
+
 def save(ckpt_dir: str | Path, step: int, tree: Any,
          hybrid: ll.HybridConfig = ll.HybridConfig(),
-         meta: Optional[Dict] = None, device: DeviceLike = None) -> Path:
+         meta: Optional[Dict] = None, device: DeviceLike = None,
+         shardings: Any = None) -> Path:
     """Synchronous atomic save; refactored leaves are encoded on
-    ``device`` (``None`` means ``cuda``)."""
+    ``device`` (``None`` means ``cuda``).  Under a mesh, ``shardings`` (a
+    matching tree of ``sharding.Named``; ``None``: every leaf is whole on
+    every rank) says how each rank's leaves are cut; they are gathered,
+    rank 0 writes, and every rank returns once it has."""
+    mesh = shd.get_current_mesh()
+    if mesh is not None:
+        if shardings is not None:
+            specs = _specs_for(tree, shardings)
+            tree = _unflatten(tree, iter(
+                [shd.gather_shard(leaf, sh.spec, sh.mesh)
+                 for (_, leaf), sh in zip(_paths(tree), specs)]))
+        path = Path(ckpt_dir) / f"step_{step:08d}"
+        if mesh.rank == 0:
+            with shd.use_mesh(None):
+                path = save(ckpt_dir, step, tree, hybrid, meta, device)
+        shd.barrier()
+        return path
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
@@ -208,19 +251,24 @@ def _from_raw(blob: bytes, dtype: str, shape) -> torch.Tensor:
 
 def load(ckpt_dir: str | Path, step: int, like: Any,
          rel_error: Optional[float] = None,
-         device: Any = None) -> Tuple[Any, Dict]:
+         device: Any = None, shardings: Any = None) -> Tuple[Any, Dict]:
     """Load into the structure of ``like`` (a tree of tensors or arrays:
     only its nesting is read).  ``device`` places the leaves: one device, or
     a matching tree of devices; ``None`` means ``cuda``.  Refactored leaves
-    are rebuilt on their device.  Returns (tree, stats)."""
+    are rebuilt on their device.  ``shardings`` (a matching tree of
+    ``sharding.Named``) gives each rank its block of each leaf (an elastic
+    restore: the checkpoint holds whole tensors, so any mesh reads it).
+    Returns (tree, stats)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     names, _ = _flatten(like)
     devs = [resolve_device(v) for v in _leaf_devices(device, len(names))]
+    specs = ([None] * len(names) if shardings is None
+             else _specs_for(like, shardings))
     out = []
     bytes_read = 0
     bytes_full = 0
-    for name, dev in zip(names, devs):
+    for name, dev, sh in zip(names, devs, specs):
         entry = manifest["leaves"][name]
         with obs_trace.span("ckpt.read", bytes=entry["stored_bytes"]):
             blob = (d / entry["file"]).read_bytes()
@@ -232,6 +280,8 @@ def load(ckpt_dir: str | Path, step: int, like: Any,
             t = _from_raw(blob, entry["dtype"], entry["shape"]).to(dev)
             bytes_read += len(blob)
         bytes_full += entry["stored_bytes"]
+        if sh is not None:
+            t = shd.local_shard(t, sh.spec, sh.mesh).clone()
         out.append(t)
     stats = {"bytes_read": bytes_read, "bytes_full": bytes_full,
              "step": manifest["step"], "read_fraction":

@@ -3,9 +3,8 @@
 A port of ``repro.configs.base`` as plain dataclasses with equal values.
 Every assigned architecture registers a full-size ``ModelConfig`` (exact
 public-literature dimensions) plus a ``smoke_config`` reduction used by CPU
-tests.  The reference's ``input_specs`` (ShapeDtypeStruct stand-ins for the
-dry-run and the sharded step builders) has no counterpart yet: it belongs
-with the mesh-bound paths.
+tests.  ``input_specs`` gives the inputs of a step as ``meta`` tensors,
+the counterpart of the reference's ``ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ import dataclasses
 import importlib
 from typing import Dict, List, Optional, Tuple
 
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,3 +168,31 @@ def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
         if not subquadratic:
             return False, "pure full-attention arch skips long_500k"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dp: int = 1) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for every input of a step: the
+    reference's keys, shapes and dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    specs: Dict[str, torch.Tensor] = {}
+    if shape.kind == "train":
+        if cfg.external_embed:
+            specs["embeds"] = sds((b, s, cfg.d_model), torch.bfloat16)
+        else:
+            specs["tokens"] = sds((b, s), torch.int32)
+        specs["labels"] = sds((b, s), torch.int32)
+    elif shape.kind == "prefill":
+        if cfg.external_embed:
+            specs["embeds"] = sds((b, s, cfg.d_model), torch.bfloat16)
+        else:
+            specs["tokens"] = sds((b, s), torch.int32)
+    else:  # decode: one new token against a seq_len-deep cache
+        specs["tokens"] = sds((b, 1), torch.int32)
+    if cfg.cross_attn_period:
+        specs["vision_states"] = sds((b, cfg.n_vision_tokens, cfg.d_model),
+                                     torch.bfloat16)
+    return specs

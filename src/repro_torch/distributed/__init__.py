@@ -1,2 +1,3 @@
-"""Distributed training helpers (a port of ``repro.distributed``): so far
-the error-feedback gradient compression of ``grad_compress``."""
+"""Distributed helpers (a port of ``repro.distributed``): the mesh context,
+specs and collectives over mesh axes (``sharding``) and the bitplane
+gradient compression (``grad_compress``)."""

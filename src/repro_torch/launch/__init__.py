@@ -1,2 +1,3 @@
-"""Entry points: the greedy prefill/decode serving driver and its CLI
-(a port of ``repro.launch.driver`` and ``repro.launch.serve``)."""
+"""Entry points and their plumbing (a port of ``repro.launch``): the
+serving driver and CLI, the training CLI, the execution policy and the
+process groups and meshes."""

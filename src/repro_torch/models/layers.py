@@ -15,9 +15,10 @@ in that dtype (``Model.compute_params``).  Decode updates the cache passed
 in, in place, and returns it; a cache index outside the cache raises
 ``IndexError`` (the reference's ``dynamic_update_slice`` would clamp it
 and overwrite the last slot).  The seq-sharded flash decode
-(``seqshard_decode_gqa*``) runs under a mesh and has no counterpart yet:
-``gqa_apply`` and ``mla_apply`` raise ``NotImplementedError`` where the
-reference would take it.
+(``seqshard_decode_gqa*``, taken under ``cfg.seq_shard_decode``) runs on
+each rank of the current mesh over its shard of the cache's L axis, cut
+over 'model', and combines the shards' partial softmaxes with one
+``pmax`` and two ``psum``s over 'model'.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, MLAConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.params import DTYPES, PSpec
 
 
@@ -225,14 +227,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int, *,
                      window: int = 0, kv_chunk: int = 2048,
-                     scale: Optional[float] = None, kv_scales=None
-                     ) -> torch.Tensor:
+                     scale: Optional[float] = None, kv_scales=None,
+                     return_lse: bool = False):
     """Single-position decode: q (B,1,H,dh) vs cache (B,L,Hkv,dh).
 
     ``cache_len`` = number of valid cache positions; SWA attends only to the
     last ``window`` of them.  One pass over the cache with a running LSE;
     an int8 cache (``kv_scales`` = its per-(token, head) scales) is
-    dequantized chunk by chunk.
+    dequantized chunk by chunk.  ``return_lse`` gives the raw (acc, m, l)
+    for a cross-shard combine (flash-decoding).
     """
     b, _, h, dh = q.shape
     _, L, hkv, _ = k_cache.shape
@@ -262,6 +265,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             mask = mask & (kv_pos >= cache_len - window)
         run = _merge(run, _attn_block(qg, kblk, vblk, scale,
                                       mask[None, None, None, None, :]))
+    if return_lse:
+        m, l, acc = run
+        return acc, m, l
     return _finish(run[1], run[2], q.dtype).reshape(b, 1, h, dv)
 
 
@@ -286,12 +292,6 @@ def gqa_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
 def _check_index(index: int, L: int) -> None:
     if not 0 <= index < L:
         raise IndexError(f"cache index {index} outside a cache of {L}")
-
-
-def _seq_shard_not_ported(cfg: ModelConfig) -> None:
-    raise NotImplementedError(
-        f"{cfg.name}: seq_shard_decode runs the seq-sharded flash decode "
-        "under a mesh, which the port does not have yet")
 
 
 def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig,
@@ -321,31 +321,39 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig,
         L = cache["k"].shape[1]
         int8_cache = bool(cfg.kv_cache_int8_scale)
         rolling = bool(cfg.attn_window) and L <= cfg.attn_window
-        if cfg.seq_shard_decode and not rolling:
-            _seq_shard_not_ported(cfg)
         if int8_cache:
             k, ks_new = kv_quantize(k)
             v, vs_new = kv_quantize(v)
-        # rolling window cache: slot = index mod window; every resident
-        # entry is in-window by construction (keys carry absolute RoPE,
-        # softmax is order-invariant)
-        slot = cache_index % L if rolling else cache_index
-        _check_index(slot, L)
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        scales = None
-        if int8_cache:
-            cache["ks"][:, slot] = ks_new[:, 0]
-            cache["vs"][:, slot] = vs_new[:, 0]
-            scales = (cache["ks"], cache["vs"])
-        if rolling:
-            out = decode_attention(q, cache["k"], cache["v"],
-                                   min(cache_index + 1, L), window=0,
-                                   kv_scales=scales)
+        if cfg.seq_shard_decode and not rolling:
+            if int8_cache:
+                out = seqshard_decode_gqa_int8(
+                    q, cache["k"], cache["v"], cache["ks"], cache["vs"],
+                    k, v, ks_new, vs_new, cache_index)[0]
+            else:
+                out = seqshard_decode_gqa(q, cache["k"], cache["v"], k, v,
+                                          cache_index)[0]
         else:
-            out = decode_attention(q, cache["k"], cache["v"],
-                                   cache_index + 1, window=cfg.attn_window,
-                                   kv_scales=scales)
+            # rolling window cache: slot = index mod window; every resident
+            # entry is in-window by construction (keys carry absolute RoPE,
+            # softmax is order-invariant)
+            slot = cache_index % L if rolling else cache_index
+            _check_index(slot, L)
+            cache["k"][:, slot] = k[:, 0]
+            cache["v"][:, slot] = v[:, 0]
+            scales = None
+            if int8_cache:
+                cache["ks"][:, slot] = ks_new[:, 0]
+                cache["vs"][:, slot] = vs_new[:, 0]
+                scales = (cache["ks"], cache["vs"])
+            if rolling:
+                out = decode_attention(q, cache["k"], cache["v"],
+                                       min(cache_index + 1, L), window=0,
+                                       kv_scales=scales)
+            else:
+                out = decode_attention(q, cache["k"], cache["v"],
+                                       cache_index + 1,
+                                       window=cfg.attn_window,
+                                       kv_scales=scales)
         new_cache = cache
     else:
         out = flash_attention(q, k, v, causal=causal and kv_override is None,
@@ -406,17 +414,30 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
 
     scale = (qk + qr) ** -0.5
     if cache is not None:
-        if cfg.seq_shard_decode:
-            _seq_shard_not_ported(cfg)
-        _check_index(cache_index, cache["ckv"].shape[1])
         q_lat = einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(cdt))
         q_abs = torch.cat([q_lat, q_rope], dim=-1)             # (B,1,H,r+qr)
-        cache["ckv"][:, cache_index] = c_kv[:, 0]
-        cache["kr"][:, cache_index] = k_rope[:, 0, 0]
-        k_full = torch.cat([cache["ckv"], cache["kr"]], dim=-1)[:, :, None]
-        v_full = cache["ckv"][:, :, None]
-        o_lat = decode_attention(q_abs, k_full, v_full, cache_index + 1,
-                                 scale=scale)
+        if cfg.seq_shard_decode:
+            # MQA with one (r + qr)-dim KV head over the cache's L shard;
+            # ``v_full`` is a view of ``ckv``, so its update is the cache's
+            L_local = cache["ckv"].shape[1]
+            lo = _shard_lo(L_local, cache_index)
+            _masked_update(cache["kr"], k_rope[:, :, 0], cache_index, lo)
+            k_full = torch.cat([cache["ckv"], cache["kr"]],
+                               dim=-1)[:, :, None]
+            v_full = cache["ckv"][:, :, None]
+            k_new = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)[:, :, None]
+            o_lat = seqshard_decode_gqa(q_abs, k_full, v_full, k_new,
+                                        c_kv[:, :, None], cache_index,
+                                        scale=scale)[0]
+        else:
+            _check_index(cache_index, cache["ckv"].shape[1])
+            cache["ckv"][:, cache_index] = c_kv[:, 0]
+            cache["kr"][:, cache_index] = k_rope[:, 0, 0]
+            k_full = torch.cat([cache["ckv"], cache["kr"]],
+                               dim=-1)[:, :, None]
+            v_full = cache["ckv"][:, :, None]
+            o_lat = decode_attention(q_abs, k_full, v_full, cache_index + 1,
+                                     scale=scale)
         out = einsum("bshr,rhv->bshv", o_lat.to(cdt), p["w_uv"].to(cdt))
         new_cache = cache
     else:
@@ -466,3 +487,83 @@ def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def kv_dequantize(q: torch.Tensor, scales: torch.Tensor, dtype
                   ) -> torch.Tensor:
     return (q.float() * (scales.float()[..., None] / 127.0)).to(dtype)
+
+
+# ------------------------------------------------ seq-sharded flash decode --
+
+def _lse_combine(acc, m, l, axis: str):
+    """Flash-decoding cross-shard combine of (acc, m, l) partials."""
+    m_g = shd.pmax(m, axis)
+    corr = torch.exp(m - m_g)                     # (b,hkv,g,1)
+    l_g = shd.psum(l * corr, axis)
+    corr_b = corr.permute(0, 3, 1, 2)[..., None]
+    acc_g = shd.psum(acc * corr_b, axis)
+    return acc_g, l_g
+
+
+def _shard_lo(L_local: int, index: int) -> int:
+    """The first cache position of this rank's L shard over 'model'; the
+    global ``index`` must fall in the whole cache."""
+    mesh = shd.get_current_mesh()
+    if mesh is None or "model" not in mesh.shape:
+        raise RuntimeError(
+            "seq_shard_decode shards the cache's L axis over the 'model' "
+            "axis of the current mesh: run under sharding.use_mesh with a "
+            "mesh that has one")
+    _check_index(index, L_local * mesh.shape["model"])
+    return mesh.index("model") * L_local
+
+
+def _masked_update(cache_local, new, index: int, lo: int) -> None:
+    """Write ``new`` (B, 1, ...) at position ``index`` if it falls in this
+    shard's [lo, lo + L_local), in place."""
+    off = index - lo
+    if 0 <= off < cache_local.shape[1]:
+        cache_local[:, off] = new[:, 0].to(cache_local.dtype)
+
+
+def _seqshard_attend(q, kc, vc, index: int, lo: int, scale, kv_scales=None):
+    """This shard's partial attention for the token at ``index``, combined
+    over 'model'."""
+    clen_local = min(max(index + 1 - lo, 0), kc.shape[1])
+    acc, m, l = decode_attention(q, kc, vc, clen_local, window=0,
+                                 scale=scale, return_lse=True,
+                                 kv_scales=kv_scales)
+    acc_g, l_g = _lse_combine(acc, m, l, "model")
+    l_b = l_g.permute(0, 3, 1, 2)[..., None]
+    out = (acc_g / torch.clamp_min(l_b, 1e-30)).to(q.dtype)
+    return out.reshape(q.shape[0], 1, q.shape[2], vc.shape[-1])
+
+
+def seqshard_decode_gqa(q, k_cache, v_cache, k_new, v_new, index: int, *,
+                        scale=None):
+    """Flash-decoding with the KV cache sharded over 'model' on the L axis,
+    on each rank: ``k_cache``/``v_cache`` are this rank's (B, L/tp, Hkv,
+    dh) shards, updated in place at the global ``index``.
+
+    All heads are computed on every model shard (decode is memory-bound;
+    the cache READ is the cost and it is perfectly sharded -- wire traffic
+    is one (B,1,H,dv) + LSE psum per layer).  Returns (out, k_cache,
+    v_cache).  The reference's ``batch_axes`` argument places the batch
+    dim of its global cache; a rank's shard needs none."""
+    lo = _shard_lo(k_cache.shape[1], index)
+    _masked_update(k_cache, k_new, index, lo)
+    _masked_update(v_cache, v_new, index, lo)
+    return (_seqshard_attend(q, k_cache, v_cache, index, lo, scale),
+            k_cache, v_cache)
+
+
+def seqshard_decode_gqa_int8(q, k_cache, v_cache, ks_cache, vs_cache,
+                             k_new, v_new, ks_new, vs_new, index: int, *,
+                             scale=None):
+    """Flash-decoding over an int8, per-(token,head)-aligned KV cache
+    sharded over 'model' on the L axis (HP-MDR alignment on serving
+    state): cache reads are half the bytes.  Returns (out, k_cache,
+    v_cache, ks_cache, vs_cache), the caches updated in place."""
+    lo = _shard_lo(k_cache.shape[1], index)
+    for c, n in ((k_cache, k_new), (v_cache, v_new), (ks_cache, ks_new),
+                 (vs_cache, vs_new)):
+        _masked_update(c, n, index, lo)
+    out = _seqshard_attend(q, k_cache, v_cache, index, lo, scale,
+                           kv_scales=(ks_cache, vs_cache))
+    return out, k_cache, v_cache, ks_cache, vs_cache

@@ -10,7 +10,8 @@ the other.  ``params`` gives that tree as nested dicts of the module's
 parameters; every method takes a tree (``None``: the module's own), as the
 reference's pure functions do, so a serving loop can pass the copy that
 ``compute_params`` holds in the compute dtype.  The reference's sharding
-constraints are no-ops on one device and are left out.
+constraints are identities under per-rank SPMD (``sharding.constraint``)
+and are left out.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype, einsum, norm
 from repro_torch.models.params import (PSpec, tree_init, tree_map,
-                                       tree_param_count)
+                                       tree_param_count, tree_partition_specs,
+                                       tree_shape_structs)
 
 # leaves the layers read in float32 (norm weights, the router, RWKV's decay
 # and bonus, Mamba's A and skip); every other leaf is read through
@@ -109,6 +111,18 @@ class Model(nn.Module):
         _register(self, params)
 
     # ---------------------------------------------------------------- setup --
+    def abstract_params(self):
+        return model_abstract(self.cfg)
+
+    def partition_specs(self, drop_fsdp: bool = False):
+        """Each leaf's spec over the current mesh."""
+        return tree_partition_specs(self.abstract_params(), drop_fsdp)
+
+    def shape_structs(self):
+        """Each leaf as a ``meta`` tensor of its shape and dtype."""
+        return tree_shape_structs(self.abstract_params(),
+                                  self.cfg.param_dtype)
+
     @property
     def params(self) -> Dict[str, Any]:
         """The parameter tree: nested dicts of this module's parameters."""

@@ -1,13 +1,22 @@
-"""Mixture-of-Experts FFN: token-choice top-k routing and capacity-based
-sort-and-scatter dispatch.
+"""Mixture-of-Experts FFN: token-choice top-k routing, capacity-based
+sort-and-scatter dispatch, expert parallelism over the 'model' mesh axis.
 
 A port of ``repro.models.moe``.  Dispatch scatters the kept assignments into
 an (E, C, D) capacity buffer, the experts run as batched matmuls, and the
 combine scatter-adds the results back to token order.  Tokens overflowing
 an expert's capacity ``C = ceil(T*k/E * cap_factor)`` are dropped (they pass
-through the residual).  On one device the reference takes this path (its
-``_moe_apply_gspmd``); its ``shard_map`` dispatch runs only under a mesh
-with a model axis and waits for the mesh-bound paths.
+through the residual).
+
+Under a mesh each rank holds its shard of the batch (``sharding.batch_axes``)
+and the reference's semantics are those of its global arrays: the routing,
+the aux loss and the capacity dispatch see every token of the global batch,
+so a rank gathers the tokens over the batch axes first (``gather_to``) and
+keeps its own rows of the output.  With ``dispatch="shard_map"`` and a model
+axis that divides the experts, each model rank builds only its local (E/tp,
+C_l, D) buffer for the tokens of its data-parallel shard, with the capacity
+``C_l`` of that shard's token count, from its experts' slice of the weights;
+the combine is one model-axis psum (``reduce_from``, or ``scatter_from``
+when the model axis also cuts the batch).
 
 Ties: ``jax.lax.top_k`` puts the lower expert index first among equal
 probabilities and ``_rank_in_expert`` ranks with a stable sort, so both are
@@ -25,6 +34,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import (compute_dtype, einsum, mlp_abstract,
                                        mlp_apply, silu)
 from repro_torch.models.params import PSpec
@@ -96,42 +106,122 @@ def _expert_ffn(buf, p, cdt):
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> (out, aux_loss): the capacity dispatch, the
-    reference's path without a mesh."""
+    """x: (B,S,D), this rank's shard of the batch under a mesh -> (out,
+    aux_loss)."""
+    m: MoEConfig = cfg.moe
+    mesh = shd.get_current_mesh()
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    if m.dispatch == "shard_map" and tp > 1 and m.n_experts % tp == 0:
+        return _moe_apply_shard_map(p, x, cfg, mesh, tp)
     return _moe_apply_gspmd(p, x, cfg)
 
 
-def _moe_apply_gspmd(p, x: torch.Tensor, cfg: ModelConfig):
-    m: MoEConfig = cfg.moe
-    cdt = compute_dtype(cfg)
-    b, s, d = x.shape
-    t = b * s
-    k = m.top_k
-    e = m.n_experts
-    cap = _capacity(t, m)
-    xs = x.reshape(t, d)
-    top_w, top_e, aux = _routing(p, xs, m)
+def _global_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(T, D) tokens of the global batch, and the first row of this rank's
+    own, gathered over the batch axes of the current mesh."""
+    xs = x.reshape(-1, x.shape[-1])
+    axes = shd.batch_axes()
+    if not axes:
+        return xs, 0
+    return shd.gather_to(xs, axes), shd.axis_index(axes) * xs.shape[0]
 
+
+def _shard_assignments(top_e: torch.Tensor, cap: int, lo: int,
+                       e_local: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot, local) of each assignment (token-major): ``local`` if it is
+    kept (its rank in its expert below ``cap``) and its expert is one of
+    [lo, lo + e_local); ``slot`` its row in the (e_local * cap) buffer, or
+    the drop row ``e_local * cap``."""
     e_flat = top_e.reshape(-1)                                  # (T*k,)
-    w_flat = top_w.reshape(-1)
-    tok_flat = torch.arange(t, device=x.device).repeat_interleave(k)
-    pos = _rank_in_expert(e_flat, t * k)
-    keep = pos < cap
-    slot = torch.where(keep, e_flat * cap + pos, e * cap)       # row e*cap: dropped
+    pos = _rank_in_expert(e_flat, e_flat.numel())
+    local = (pos < cap) & (e_flat >= lo) & (e_flat < lo + e_local)
+    slot = torch.where(local, (e_flat - lo) * cap + pos, e_local * cap)
+    return slot, local
 
-    buf = torch.zeros((e * cap + 1, d), dtype=cdt, device=x.device)
-    buf.index_add_(0, slot, xs[tok_flat].to(cdt) * keep[:, None].to(cdt))
-    y = _expert_ffn(buf[:-1].reshape(e, cap, d), p, cdt).reshape(e * cap, d)
 
-    gathered = y[torch.clamp(slot, 0, e * cap - 1)]
-    w_keep = (w_flat * keep).to(cdt)[:, None]
+def _dispatch(xs, top_w, top_e, w, cfg: ModelConfig, cap: int, lo: int,
+              e_local: int) -> torch.Tensor:
+    """The capacity dispatch of (T, D) tokens to experts [lo, lo +
+    e_local) (weights ``w``: those experts' w1, w3, w2), their FFNs, and
+    the combine: (T, D), each token's kept contributions added in
+    assignment order."""
+    cdt = compute_dtype(cfg)
+    t, d = xs.shape
+    k = top_e.shape[-1]
+    slot, local = _shard_assignments(top_e, cap, lo, e_local)
+    tok_flat = torch.arange(t, device=xs.device).repeat_interleave(k)
+    rows = e_local * cap
+    buf = torch.zeros((rows + 1, d), dtype=cdt, device=xs.device)
+    buf.index_add_(0, slot, xs[tok_flat].to(cdt) * local[:, None].to(cdt))
+    y = _expert_ffn(buf[:-1].reshape(e_local, cap, d), w, cdt).reshape(rows,
+                                                                        d)
+    gathered = y[torch.clamp(slot, 0, rows - 1)]
+    w_keep = (top_w.reshape(-1) * local).to(cdt)[:, None]
     contrib = (gathered * w_keep).reshape(t, k, d)   # token-major, as tok_flat
-    out = torch.zeros((t, d), dtype=cdt, device=x.device)
+    out = torch.zeros((t, d), dtype=cdt, device=xs.device)
     for j in range(k):
         out = out + contrib[:, j]
+    return out
 
+
+def _moe_apply_gspmd(p, x: torch.Tensor, cfg: ModelConfig):
+    """The capacity dispatch over the global batch (the reference's path
+    without a shard_map dispatch)."""
+    m: MoEConfig = cfg.moe
+    b, s, d = x.shape
+    xs, lo = _global_tokens(x)
+    top_w, top_e, aux = _routing(p, xs, m)
+    out = _dispatch(xs, top_w, top_e, p, cfg, _capacity(xs.shape[0], m), 0,
+                    m.n_experts).narrow(0, lo, b * s)
     if m.n_shared:
-        out = out + mlp_apply(p["shared"], x, cfg).reshape(t, d)
+        out = out + mlp_apply(p["shared"], x, cfg).reshape(b * s, d)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_apply_shard_map(p, x: torch.Tensor, cfg: ModelConfig, mesh,
+                         tp: int):
+    """EP-as-TP manual dispatch: each model rank builds only its local
+    (E/tp, C_l, D) buffer from the tokens of its data-parallel shard (no
+    dispatch collective); the combine is a single (T_l, D) psum over
+    'model'.  Routing and the aux loss see the global batch."""
+    m: MoEConfig = cfg.moe
+    b, s, d = x.shape
+    e_local = m.n_experts // tp
+    batch = shd.batch_axes()
+    dp = mesh.axes(("pod", "data"))
+    fold = "model" in batch            # the model axis also cuts the batch
+    if batch != dp + (("model",) if fold else ()):
+        raise ValueError(f"the shard_map dispatch needs the batch cut over "
+                         f"the data-parallel axes {dp}, alone or then "
+                         f"'model'; it is cut over {batch}")
+    xs, _ = _global_tokens(x)
+    top_w, top_e, aux = _routing(p, xs, m)
+    # this data-parallel shard's tokens (the reference's in_specs P(dp))
+    t_l = xs.shape[0] // mesh.size(dp)
+    r0 = mesh.index(dp) * t_l
+    xs_l, tw_l, te_l = (t.narrow(0, r0, t_l) for t in (xs, top_w, top_e))
+    lo = mesh.index("model") * e_local
+    if fold:
+        # every rank has a loss of its own: the gradients of the weights'
+        # blocks are summed with the rest over the batch axes
+        w = {n: p[n].narrow(0, lo, e_local) for n in ("w1", "w3", "w2")}
+    else:
+        # the model axis computes one loss: each rank's partial gradient of
+        # its tokens and routing is summed over the axis, and each weight's
+        # gradient gathered whole
+        xs_l = shd.copy_to(xs_l, "model", mesh)
+        tw_l = shd.copy_to(tw_l, "model", mesh)
+        w = {n: shd.block_with_whole_grad(p[n], "model", mesh)
+             for n in ("w1", "w3", "w2")}
+    # per-DP-shard capacity (local tokens)
+    out_l = _dispatch(xs_l, tw_l, te_l, w, cfg, _capacity(t_l, m), lo,
+                      e_local)
+    if fold:
+        out = shd.scatter_from(out_l, "model", mesh)
+    else:
+        out = shd.reduce_from(out_l, "model", mesh)
+    if m.n_shared:
+        out = out + mlp_apply(p["shared"], x, cfg).reshape(b * s, d)
     return out.reshape(b, s, d), aux
 
 

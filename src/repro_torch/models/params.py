@@ -5,8 +5,9 @@ A port of ``repro.models.params``.  A model's abstract tree is nested dicts
 of :class:`PSpec`; ``tree_init`` materializes it on a device from an
 explicit ``torch.Generator`` and ``params_from_reference`` carries the
 reference's parameters (a tree of numpy arrays) across with the same names,
-shapes and dtypes.  The logical sharding axes are kept for the mesh-bound
-paths; nothing on one device reads them.
+shapes and dtypes.  ``tree_partition_specs`` turns the logical sharding
+axes into specs over the current mesh ('fsdp' -> ('pod', 'data'), 'tp' ->
+'model'), and ``tree_shape_structs`` gives the leaves as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -57,6 +59,31 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def _resolve_axis(a: Axis, drop_fsdp: bool = False):
+    if a == "fsdp":
+        return None if drop_fsdp else ("pod", "data")
+    if a == "tp":
+        return "model"
+    return a
+
+
+def pspec_to_partition(ps: PSpec, drop_fsdp: bool = False) -> shd.Spec:
+    return shd.spec(*[_resolve_axis(a, drop_fsdp) for a in ps.axes])
+
+
+def tree_partition_specs(tree, drop_fsdp: bool = False):
+    """drop_fsdp=True gives serving-style TP-only sharding: weights live
+    whole on each model shard."""
+    return tree_map(lambda p: pspec_to_partition(p, drop_fsdp), tree)
+
+
+def tree_shape_structs(tree, default_dtype: str):
+    """The leaves as ``meta`` tensors of their shapes and dtypes."""
+    return tree_map(lambda ps: torch.empty(
+        ps.shape, dtype=DTYPES[ps.dtype or default_dtype], device="meta"),
+        tree)
 
 
 def _fan_in(ps: PSpec) -> int:

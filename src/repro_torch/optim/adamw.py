@@ -3,8 +3,7 @@ linear-warmup/cosine schedule.
 
 A port of ``repro.optim.adamw``.  Trees are nested dicts of tensors (the
 ``Model.params`` layout); ``update`` is functional and returns new trees.
-``state_partition_specs`` belongs with the mesh-bound paths and has no
-counterpart yet.
+The moments share the parameters' specs (``state_partition_specs``).
 
 Bit-identity with the reference's jitted ``update`` (XLA on the CPU), a
 rule per op, each found against XLA's output:
@@ -78,6 +77,12 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
     zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def state_partition_specs(param_specs) -> AdamWState:
+    """The state's specs: the step replicated, each moment its
+    parameter's."""
+    return AdamWState(step=(), m=param_specs, v=param_specs)
 
 
 def _f32(x: float, device) -> torch.Tensor:

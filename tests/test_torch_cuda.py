@@ -667,3 +667,186 @@ def test_crash_and_resume_on_the_card_is_bit_exact(cuda, tmp_path, arch):
                 + tree_leaves(opt.v) + tree_leaves(res["ef"]))
     for a, b in zip(leaves(full), leaves(resumed)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- the mesh-bound paths, NCCL --
+# One NCCL rank per card (tests/_torch_dist_worker.py), worlds of 2 and,
+# with four cards, 4; each check is held against the same call on one
+# card.  Tolerances as in tests/test_torch_distributed*.py.
+
+def _worlds():
+    n = torch.cuda.device_count()
+    return [w for w in (2, 4) if w <= n]
+
+
+def _cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return _worlds()
+
+
+def test_compressed_psum_across_cards(cuda, tmp_path):
+    """compressed_psum over 'data' on 2 (and 4) cards: the same output on
+    every rank; at 2 ranks, bit for bit the same call's arithmetic on one
+    card (each shard's sum of two terms is exact: encode and decode it
+    there); at 4, the reference's bound 2**-6 x max|mean|; wire bytes below
+    0.62 x a plain all-reduce at 6 planes."""
+    from _torch_dist_worker import run_world
+    from repro_torch.distributed import grad_compress as gc
+    n_el = 1 << 20
+    for n in _cards(cuda):
+        x = torch.from_numpy(np.random.default_rng(n).normal(
+            size=(n, n_el)).astype(np.float32))
+        res = run_world(n, [("compressed", (n, 1), {"x": x, "planes": p})
+                            for p in (6, 8)], tmp_path, device="cuda")
+        mean = x.double().mean(0)
+        for i, planes in enumerate((6, 8)):
+            outs = [r[i]["out"][0] for r in res]
+            assert all(torch.equal(o, outs[0]) for o in outs)
+            err = (outs[0].double() - mean).abs().max() / mean.abs().max()
+            assert err < 2 ** -6
+            comp, plain = (int(v) for v in res[0][i]["wire"])
+            if planes == 6:
+                assert comp < 0.62 * plain
+            if n == 2:
+                shards = x.to(cuda).reshape(n, n, -1).sum(0) / n
+                want = []
+                for r in range(n):
+                    packed, e = gc._encode_planes(shards[r], planes)
+                    want.append(gc._decode_planes(packed, e, n_el // n,
+                                                  planes))
+                    assert torch.equal(res[r][i]["packed"], packed.cpu())
+                assert torch.equal(outs[0].view(torch.int32),
+                                   torch.cat(want).cpu().view(torch.int32))
+
+
+def test_seqshard_decode_across_cards(cuda, tmp_path):
+    """seqshard_decode_gqa (bfloat16 cache) and _int8 with the L axis over
+    2 (and 4) cards against decode_attention over the whole cache on one
+    card: the bfloat16 output within 2**-8 x max|v| (each side rounds its
+    probabilities to bfloat16, against its own running maximum, before the
+    PV product: each rounding moves an output by at most 2**-9 of the
+    probability-weighted mean of |v|), the int8 cache's (float32 queries)
+    within 1e-5 of the largest output."""
+    from _torch_dist_worker import run_world
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731,E501
+    b, L, hkv, dh = 2, 4096, 2, 64
+    q, k, v = f(b, 1, 4, dh), f(b, L, hkv, dh), f(b, L, hkv, dh)
+    kn, vn = f(b, 1, hkv, dh), f(b, 1, hkv, dh)
+    i8 = lambda *s: torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8))  # noqa: E731,E501
+    sc = lambda *s: (f(*s).abs() + 0.5).to(torch.bfloat16)  # noqa: E731
+    for n in _cards(cuda):
+        jobs = []
+        for idx in (5, L // 2 + 7, L - 1):
+            bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+            jobs.append(("seqshard", (1, n), dict(
+                q=bf(q), k_cache=bf(k), v_cache=bf(v), k_new=bf(kn),
+                v_new=bf(vn), index=idx, batch_axes=())))
+            jobs.append(("seqshard", (1, n), dict(
+                q=q, k_cache=i8(b, L, hkv, dh), v_cache=i8(b, L, hkv, dh),
+                k_new=i8(b, 1, hkv, dh), v_new=i8(b, 1, hkv, dh), index=idx,
+                batch_axes=(), ks_cache=sc(b, L, hkv), vs_cache=sc(b, L, hkv),
+                ks_new=sc(b, 1, hkv), vs_new=sc(b, 1, hkv))))
+        res = run_world(n, jobs, tmp_path, device="cuda")
+        for r in res:
+            for j, got in enumerate(r):
+                a, o = got["one_device"].double(), got["out"].double()
+                if got["out"].dtype == torch.bfloat16:
+                    bound = 2.0 ** -8 * v.abs().max()
+                else:
+                    bound = 1e-5 * a.abs().max()
+                assert (a - o).abs().max() <= bound, j
+
+
+def test_moe_shard_map_dispatch_across_cards(cuda, tmp_path):
+    """The MoE shard_map dispatch with experts over 2 (and 4) cards, and
+    on (2, 2): outputs against the capacity dispatch of the same tokens on
+    one card; with one data shard, the gradients (w1, w2, w3, router)
+    against the whole batch's on one card, within 1e-5 of each largest."""
+    from _torch_dist_worker import run_world
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.models.moe import moe_abstract
+    from repro_torch.models.params import tree_init
+    moe = dict(n_experts=8, top_k=2, d_expert=32, n_shared=1,
+               dispatch="shard_map", capacity_factor=4.0)
+    cfg_kw = dict(name="moe", family="moe", n_layers=1, d_model=64,
+                  n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=64,
+                  compute_dtype="float32", moe=moe)
+    params = tree_init(moe_abstract(ModelConfig(**dict(
+        cfg_kw, moe=MoEConfig(**moe)))), torch.Generator().manual_seed(2),
+        "float32", "cpu")
+    rng = np.random.default_rng(3)
+    x, cot = (torch.from_numpy(rng.normal(size=(4, 16, 64)).astype(
+        np.float32)) for _ in range(2))
+    for n in _cards(cuda):
+        shapes = [(1, n)] + ([(2, 2)] if n == 4 else [])
+        res = run_world(n, [("moe", s, dict(params=params, x=x, cot=cot,
+                                            cfg_kw=cfg_kw)) for s in shapes],
+                        tmp_path, device="cuda")
+        for r in res:
+            for got in r:
+                a, o = got["one_device"].double(), got["out"].double()
+                assert (a - o).abs().max() <= 1e-5 * a.abs().max()
+                for k in [k for k in got if k.startswith("grad_one.")]:
+                    a, o = got[k].double(), got["grad." + k[9:]].double()
+                    assert (a - o).abs().max() <= 1e-5 * a.abs().max(), k
+
+
+def test_data_parallel_step_across_cards(cuda, tmp_path):
+    """make_train_step under a ('data', 'model') mesh of 2 (and 4) cards,
+    for a dense, an MoE (shard_map dispatch) and an SSM smoke arch, the
+    batch cut over both axes, against the step on one card.
+
+    Against the one-card step over n microbatches (each rank's rows, the
+    same shapes and kernels): the dense and SSM archs bit-identical at 2
+    ranks (a sum of two terms is exact in any order), within 1e-6 of each
+    gradient leaf's largest at 4.  Against the one-card step over the
+    whole batch, every arch (the MoE's routing and aux loss see the whole
+    batch in both): the loss within 1e-6 relative, each gradient leaf
+    within 2e-3 of its largest, the bound of
+    ``tests/test_torch_train_grads.py`` for float32 sums in another order
+    (cuBLAS sums a weight's gradient over 128 tokens otherwise than over
+    64).  Every rank ends with the same parameters."""
+    from _torch_dist_worker import run_world
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.models.model import Model
+    cases = [("deepseek-67b", None), ("deepseek-v2-236b", "shard_map"),
+             ("rwkv6-3b", None)]
+    rng = np.random.default_rng(4)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp_min(1e-30)).item()
+    for n in _cards(cuda):
+        shape = (n // 2, 2)
+        jobs = []
+        for arch, dispatch in cases:
+            cfg = smoke_config(arch)
+            batch = {k: torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (8, 16)).astype(np.int32))
+                for k in ("tokens", "labels")}
+            params = Model(cfg, device="cpu", seed=0).params
+            for mesh, n_micro in ((shape, 1), (None, 1), (None, n)):
+                jobs.append(("train_step", mesh, dict(
+                    arch=arch, params=params, batch=batch,
+                    batch_axes=("data", "model"), n_micro=n_micro,
+                    dispatch=dispatch)))
+        res = run_world(n, jobs, tmp_path, device="cuda")
+        for c, (arch, dispatch) in enumerate(cases):
+            for r in res:
+                got, whole, micro = r[3 * c:3 * c + 3]
+                grads = [k for k in whole if k.startswith("grad.")]
+                e_whole = max(rel(got[k], whole[k]) for k in grads)
+                e_micro = max(rel(got[k], micro[k]) for k in grads)
+                print(f"{n} cards, {arch}: loss {rel(got['loss'], whole['loss']):.2e}"
+                      f" of the whole-batch step's; gradients within "
+                      f"{e_whole:.2e} of it, {e_micro:.2e} of the "
+                      f"{n}-microbatch step's")
+                assert rel(got["loss"], whole["loss"]) <= 1e-6
+                assert e_whole <= 2e-3, (arch, e_whole)
+                if dispatch is None:
+                    assert e_micro <= (0.0 if n == 2 else 1e-6), \
+                        (arch, e_micro)
+                for k in [k for k in got if k.startswith("param.")]:
+                    assert torch.equal(got[k], res[0][3 * c][k]), k

@@ -320,14 +320,17 @@ def test_gqa_decode_cache_branches_match_the_reference(branch, int8):
 
 
 def test_seq_shard_decode_raises_not_silently_another_branch():
+    """Without a mesh, seq_shard_decode raises (the reference cannot run it
+    either) and leaves the cache as it was."""
     _, cfg = _cfg(seq_shard_decode=True)
     tp = P.tree_init(L.gqa_abstract(cfg), torch.Generator().manual_seed(0),
                      "float32", "cpu")
     x = torch.zeros(1, 1, 64)
     cache = {"k": torch.zeros(1, 8, 2, 16), "v": torch.zeros(1, 8, 2, 16)}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="'model' axis of the current mesh"):
         L.gqa_apply(tp, x, cfg, torch.zeros(1, 1, dtype=torch.long),
                     cache=cache, cache_index=3)
+    assert not cache["k"].any() and not cache["v"].any()
 
 
 def test_mla_prefill_and_absorbed_decode_match_the_reference():
