@@ -141,7 +141,21 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    equal to the step without one bit for bit; a checkpoint saved under the
    mesh byte-identical to one saved without, restored bit-exact by
    ``load(shardings=)``.  With two or more cards it also runs the ``-k
-   cards`` card tests (one NCCL rank per card, worlds of 2 and up to 4).
+   cards`` card tests (one NCCL rank per card, worlds of 2 and up to 4)
+   but phase 16's;
+16. sharded parameter and AdamW-state storage (``distributed/fsdp.py``,
+   the step factories' ``shardings=``): a NCCL world of one rank and a
+   (1, 1) mesh.  h2o-danube-3-4b at its published widths cut to 2 layers,
+   phase 14's settings (batch 2 x 4096, bf16 compute, remat, AdamW lr
+   3e-4): 4 ``make_train_step`` steps from blocks placed by
+   ``train_shardings`` bit-identical (loss, parameters, m, v) to 4 steps
+   on the whole tree, with both steps' walls, the bytes a rank stores and
+   the parameter gathers' wire bytes (none at one rank); qwen2-7b at its
+   published widths and full depth served from blocks under
+   ``partition_specs()`` (batch 4, prompt 256, 16 new tokens): greedy
+   tokens equal and logits bit-identical to the plain decode.  With two or
+   more cards it runs the ``fsdp`` card tests (h2o-danube-3-4b at full
+   depth on four cards; danube/2 on 2 and 4 cards against one).
 
 Phases 7-12, 14 and 15 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
@@ -2135,18 +2149,19 @@ def compressed_allreduce_check(torch, bp, mesh):
 
 
 def _decode(torch, model, params, prompts, n_new, max_len, mesh=None,
-            policy=None):
+            policy=None, shardings=None):
     """Prefill to a ``max_len``-deep cache, then ``n_new - 1`` greedy decode
-    steps; under ``mesh`` the caches are cut by ``cache_shardings``.
-    Returns (tokens, logits, prefill s, decode ms/token)."""
+    steps; under ``mesh`` the caches are cut by ``cache_shardings``;
+    ``shardings``: ``params`` holds blocks of these specs.  Returns
+    (tokens, logits, prefill s, decode ms/token)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.train.step import cache_shardings
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = model.prefill(params, tokens=prompts,
-                                      max_len=max_len)
-        if mesh is not None:
+                                      max_len=max_len, shardings=shardings)
+        if mesh is not None and policy is not None:
             named = cache_shardings(cache, policy, mesh)
 
             def cut(c, n):
@@ -2160,7 +2175,8 @@ def _decode(torch, model, params, prompts, n_new, max_len, mesh=None,
         t0 = time.perf_counter()
         for i in range(n_new - 1):
             logits, cache = model.decode_step(params, cache,
-                                              prompts.shape[1] + i, tok)
+                                              prompts.shape[1] + i, tok,
+                                              shardings=shardings)
             tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
             toks.append(tok)
             steps.append(logits[:, -1])
@@ -2304,9 +2320,10 @@ def mesh_ckpt_check(torch, mesh):
         shutil.rmtree(MESH_ROOT, ignore_errors=True)
 
 
-def mesh_cards_check() -> None:
-    """With two or more cards, the ``-k cards`` card tests (one NCCL rank
-    per card, worlds of 2 and up to 4)."""
+def mesh_cards_check(select: str = "cards and not fsdp") -> None:
+    """With two or more cards, the card tests that ``-k select`` picks (one
+    NCCL rank per card, worlds of 2 and up to 4): phase 15's by default,
+    phase 16's with ``"fsdp and cards"``."""
     import torch
     n = torch.cuda.device_count()
     if n < 2:
@@ -2315,14 +2332,15 @@ def mesh_cards_check() -> None:
               "or more cards)", flush=True)
         return
     r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-m", "cuda",
-                        "-k", "cards", "-p", "no:cacheprovider",
+                        "-k", select, "-p", "no:cacheprovider",
                         os.path.join(REPO, "tests", "test_torch_cuda.py")],
                        cwd=REPO, capture_output=True, text=True, timeout=900,
                        env=dict(os.environ, PYTHONPATH=os.path.join(
                            REPO, "src")))
     tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
-    print(f"{n} cards: the -k cards tests: {tail}", flush=True)
-    check(r.returncode == 0, f"the -k cards tests failed:\n{r.stdout[-3000:]}")
+    print(f"{n} cards: the -k '{select}' tests: {tail}", flush=True)
+    check(r.returncode == 0, f"the -k '{select}' tests failed:\n"
+          f"{r.stdout[-3000:]}")
 
 
 def mesh_phase(torch, bp):
@@ -2346,6 +2364,169 @@ def mesh_phase(torch, bp):
     _free(torch)
     mesh_cards_check()
     return launches
+
+
+# --------------------------------------------------------------- phase 16 --
+
+FSDP_STEPS = 4
+
+
+def _bits(torch, t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_state(torch, a, b):
+    """Loss and every parameter, m and v leaf of two (params, opt, metrics)
+    step results bit for bit."""
+    from repro_torch.models.params import tree_leaves
+    return torch.equal(_bits(torch, a[2]["loss"]), _bits(torch, b[2]["loss"])) \
+        and all(torch.equal(_bits(torch, x), _bits(torch, y)) for x, y in zip(
+            tree_leaves(a[0]) + tree_leaves(a[1].m) + tree_leaves(a[1].v),
+            tree_leaves(b[0]) + tree_leaves(b[1].m) + tree_leaves(b[1].v)))
+
+
+def fsdp_train_check(torch, mesh):
+    """h2o-danube-3-4b at its published widths, cut to 2 layers, phase 14's
+    settings (batch 2 x 4096, bf16 compute, remat, AdamW lr 3e-4): 4 steps
+    of ``make_train_step`` from blocks placed by ``train_shardings``
+    (``shardings=``) against 4 steps of the same step on the whole tree,
+    bit for bit at every step (loss, parameters, m, v); each step's wall,
+    the bytes a rank stores and ``WIRE``'s parameter gathers."""
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.policy import cell_policy
+    from repro_torch.models.model import Model, count_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.step import make_train_step, train_shardings
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"),
+                              n_layers=DANUBE_LAYERS)
+    policy = cell_policy(cfg, dataclasses.replace(
+        SHAPES["train_4k"], global_batch=DANUBE_BATCH), mesh)
+    check(policy.n_micro == 1, f"danube/2's policy on {mesh}: {policy}")
+    model = Model(cfg, device="cuda", seed=0)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10,
+                                                          1),
+                                total_steps=TRAIN_STEPS)
+    named = train_shardings(model, policy, mesh, opt_cfg)
+    data = loop.synthetic_data(cfg, DANUBE_BATCH, DANUBE_SEQ, seed=1,
+                               device="cuda")
+    steps = {"whole": make_train_step(model, opt_cfg, policy),
+             "blocks": make_train_step(model, opt_cfg, policy, named)}
+    opt = adamw.init(model.params, opt_cfg)
+    state = {"whole": (model.params, opt),
+             "blocks": (shd.shard_tree(model.params, named[0]),
+                        shd.shard_tree(opt, named[1]))}
+    del opt
+    stored = (fsdp.stored_bytes(state["blocks"][0])
+              + fsdp.stored_bytes(state["blocks"][1]))
+    walls = {k: [] for k in steps}
+    wire = {}
+    for s in range(FSDP_STEPS):
+        batch = data(s)
+        out = {}
+        for k, fn in steps.items():
+            shd.WIRE.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[k] = fn(*state[k], batch)
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+            if k == "blocks":
+                for key, v in shd.WIRE.snapshot().items():
+                    wire[key] = wire.get(key, 0) + v
+        check(math.isfinite(float(out["blocks"][2]["loss"])),
+              f"danube/2 from blocks, step {s + 1}: loss "
+              f"{float(out['blocks'][2]['loss'])}")
+        check(_same_state(torch, out["blocks"], out["whole"]),
+              f"danube/2 step {s + 1} from blocks differs from the "
+              f"whole-tree step")
+        state = {k: (v[0], v[1]) for k, v in out.items()}
+        loss = float(out["blocks"][2]["loss"])
+        print(f"danube/2 step {s + 1}: loss {loss:.4f}, bit-identical from "
+              f"blocks; walls from blocks "
+              f"{walls['blocks'][-1]:.1f} ms, whole tree "
+              f"{walls['whole'][-1]:.1f} ms", flush=True)
+    n_params = count_params(cfg)
+    gathers = {k: v for k, v in wire.items()
+               if k.startswith(("param_", "grad_")) and v}
+    print(f"h2o-danube-3-4b/2 from blocks ({mesh}, policy batch axes "
+          f"{policy.batch_axes}): {FSDP_STEPS} steps bit-identical to the "
+          f"whole-tree step; steps 2-{FSDP_STEPS} walls "
+          f"{[round(w, 1) for w in walls['blocks'][1:]]} ms from blocks, "
+          f"{[round(w, 1) for w in walls['whole'][1:]]} ms whole (phase 14's "
+          f"Trainer steps add the 8-plane EF pass); a rank stores "
+          f"{stored / 1e9:.3f} GB of parameters and AdamW state "
+          f"({stored / (12 * n_params):.4f} of the whole {12 * n_params / 1e9:.3f} "
+          f"GB); parameter gathers and gradient reductions on the wire over "
+          f"{FSDP_STEPS} steps: {gathers or 'none (n = 1)'}", flush=True)
+    del state, out, steps, model
+    _free(torch)
+
+
+def fsdp_serve_check(torch, mesh):
+    """qwen2-7b at its published widths and full depth (bf16 weights held)
+    served from blocks placed by ``param_shardings``: batch 4, prompt 256,
+    16 new tokens; greedy tokens equal and logits bit-identical to the
+    plain decode of the whole tree."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.driver import build_inputs
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import param_shardings
+    cfg = get_config("qwen2-7b")
+    held = Model(cfg, device="cuda", seed=0).compute_params()
+    _free(torch)
+    model = Model(cfg, held, device="cuda")
+    named = param_shardings(model, mesh)
+    blocks = shd.shard_tree(held, named)
+    prompts, _ = build_inputs(cfg, SEQ_BATCH, SEQ_PROMPT, device="cuda")
+    max_len = SEQ_PROMPT + SEQ_NEW
+    plain = _decode(torch, model, held, prompts, SEQ_NEW, max_len)
+    shd.WIRE.reset()
+    with shd.use_mesh(mesh):
+        got = _decode(torch, model, blocks, prompts, SEQ_NEW, max_len,
+                      shardings=named)
+    wire = _wire(shd)
+    check(torch.equal(got[0], plain[0]), "qwen2-7b from blocks: greedy "
+          "tokens differ from the plain decode's")
+    check(torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32)),
+          f"qwen2-7b from blocks: logits are not the plain decode's bits "
+          f"(max relative difference {_rel(torch, plain[1], got[1])})")
+    print(f"qwen2-7b served from blocks ({mesh}, partition_specs()): batch "
+          f"{SEQ_BATCH}, prompt {SEQ_PROMPT}, {SEQ_NEW} new tokens: greedy "
+          f"tokens equal, logits bit-identical to the plain decode; "
+          f"{got[3]:.2f} ms/token (plain {plain[3]:.2f}), prefill "
+          f"{got[2]:.3f} s (plain {plain[2]:.3f}); a rank stores "
+          f"{fsdp.stored_bytes(blocks) / 1e9:.3f} GB of weights; collectives "
+          f"{wire or 'none (n = 1)'}", flush=True)
+    del model, held, blocks, plain, got
+    _free(torch)
+
+
+def fsdp_phase(torch):
+    """Phase 16: sharded parameter and AdamW-state storage in a NCCL world
+    of one rank on a (1, 1) mesh; then, with more cards, the ``fsdp``
+    card tests."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        fsdp_train_check(torch, mesh)
+        print(f"(a) danube/2 from blocks: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        fsdp_serve_check(torch, mesh)
+        print(f"(b) qwen2-7b from blocks: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    mesh_cards_check("fsdp and cards")
 
 
 def main(argv) -> int:
@@ -2464,6 +2645,11 @@ def main(argv) -> int:
     print(f"phase-15 launches: rb_encode {p15['rb_encode']}, rb_decode "
           f"{p15['rb_decode']} (compressed all-reduce)", flush=True)
     done(t0, "phase 15")
+
+    t0 = phase("16 sharded parameter and AdamW-state storage (NCCL, a (1, 1) "
+               "mesh; more cards: the fsdp card tests)")
+    fsdp_phase(torch)
+    done(t0, "phase 16")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

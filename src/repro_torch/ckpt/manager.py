@@ -16,10 +16,12 @@ checkpoint written by either package loads in the other:
                checkpoint written from the card loads on the CPU and the
                other way round.
 * elastic:     under a mesh (``sharding.use_mesh``) ``save`` gathers the
-               leaves that ``shardings`` says are cut, rank 0 writes and
-               every rank waits for it: the files are those of a save from
-               one device.  ``load(..., shardings=)`` gives each rank its
-               block of each leaf under any mesh.
+               leaves that ``shardings`` says are cut one at a time, rank 0
+               writes each before the next is gathered, and every rank
+               waits for the manifest: the files are those of a save from
+               one device, and no rank holds more than one whole leaf.
+               ``load(..., shardings=)`` gives each rank its block of each
+               leaf under any mesh.
 * async:       snapshot-to-host happens on the caller thread;
                encode+write runs on a background thread.
 
@@ -157,25 +159,45 @@ def save(ckpt_dir: str | Path, step: int, tree: Any,
     """Synchronous atomic save; refactored leaves are encoded on
     ``device`` (``None`` means ``cuda``).  Under a mesh, ``shardings`` (a
     matching tree of ``sharding.Named``; ``None``: every leaf is whole on
-    every rank) says how each rank's leaves are cut; they are gathered,
-    rank 0 writes, and every rank returns once it has."""
+    every rank) says how each rank's leaves are cut; leaf by leaf, every
+    rank gathers it and rank 0 writes it and drops it before the next, and
+    every rank returns once rank 0 has committed the manifest."""
     mesh = shd.get_current_mesh()
-    if mesh is not None:
-        if shardings is not None:
-            specs = _specs_for(tree, shardings)
-            tree = _unflatten(tree, iter(
-                [shd.gather_shard(leaf, sh.spec, sh.mesh)
-                 for (_, leaf), sh in zip(_paths(tree), specs)]))
-        path = Path(ckpt_dir) / f"step_{step:08d}"
-        if mesh.rank == 0:
-            with shd.use_mesh(None):
-                path = save(ckpt_dir, step, tree, hybrid, meta, device)
-        shd.barrier()
-        return path
     dev = resolve_device(device)
+    names, leaves = _flatten(tree)
+    if mesh is None:
+        write = True
+    else:
+        specs = ([None] * len(leaves) if shardings is None
+                 else _specs_for(tree, shardings))
+        write = mesh.rank == 0
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
+    if write:
+        _begin(ckpt_dir, tmp)
+    manifest: Dict[str, Any] = {"step": step, "leaves": {}, "meta": meta or {},
+                                "time": time.time()}
+    for i, (name, leaf) in enumerate(zip(names, leaves)):
+        if mesh is not None and specs[i] is not None:
+            leaf = shd.gather_shard(leaf, specs[i].spec, specs[i].mesh)
+        if write:
+            manifest["leaves"][name] = _write_leaf(tmp, name, leaf, hybrid,
+                                                   dev)
+        del leaf
+    if write:
+        # commit: manifest last, then atomic rename
+        (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    if mesh is not None:
+        shd.barrier()
+    return final
+
+
+def _begin(ckpt_dir: Path, tmp: Path) -> None:
+    """An empty ``tmp``; stale tmp dirs of other steps swept."""
     if tmp.exists():
         shutil.rmtree(tmp)
     # sweep stale tmp dirs from OTHER steps' crashed saves: a killed writer
@@ -186,34 +208,30 @@ def save(ckpt_dir: str | Path, step: int, tree: Any,
             if stale != tmp:
                 shutil.rmtree(stale, ignore_errors=True)
     tmp.mkdir(parents=True)
-    names, leaves = _flatten(tree)
-    manifest: Dict[str, Any] = {"step": step, "leaves": {}, "meta": meta or {},
-                                "time": time.time()}
-    for name, leaf in zip(names, leaves):
-        t = leaf if isinstance(leaf, torch.Tensor) else _host_tensor(leaf)
-        dt = bc.dtype_name(t.dtype)
-        nbytes = t.numel() * t.element_size()
-        entry: Dict[str, Any] = {"dtype": dt, "shape": list(t.shape)}
-        if dt in bc._FMT and t.numel() >= 1024:
-            blob = bc.exact_to_bytes(bc.exact_refactor(t, hybrid=hybrid,
-                                                       device=dev))
-            entry["codec"] = "mdr"
-            entry["file"] = f"{name}.mdr"
-        else:
-            blob = _raw_bytes(t.detach().cpu())
-            entry["codec"] = "raw"
-            entry["file"] = f"{name}.raw"
-        entry["stored_bytes"] = len(blob)
-        entry["raw_bytes"] = nbytes
-        with obs_trace.span("ckpt.write", bytes=len(blob)):
-            (tmp / entry["file"]).write_bytes(blob)
-        manifest["leaves"][name] = entry
-    # commit: manifest last, then atomic rename
-    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
-    if final.exists():
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    return final
+
+
+def _write_leaf(tmp: Path, name: str, leaf, hybrid: ll.HybridConfig,
+                dev: torch.device) -> Dict[str, Any]:
+    """Encode (or take raw) and write one leaf; returns its manifest
+    entry."""
+    t = leaf if isinstance(leaf, torch.Tensor) else _host_tensor(leaf)
+    dt = bc.dtype_name(t.dtype)
+    nbytes = t.numel() * t.element_size()
+    entry: Dict[str, Any] = {"dtype": dt, "shape": list(t.shape)}
+    if dt in bc._FMT and t.numel() >= 1024:
+        blob = bc.exact_to_bytes(bc.exact_refactor(t, hybrid=hybrid,
+                                                   device=dev))
+        entry["codec"] = "mdr"
+        entry["file"] = f"{name}.mdr"
+    else:
+        blob = _raw_bytes(t.detach().cpu())
+        entry["codec"] = "raw"
+        entry["file"] = f"{name}.raw"
+    entry["stored_bytes"] = len(blob)
+    entry["raw_bytes"] = nbytes
+    with obs_trace.span("ckpt.write", bytes=len(blob)):
+        (tmp / entry["file"]).write_bytes(blob)
+    return entry
 
 
 def latest_step(ckpt_dir: str | Path) -> Optional[int]:

@@ -28,6 +28,13 @@ wire, by kind, with the ring model of ``repro.launch.hlo_analysis`` (a
 mesh axis of one rank launches one and moves nothing): an all-gather moves
 ``out x (n-1)/n``, an all-reduce ``2 x out x (n-1)/n`` and a
 reduce-scatter ``out x (n-1)`` (``out``: the bytes of one rank's output).
+The collectives of sharded parameter storage (``distributed/fsdp.py``)
+count under kinds of their own: ``param_gather`` (a block gathered whole),
+``grad_reduce_scatter`` and ``grad_all_reduce`` (a whole gradient reduced
+to the block), so that every byte is counted once, under one kind.
+
+:func:`shard_tree` and :func:`gather_tree` are the counterparts of
+``jax.device_put(tree, shardings)`` and of reading such a tree back whole.
 """
 from __future__ import annotations
 
@@ -56,6 +63,12 @@ class WireCounters(StatCounters):
     all_reduce_bytes: int = 0
     reduce_scatter: int = 0
     reduce_scatter_bytes: int = 0
+    param_gather: int = 0
+    param_gather_bytes: int = 0
+    grad_reduce_scatter: int = 0
+    grad_reduce_scatter_bytes: int = 0
+    grad_all_reduce: int = 0
+    grad_all_reduce_bytes: int = 0
 
 
 WIRE = WireCounters()
@@ -170,11 +183,11 @@ def _mesh(mesh: Optional[Mesh] = None) -> Mesh:
     return mesh
 
 
-def batch_axes() -> Tuple[str, ...]:
+def batch_axes(mesh: Optional[Mesh] = None) -> Tuple[str, ...]:
     """The axes that cut the batch of the tensors a rank computes on: the
     innermost ``use_batch_axes``, else the data-parallel axes ('pod',
-    'data') of the current mesh; () without a mesh."""
-    mesh = get_current_mesh()
+    'data'), of ``mesh`` (``None``: the current mesh); () without one."""
+    mesh = mesh or get_current_mesh()
     if mesh is None:
         return ()
     axes = _state.batch_axes
@@ -274,22 +287,26 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _all_reduce(x: torch.Tensor, axes: Axes, op, mesh: Optional[Mesh]
-                ) -> torch.Tensor:
+def _count(kind: str, nbytes: int) -> None:
+    WIRE.add(**{kind: 1, f"{kind}_bytes": nbytes})
+
+
+def _all_reduce(x: torch.Tensor, axes: Axes, op, mesh: Optional[Mesh],
+                kind: str = "all_reduce") -> torch.Tensor:
     mesh = _mesh(mesh)
     n = mesh.size(axes)
     out = x.contiguous().clone()
     if mesh.axes(axes):
         dist.all_reduce(out, op=op, group=mesh.group(axes))
-        WIRE.add(all_reduce=1,
-                 all_reduce_bytes=2 * _nbytes(out) * (n - 1) // n)
+        _count(kind, 2 * _nbytes(out) * (n - 1) // n)
     return out
 
 
-def psum(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
-         ) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axes``, on each of them."""
-    return _all_reduce(x, axes, dist.ReduceOp.SUM, mesh)
+def psum(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
+         kind: str = "all_reduce") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, on each of them
+    (counted in ``WIRE`` under ``kind``)."""
+    return _all_reduce(x, axes, dist.ReduceOp.SUM, mesh, kind)
 
 
 def pmax(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
@@ -298,8 +315,8 @@ def pmax(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
     return _all_reduce(x, axes, dist.ReduceOp.MAX, mesh)
 
 
-def psum_scatter(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
-                 ) -> torch.Tensor:
+def psum_scatter(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
+                 kind: str = "reduce_scatter") -> torch.Tensor:
     """``x`` (n, ...) summed over the n ranks of ``axes``; this rank gets
     row ``axis_index(axes)`` of the sum, (...) (``jax.lax.psum_scatter``
     with ``scatter_dimension=0, tiled=False``)."""
@@ -313,12 +330,12 @@ def psum_scatter(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
         return x[0].clone()
     out = x.new_empty(x.shape[1:])
     _reduce_scatter(out.view(-1), x.view(-1), group=mesh.group(axes))
-    WIRE.add(reduce_scatter=1, reduce_scatter_bytes=_nbytes(out) * (n - 1))
+    _count(kind, _nbytes(out) * (n - 1))
     return out
 
 
-def all_gather(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
-               ) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
+               kind: str = "all_gather") -> torch.Tensor:
     """Every rank's ``x`` over ``axes``, stacked: (n, *x.shape), row i from
     the rank at index i (``jax.lax.all_gather``, ``tiled=False``)."""
     mesh = _mesh(mesh)
@@ -328,7 +345,7 @@ def all_gather(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
         return x[None].clone()
     out = x.new_empty((n,) + tuple(x.shape))
     _all_gather(out.view(-1), x.view(-1), group=mesh.group(axes))
-    WIRE.add(all_gather=1, all_gather_bytes=_nbytes(out) * (n - 1) // n)
+    _count(kind, _nbytes(out) * (n - 1) // n)
     return out
 
 
@@ -350,7 +367,11 @@ def local_shard(x: torch.Tensor, pspec: Spec, mesh: Optional[Mesh] = None
                 ) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``pspec``: each dim
     that names axes cut into equal blocks, the rank's by its index along
-    them.  A view where the cut allows it."""
+    them (the block that ``NamedSharding(mesh, pspec).devices_indices_map``
+    gives the device at this rank's coordinates).  A view where the cut
+    allows it.  A dim that does not divide raises, as ``NamedSharding``
+    does; every leaf of every arch divides on the meshes the port runs
+    (``tests/test_torch_fsdp.py`` checks each arch on (2, 2) and (4, 1))."""
     mesh = _mesh(mesh)
     if len(pspec) > x.dim():
         raise ValueError(f"spec {pspec} for a {x.dim()}-d tensor")
@@ -367,19 +388,61 @@ def local_shard(x: torch.Tensor, pspec: Spec, mesh: Optional[Mesh] = None
     return x
 
 
-def gather_shard(x: torch.Tensor, pspec: Spec, mesh: Optional[Mesh] = None
-                 ) -> torch.Tensor:
+def gather_shard(x: torch.Tensor, pspec: Spec, mesh: Optional[Mesh] = None,
+                 kind: str = "all_gather") -> torch.Tensor:
     """The inverse of :func:`local_shard`: the whole tensor, on every rank,
-    from each rank's block."""
+    from each rank's block (one all-gather per dim that is cut, counted in
+    ``WIRE`` under ``kind``; ``x`` itself where nothing is)."""
     mesh = _mesh(mesh)
     for d, entry in reversed(list(enumerate(pspec))):
         axes = mesh.axes(_dim_axes(entry))
         n = mesh.size(axes)
         if n == 1:
             continue
-        g = all_gather(x, axes, mesh)                    # (n, ..., s_d, ...)
-        x = torch.cat(list(g.unbind(0)), dim=d)
+        g = all_gather(x, axes, mesh, kind)              # (n, ..., s_d, ...)
+        x = g.movedim(0, d).flatten(d, d + 1) if d else g.flatten(0, 1)
     return x
+
+
+def _sub(named, key):
+    """The part of a tree of ``Named`` under ``key`` (one ``Named`` holds
+    for the whole subtree it stands in)."""
+    if isinstance(named, Named):
+        return named
+    return getattr(named, key) if hasattr(named, "_fields") else named[key]
+
+
+def map_named(fn, tree, named):
+    """``fn(leaf, Named)`` over a tree of dicts, lists, tuples and
+    ``NamedTuple``s and a matching tree of ``Named``; ``None`` stays
+    ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_named(fn, v, _sub(named, k)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_named(fn, v, _sub(named, f))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_named(fn, v, _sub(named, i))
+                          for i, v in enumerate(tree))
+    return fn(tree, named)
+
+
+def shard_tree(tree, named):
+    """Each rank's block of every leaf of the whole ``tree``, by the
+    matching tree of ``Named``: a tensor of its own, holding exactly the
+    bytes its spec assigns (the counterpart of ``jax.device_put(tree,
+    shardings)``)."""
+    return map_named(lambda x, n: local_shard(x, n.spec, n.mesh).clone(
+        memory_format=torch.contiguous_format), tree, named)
+
+
+def gather_tree(blocks, named):
+    """The whole tree, on every rank, from each rank's ``blocks`` (the
+    inverse of :func:`shard_tree`)."""
+    return map_named(lambda x, n: gather_shard(x, n.spec, n.mesh), blocks,
+                      named)
 
 
 # --------------------------------------------- differentiable collectives --

@@ -12,6 +12,12 @@ reference's pure functions do, so a serving loop can pass the copy that
 ``compute_params`` holds in the compute dtype.  The reference's sharding
 constraints are identities under per-rank SPMD (``sharding.constraint``)
 and are left out.
+
+Every method also takes ``shardings``, the tree's ``sharding.Named`` by
+leaf, when the tree holds each rank's blocks (``sharding.shard_tree``):
+the stack gathers one repeat at a time (``transformer.stack_apply``), and
+``embed``, ``final_norm``, ``head`` and ``mtp`` are gathered where they are
+read; a tied (or MTP-read) embedding is gathered once for all its uses.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype, einsum, norm
 from repro_torch.models.params import (PSpec, tree_init, tree_map,
@@ -133,7 +140,8 @@ class Model(nn.Module):
         leaf the layers read through ``.to(compute_dtype)`` cast once, the
         float32-read leaves (``FLOAT32_LEAVES``) as they are.  It gives the
         bits of the tree it copies and spares each call the cast (qwen2-7b:
-        15.2 GB of bfloat16 beside 30.5 GB of float32)."""
+        15.2 GB of bfloat16 beside 30.5 GB of float32).  A tree of blocks
+        gives its blocks cast: the cast is elementwise."""
         cdt = compute_dtype(self.cfg)
 
         def cast(tree):
@@ -145,83 +153,116 @@ class Model(nn.Module):
     def _tree(self, params):
         return self.params if params is None else params
 
+    def _shared(self, params, shardings, mtp: bool = False):
+        """``params`` and ``shardings`` with the embedding gathered once
+        when more than one site reads it (tied to the head, or read again
+        by the MTP loss)."""
+        if shardings is None or "embed" not in params or not (
+                self.cfg.tie_embeddings or mtp):
+            return params, shardings
+        return (dict(params, embed=fsdp.gather_param(params["embed"],
+                                                     shardings["embed"])),
+                dict(shardings, embed=None))
+
+    @staticmethod
+    def _sub(shardings, key):
+        return None if shardings is None else shardings[key]
+
+    def _read(self, params, shardings, key):
+        """Leaf ``key`` whole (gathered from its block under
+        ``shardings``)."""
+        return fsdp.gather_param(params[key], self._sub(shardings, key))
+
     # ------------------------------------------------------------- forward --
-    def _embed(self, params, tokens=None, embeds=None) -> torch.Tensor:
+    def _embed(self, params, tokens=None, embeds=None, shardings=None
+               ) -> torch.Tensor:
         cdt = compute_dtype(self.cfg)
         if embeds is not None:
             return embeds.to(cdt)
         # gather, then cast: the bits of casting the table first
-        return params["embed"][tokens].to(cdt)
+        return self._read(params, shardings, "embed")[tokens].to(cdt)
 
-    def _head_weight(self, params) -> torch.Tensor:
+    def _head_weight(self, params, shardings=None) -> torch.Tensor:
         cdt = compute_dtype(self.cfg)
         if self.cfg.tie_embeddings:
-            return params["embed"].to(cdt).T
-        return params["head"].to(cdt)
+            return self._read(params, shardings, "embed").to(cdt).T
+        return self._read(params, shardings, "head").to(cdt)
 
-    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
-        x = norm(x, params["final_norm"], self.cfg.norm)
-        return einsum("bsd,dv->bsv", x, self._head_weight(params)).float()
+    def _head(self, params, x: torch.Tensor, shardings=None) -> torch.Tensor:
+        x = norm(x, self._read(params, shardings, "final_norm"), self.cfg.norm)
+        return einsum("bsd,dv->bsv", x,
+                      self._head_weight(params, shardings)).float()
 
     def forward(self, params=None, tokens=None, embeds=None,
-                vision_states=None, positions=None) -> torch.Tensor:
+                vision_states=None, positions=None, shardings=None
+                ) -> torch.Tensor:
         """Full-sequence forward -> float32 logits (B,S,V)."""
-        params = self._tree(params)
-        x = self._embed(params, tokens, embeds)
+        params, shardings = self._shared(self._tree(params), shardings)
+        x = self._embed(params, tokens, embeds, shardings)
         b, s, _ = x.shape
         if positions is None:
             positions = _positions(b, s, x.device)
         x, _, _ = T.stack_apply(params["blocks"], x, self.cfg, positions,
-                                vision_states=vision_states)
-        return self._head(params, x)
+                                vision_states=vision_states,
+                                shardings=self._sub(shardings, "blocks"))
+        return self._head(params, x, shardings)
 
     # ---------------------------------------------------------------- loss --
-    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss(self, params, batch: Dict[str, torch.Tensor], shardings=None
+             ) -> torch.Tensor:
         """Cross-entropy + MoE aux (+ 0.1 x the MTP loss), differentiable
         with respect to the leaves of ``params`` (``train.step``'s
         ``value_and_grad`` takes its gradient)."""
         cfg = self.cfg
-        params = self._tree(params)
-        x = self._embed(params, batch.get("tokens"), batch.get("embeds"))
+        mtp = bool(cfg.mtp_depth and "tokens" in batch)
+        params, shardings = self._shared(self._tree(params), shardings, mtp)
+        x = self._embed(params, batch.get("tokens"), batch.get("embeds"),
+                        shardings)
         b, s, _ = x.shape
         positions = _positions(b, s, x.device)
         h, _, aux = T.stack_apply(params["blocks"], x, cfg, positions,
-                                  vision_states=batch.get("vision_states"))
-        logits = self._head(params, h)
+                                  vision_states=batch.get("vision_states"),
+                                  shardings=self._sub(shardings, "blocks"))
+        logits = self._head(params, h, shardings)
         loss = _xent(logits, batch["labels"]) + aux
-        if cfg.mtp_depth and "tokens" in batch:
-            loss = loss + 0.1 * self._mtp_loss(params, h, batch, positions)
+        if mtp:
+            loss = loss + 0.1 * self._mtp_loss(params, h, batch, positions,
+                                               shardings)
         return loss
 
-    def _mtp_loss(self, params, h, batch, positions) -> torch.Tensor:
+    def _mtp_loss(self, params, h, batch, positions, shardings=None
+                  ) -> torch.Tensor:
         """DeepSeek-V3 multi-token prediction: one extra depth, predicts t+2."""
         cfg = self.cfg
         cdt = compute_dtype(cfg)
-        mtp = params["mtp"]
+        mtp = fsdp.gather_params(params["mtp"], self._sub(shardings, "mtp"))
         tokens, labels = batch["tokens"], batch["labels"]
         # combine hidden state at t with embedding of token t+1
         nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-        z = torch.cat([h, params["embed"][nxt].to(cdt)], dim=-1)
+        z = torch.cat([h, self._read(params, shardings, "embed")[nxt].to(cdt)],
+                      dim=-1)
         z = einsum("bsd,dk->bsk", z, mtp["proj"].to(cdt))
         z, _, _ = T.block_apply(mtp["block"], z, cfg, "attn", positions)
         z = norm(z, mtp["norm"], cfg.norm)
-        logits2 = einsum("bsd,dv->bsv", z, self._head_weight(params)).float()
+        logits2 = einsum("bsd,dv->bsv", z,
+                         self._head_weight(params, shardings)).float()
         lab2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
         return _xent(logits2, lab2)
 
     # -------------------------------------------------------------- serving --
     def prefill(self, params=None, tokens=None, embeds=None,
-                vision_states=None, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                vision_states=None, max_len: Optional[int] = None,
+                shardings=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Run the prompt; returns (last-position logits, decode cache)."""
-        params = self._tree(params)
-        x = self._embed(params, tokens, embeds)
+        params, shardings = self._shared(self._tree(params), shardings)
+        x = self._embed(params, tokens, embeds, shardings)
         b, s, _ = x.shape
         h, caches, _ = T.stack_apply(params["blocks"], x, self.cfg,
                                      _positions(b, s, x.device),
                                      vision_states=vision_states,
-                                     build_caches=True)
-        logits = self._head(params, h[:, -1:, :])
+                                     build_caches=True,
+                                     shardings=self._sub(shardings, "blocks"))
+        logits = self._head(params, h[:, -1:, :], shardings)
         if max_len is not None and max_len > s:
             caches = _pad_caches(caches, max_len, seq_axis=2)
         return logits, caches
@@ -231,20 +272,23 @@ class Model(nn.Module):
         return T.stack_cache_abstract(self.cfg, batch, max_len)
 
     def decode_step(self, params, cache, index: int, tokens: torch.Tensor,
-                    vision_states=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                    vision_states=None, shardings=None
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One-token decode: tokens (B,1) at position ``index``.  The cache
         is updated in place and returned."""
-        params = self._tree(params)
+        params, shardings = self._shared(self._tree(params), shardings)
         index = int(index)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, shardings=shardings)
         b = x.shape[0]
         positions = torch.full((b, 1), index, dtype=torch.int32,
                                device=x.device)
         h, new_cache, _ = T.stack_apply(params["blocks"], x, self.cfg,
                                         positions, caches=cache,
                                         cache_index=index,
-                                        vision_states=vision_states)
-        return self._head(params, h), new_cache
+                                        vision_states=vision_states,
+                                        shardings=self._sub(shardings,
+                                                            "blocks"))
+        return self._head(params, h, shardings), new_cache
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

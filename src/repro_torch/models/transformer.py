@@ -18,6 +18,13 @@ scan step): the backward pass keeps only each repeat's input and
 recomputes the rest.  A stacked leaf is ``unbind``-ed once per group, so
 the backward pass stacks the repeats' gradients once instead of adding a
 full-size gradient per repeat.
+
+With ``shardings`` (each stacked leaf's ``sharding.Named``) the tree holds
+each rank's blocks, and repeat ``r``'s block of a leaf is ``block[r]``
+(a stacked spec's leading entry is ``None``); ``_repeat_apply`` gathers a
+repeat's leaves whole (``distributed.fsdp.gather_param``) inside the
+function that ``checkpoint`` wraps, so that under remat no gathered weight
+outlives its repeat and the backward gathers again.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -205,10 +214,12 @@ def _store(dst: Dict, src: Dict) -> None:
 
 
 def _repeat_apply(g: StackGroup, cfg: ModelConfig, positions, cache_index,
-                  vision_states, h: torch.Tensor, p_layer: Dict,
+                  vision_states, named, h: torch.Tensor, p_layer: Dict,
                   c_layer: Optional[Dict]):
     """One repeat of a group's pattern: (h, the last sub-layer's aux, the
-    repeat's new caches)."""
+    repeat's new caches); ``p_layer`` holds blocks of ``named``'s specs
+    (``None``: whole leaves), gathered here."""
+    p_layer = fsdp.gather_params(p_layer, named)
     new_c = {}
     for i, kind in enumerate(g.kinds):
         key = f"sub{i}_{kind}"
@@ -225,11 +236,14 @@ def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 caches: Optional[Dict] = None,
                 cache_index: Optional[int] = None,
                 vision_states: Optional[torch.Tensor] = None,
-                build_caches: bool = False
+                build_caches: bool = False,
+                shardings: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Run all stack groups.  Returns (x, caches, total_aux): the caches
     built by a prefill (``build_caches``), the ``caches`` given, updated in
-    place by a decode step, or ``{}`` (the forward and the loss)."""
+    place by a decode step, or ``{}`` (the forward and the loss).
+    ``shardings``: each stacked leaf's ``sharding.Named`` when ``params``
+    holds blocks."""
     total_aux = torch.zeros((), device=x.device)
     new_caches: Dict[str, Any] = {}
     remat = (cfg.remat and caches is None and not build_caches
@@ -238,8 +252,10 @@ def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     for g in stack_plan(cfg):
         gc = caches.get(g.name) if caches is not None else None
         layers = tree_map(lambda t: t.unbind(0), params[g.name])
+        named = None if shardings is None else tree_map(
+            lambda n: shd.Named(n.mesh, n.spec[1:]), shardings[g.name])
         run = functools.partial(_repeat_apply, g, cfg, positions,
-                                cache_index, vision_states)
+                                cache_index, vision_states, named)
         built = []
         for r in range(g.repeats):
             p_layer = tree_map(lambda ts: ts[r], layers)

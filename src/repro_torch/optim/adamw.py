@@ -35,6 +35,11 @@ torch's by an ulp at some arguments: so the learning rate and the bias
 corrections can differ by an ulp at some steps (no step of the warmup,
 where the cosine's argument is 0).  On the card the scalars are the
 card's.
+
+On blocks (a sharded step's trees, ``sharding.shard_tree``) the update is
+the same elementwise pass; only the global norm must see every element
+once: ``update(..., shardings=)`` sums each leaf's block in float64 over
+the axes its spec cuts, and no others, before it adds up the leaves.
 """
 from __future__ import annotations
 
@@ -45,6 +50,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.core.align import flush_subnormal
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.params import (DTYPES, tree_leaves, tree_map,
                                        tree_unflatten)
 
@@ -107,10 +114,26 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The float32 norm of all leaves together, accumulated in float64."""
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """The float32 norm of all leaves together, accumulated in float64.
+    With ``shardings`` (the tree's ``sharding.Named`` by leaf) the leaves
+    are this rank's blocks: each leaf's sum of squares is summed over the
+    mesh axes its spec cuts (summing over an axis that holds it whole
+    would count it once per rank), one all-reduce for each set of axes."""
     leaves = tree_leaves(tree)
-    total = sum(torch.sum(torch.square(g.double())) for g in leaves)
+    sums = [torch.sum(torch.square(g.double())) for g in leaves]
+    if shardings is not None:
+        by_axes = {}
+        for i, n in enumerate(tree_leaves(shardings)):
+            by_axes.setdefault(fsdp.spec_axes(n), []).append(i)
+        mesh = tree_leaves(shardings)[0].mesh
+        for axes, idx in by_axes.items():
+            if axes:
+                got = shd.psum(torch.stack([sums[i] for i in idx]), axes,
+                               mesh).unbind(0)
+                for i, s in zip(idx, got):
+                    sums[i] = s
+    total = sum(sums)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float64)).float()
 
 
@@ -149,12 +172,13 @@ def _upd(p, g, m, v, scale, lr, c1, c2, cfg: AdamWConfig, sdt):
     return newp.to(p.dtype), m32.to(sdt), v32.to(sdt)
 
 
-def update(grads, state: AdamWState, params, cfg: AdamWConfig
-           ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+def update(grads, state: AdamWState, params, cfg: AdamWConfig,
+           shardings=None) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: returns (new params, new state, {"grad_norm",
-    "lr"}), all on the parameters' device."""
+    "lr"}), all on the parameters' device.  ``shardings``: the parameters'
+    ``sharding.Named`` by leaf when the trees hold this rank's blocks."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     dev = gnorm.device
     scale = torch.minimum(_f32(1.0, dev),
                           cfg.clip_norm / torch.clamp_min(gnorm, 1e-9))

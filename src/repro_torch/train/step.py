@@ -10,13 +10,18 @@ function of a parameter tree.
 
 Under a mesh (``sharding.use_mesh``) the train step is data parallel: each
 rank runs its shard of every microbatch over ``policy.batch_axes`` and the
-loss and gradients are averaged over those axes before the AdamW update,
-so every rank holds the same whole parameters and optimizer state.  The
-parameter specs place a tree at rest (checkpoints); inside the step the
-parameters stay whole on every rank.
+loss and gradients are averaged over those axes before the AdamW update.
+Without ``shardings`` every rank holds the same whole parameters and
+optimizer state.  With them (``train_shardings``' pair; for serving,
+``param_shardings``) each rank holds only its block of every parameter and
+AdamW leaf, as the reference's ``NamedSharding`` places it
+(``sharding.shard_tree``): the step gathers one repeat's leaves at a time
+and reduces each gradient to the rank's block (``distributed/fsdp.py``),
+and takes and returns trees of blocks (the reference's ``out_shardings``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -58,7 +63,7 @@ def _microbatches(batch: Dict[str, torch.Tensor], n_micro: int):
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
-                    policy: CellPolicy):
+                    policy: CellPolicy, shardings=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss's gradient, summed over ``policy.n_micro``
     microbatches in float32 and averaged, then one AdamW update;
@@ -66,10 +71,21 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
 
     Under a mesh, ``batch`` is the global batch and each rank computes on
     its shard of each microbatch (``batch_pspec``); the loss and the
-    gradients are then averaged over ``policy.batch_axes``."""
+    gradients are then averaged over ``policy.batch_axes``.  With
+    ``shardings`` (``train_shardings``' (params, AdamW state) pair, whose
+    mesh the step runs under) ``params`` and ``opt_state`` are this rank's
+    blocks, the gradients come back as blocks and accumulate as float32
+    blocks, and the step returns blocks of the same specs."""
     n_micro = policy.n_micro
+    pnamed = None if shardings is None else shardings[0]
+    step_mesh = None if pnamed is None else tree_leaves(pnamed)[0].mesh
 
     def train_step(params, opt_state, batch):
+        with (contextlib.nullcontext() if step_mesh is None
+              else shd.use_mesh(step_mesh)):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         mesh = shd.get_current_mesh()
         axes = mesh.axes(policy.batch_axes) if mesh is not None else ()
 
@@ -79,7 +95,8 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             mb = {k: shd.local_shard(v, batch_pspec(policy, v.dim()), mesh)
                   for k, v in mb.items()}
             with shd.use_batch_axes(axes):
-                return value_and_grad(lambda p: model.loss(p, mb), params)
+                return value_and_grad(
+                    lambda p: model.loss(p, mb, shardings=pnamed), params)
 
         if n_micro == 1:
             loss, grads = grad_of(batch)
@@ -99,39 +116,57 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         if mesh is not None:
             n = mesh.size(axes)
             loss = shd.psum(loss, axes, mesh) / n
-            grads = tree_map(lambda g: shd.psum(g, axes, mesh) / n, grads)
+            if pnamed is None:
+                grads = tree_map(lambda g: shd.psum(g, axes, mesh) / n, grads)
+            else:       # the backward summed each block over the batch axes
+                grads = tree_map(lambda g: g / n, grads)
         new_params, new_opt, metrics = adamw.update(grads, opt_state, params,
-                                                    opt_cfg)
+                                                    opt_cfg, pnamed)
         metrics["loss"] = loss
         return new_params, new_opt, metrics
 
     return train_step
 
 
-def make_prefill_step(model: Model):
+def make_prefill_step(model: Model, shardings=None):
     """``prefill_step(params, batch) -> (last-position logits, caches)``;
     an encoder-only model returns its forward's last position and no
-    cache."""
-    def prefill_step(params, batch):
+    cache.  ``max_len`` pads the caches for decode.  With ``shardings``
+    (``param_shardings``) ``params`` holds this rank's blocks, gathered one
+    repeat at a time."""
+    def prefill_step(params, batch, max_len=None):
         if model.cfg.encoder_only:
             logits = model.forward(params, tokens=batch.get("tokens"),
-                                   embeds=batch.get("embeds"))
+                                   embeds=batch.get("embeds"),
+                                   shardings=shardings)
             return logits[:, -1, :], None
         return model.prefill(params, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"),
-                             vision_states=batch.get("vision_states"))
+                             vision_states=batch.get("vision_states"),
+                             max_len=max_len, shardings=shardings)
     return prefill_step
 
 
-def make_decode_step(model: Model):
-    """``decode_step(params, cache, index, batch) -> (logits, cache)``."""
+def make_decode_step(model: Model, shardings=None):
+    """``decode_step(params, cache, index, batch) -> (logits, cache)``;
+    ``shardings`` as for :func:`make_prefill_step`."""
     def decode_step(params, cache, index, batch):
         return model.decode_step(params, cache, index, batch["tokens"],
-                                 vision_states=batch.get("vision_states"))
+                                 vision_states=batch.get("vision_states"),
+                                 shardings=shardings)
     return decode_step
 
 
 # ------------------------------------------------------- sharding builders --
+
+def param_shardings(model: Model, mesh, drop_fsdp: bool = False):
+    """Each parameter leaf's ``sharding.Named`` over ``mesh``, from
+    ``model.partition_specs(drop_fsdp)`` (serving: ``drop_fsdp`` keeps the
+    weights whole over the data-parallel axes)."""
+    with shd.use_mesh(mesh):
+        pspecs = model.partition_specs(drop_fsdp)
+    return tree_map(lambda spec: shd.Named(mesh, spec), pspecs)
+
 
 def train_shardings(model: Model, policy: CellPolicy, mesh,
                     opt_cfg: adamw.AdamWConfig):

@@ -321,6 +321,328 @@ def _local_tree(tree, named):
     return shd.local_shard(tree, named.spec, named.mesh).contiguous()
 
 
+# ------------------------------------------- sharded parameter storage --
+
+def _whole_arange(tree, offset=0):
+    """Each leaf of ``tree`` replaced by the int64 row-major indices of its
+    elements (plus ``offset``): a block of it says where it was cut."""
+    if isinstance(tree, dict):
+        return {k: _whole_arange(v, offset) for k, v in tree.items()}
+    return (torch.arange(tree.numel(), dtype=torch.int64, device=tree.device)
+            .reshape(tree.shape) + offset)
+
+
+def _fingerprint(block):
+    """(first element, sum, shape...) of an index block."""
+    first = block.reshape(-1)[0] if block.numel() else torch.tensor(-1)
+    return torch.tensor([int(first), int(block.sum())] + list(block.shape))
+
+
+def fsdp_placement(mesh, arch):
+    """``shard_tree`` of an arch's SMOKE parameters and AdamW state under
+    ``train_shardings``: each leaf's block of an index tensor (its first
+    index, sum and shape), and the bytes this rank stores against each
+    leaf's bytes over the product of its spec's axis sizes."""
+    import math
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.policy import CellPolicy
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import train_shardings
+    dev = _mesh_device(mesh)
+    model = Model(smoke_config(arch), device=dev, seed=0)
+    opt_cfg = adamw.AdamWConfig()
+    p_named, o_named = train_shardings(
+        model, CellPolicy(("data",), 1, "float32", 16), mesh, opt_cfg)
+    params = model.params
+    opt = adamw.init(params, opt_cfg)
+    stored = fsdp.stored_bytes(shd.shard_tree(params, p_named)) \
+        + fsdp.stored_bytes(shd.shard_tree(opt, o_named))
+    want = 0
+    for t, n in zip(_named(params), _named(p_named)):
+        cut = math.prod(mesh.shape[a] for e in n[1].spec
+                        for a in mesh.axes(shd._dim_axes(e)))
+        want += 3 * t[1].numel() * t[1].element_size() // cut
+    want += opt.step.numel() * opt.step.element_size()
+    idx = adamw.AdamWState(step=torch.zeros((), dtype=torch.int64),
+                           m=_whole_arange(params),
+                           v=_whole_arange(params, 7))
+    pb = shd.shard_tree(_whole_arange(params), p_named)
+    ob = shd.shard_tree(idx, o_named)
+    out = {"stored": torch.tensor([stored, want])}
+    for name, b in _named(pb):
+        out[f"param.{name}"] = _fingerprint(b)
+    for name, b in _named(ob.m):
+        out[f"m.{name}"] = _fingerprint(b)
+    for name, b in _named(ob.v):
+        out[f"v.{name}"] = _fingerprint(b - 7)
+    return out
+
+
+def _mesh_device(mesh):
+    return "cpu" if mesh.device_type == "cpu" else \
+        f"cuda:{torch.cuda.current_device()}"
+
+
+def fsdp_train(mesh, arch, params, batch, batch_axes, n_micro=1,
+               dispatch=None, gathered=False):
+    """One ``make_train_step`` step with ``shardings=`` on this rank's
+    blocks, and the whole-tree step (no ``shardings``) under the same mesh
+    cut to the same blocks: loss, grad norm, the gradient blocks handed to AdamW, new
+    parameter blocks, AdamW m and v, the bytes stored and ``WIRE``'s
+    counts; with ``gathered``, the sharded step's gradients gathered
+    whole."""
+    import dataclasses as dc
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.policy import CellPolicy
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as st
+    cfg = smoke_config(arch)
+    if dispatch:
+        cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, dispatch=dispatch))
+    model = Model(cfg, params, device=_dev(params))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    policy = CellPolicy(tuple(batch_axes), int(n_micro), "float32",
+                        batch["labels"].shape[1])
+    named = st.train_shardings(model, policy, mesh, opt_cfg)
+    opt = adamw.init(model.params, opt_cfg)
+    with _recording(adamw, "update", []) as upd, shd.use_mesh(mesh):
+        p1, o1, m1 = st.make_train_step(model, opt_cfg, policy)(
+            model.params, opt, batch)
+    g1 = upd[0][0][0]
+    blocks = shd.shard_tree(model.params, named[0])
+    oblocks = shd.shard_tree(opt, named[1])
+    stored = fsdp.stored_bytes(blocks) + fsdp.stored_bytes(oblocks)
+    fn = st.make_train_step(model, opt_cfg, policy, named)
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+    shd.WIRE.reset()
+    with _recording(adamw, "update", []) as upd, \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        p2, o2, m2 = fn(blocks, oblocks, batch)
+    wire = shd.WIRE.snapshot()
+    g2 = upd[0][0][0]
+    out = {"loss": torch.stack([m1["loss"], m2["loss"]]).reshape(2),
+           "grad_norm": torch.stack([m1["grad_norm"], m2["grad_norm"]]),
+           "stored": torch.tensor([stored]),
+           "wire": torch.tensor([wire[k] for k in sorted(wire)]),
+           "wire_keys": sorted(wire), "saved_shapes": saved}
+    cut = lambda t, n: shd.local_shard(t, n.spec, n.mesh)  # noqa: E731
+    for tag, a, b in (("grad", g2, g1), ("param", p2, p1),
+                      ("m", o2.m, o1.m), ("v", o2.v, o1.v)):
+        for (name, x), (_, y), (_, n) in zip(_named(a), _named(b),
+                                             _named(named[0])):
+            out[f"{tag}.{name}"] = x
+            out[f"whole_{tag}.{name}"] = cut(y, n)
+    if gathered:
+        for name, g in _named(shd.gather_tree(g2, named[0])):
+            out[f"gathered.{name}"] = g
+    return out
+
+
+def _serve(model, params, prompts, n_new, max_len, mesh, policy, shardings):
+    """Greedy tokens and last-position logits of a prefill and ``n_new - 1``
+    decode steps, under ``mesh`` with the caches cut by
+    ``cache_shardings``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import step as st
+    prefill = st.make_prefill_step(model, shardings)
+    decode = st.make_decode_step(model, shardings)
+    with torch.inference_mode(), shd.use_mesh(mesh), \
+            shd.use_batch_axes(policy.batch_axes):
+        logits, cache = prefill(params, {"tokens": prompts}, max_len)
+        cache = shd.shard_tree(cache, st.cache_shardings(cache, policy,
+                                                         mesh))
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        toks, steps = [tok], [logits[:, -1]]
+        for i in range(n_new - 1):
+            logits, cache = decode(params, cache, prompts.shape[1] + i,
+                                   {"tokens": tok})
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            steps.append(logits[:, -1])
+    return torch.cat(toks, 1), torch.stack(steps, 1)
+
+
+def fsdp_serve(mesh, arch, params, prompts, n_new, drop_fsdp=False,
+               seq_shard=False):
+    """Prefill and greedy decode from this rank's blocks under
+    ``param_shardings(drop_fsdp)`` and from the whole tree, on the same
+    mesh (with ``seq_shard``, the flash decode over a cache whose L axis
+    is cut over 'model'): tokens and logits of both, the gathers' wire
+    bytes and the bytes stored."""
+    import dataclasses as dc
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.policy import CellPolicy
+    from repro_torch.models.model import Model
+    from repro_torch.train import step as st
+    cfg = dc.replace(smoke_config(arch), seq_shard_decode=bool(seq_shard))
+    model = Model(cfg, params, device=_dev(params))
+    max_len = prompts.shape[1] + int(n_new)
+    policy = CellPolicy((), 1, "float32", max_len, seq_shard=bool(seq_shard))
+    named = st.param_shardings(model, mesh, bool(drop_fsdp))
+    blocks = shd.shard_tree(model.params, named)
+    whole = _serve(model, model.params, prompts, int(n_new), max_len, mesh,
+                   policy, None)
+    shd.WIRE.reset()
+    got = _serve(model, blocks, prompts, int(n_new), max_len, mesh, policy,
+                 named)
+    return {"tokens": got[0], "logits": got[1], "whole_tokens": whole[0],
+            "whole_logits": whole[1],
+            "gather_bytes": torch.tensor([shd.WIRE.param_gather_bytes]),
+            "stored": torch.tensor([fsdp.stored_bytes(blocks)])}
+
+
+def fsdp_ckpt_order(mesh, params, root):
+    """``ckpt.manager.save`` of this rank's blocks under the mesh, with the
+    order of its gathers and writes recorded (1 + leaf index for a gather,
+    -(1 + leaf index) for a write); rank 0 also saves the whole tree
+    without a mesh into ``root``/plain."""
+    import os
+    from repro_torch.ckpt import manager as ck
+    from repro_torch.distributed import sharding as shd
+    _, named = _specs_of(mesh, params)
+    local = _local_tree(params, named)
+    names, _ = ck._flatten(local)
+    log = []
+    gather, write = shd.gather_shard, ck._write_leaf
+
+    def g(x, *a, **kw):
+        log.append(1 + len([e for e in log if e > 0]))
+        return gather(x, *a, **kw)
+
+    def w(tmp, name, *a, **kw):
+        log.append(-(1 + names.index(name)))
+        return write(tmp, name, *a, **kw)
+    shd.gather_shard, ck._write_leaf = g, w
+    try:
+        with shd.use_mesh(mesh):
+            ck.save(os.path.join(root, "mesh"), 1, local, device=_dev(params),
+                    shardings=named)
+    finally:
+        shd.gather_shard, ck._write_leaf = gather, write
+    if mesh.rank == 0:
+        ck.save(os.path.join(root, "plain"), 1, params, device=_dev(params))
+    return {"log": torch.tensor(log), "n_leaves": torch.tensor([len(names)])}
+
+
+def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card):
+    """h2o-danube-3-4b at its published widths, cut to ``layers``, trained
+    ``steps`` steps from this rank's blocks under ``train_shardings`` on
+    ``mesh`` with phase 14's settings of ``chip_smoke.py`` (AdamW lr 3e-4,
+    warmup 1, bf16 compute, remat, float32 parameters and state), the
+    global batch ``global_batch`` x ``seq`` (the same batch every step) cut
+    over 'data'.  Returns each step's loss, grad norm and wall, the
+    collectives' wire bytes of a step, this rank's peak device memory over
+    the steps and over the set-up before them, its stored bytes, and the whole state's bytes by count (parameters,
+    gradients, AdamW m and v in float32).  With ``one_card``: step 1
+    against the one-card whole-tree step over ``world`` microbatches (the
+    ranks' shapes): the loss, each gradient block's largest difference and
+    largest value, and whether the new parameter, m and v blocks are
+    bit-identical.  Without it: the mean of the one-card forward losses of
+    the batch's sequences (no_grad), step 1's parameters."""
+    import dataclasses as dc
+    import time
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.policy import CellPolicy
+    from repro_torch.models.model import Model, count_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train import step as st
+    dev = _mesh_device(mesh)
+    cfg = dc.replace(get_config("h2o-danube-3-4b"), n_layers=int(layers))
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
+                                total_steps=int(steps))
+    policy = CellPolicy(("data",), 1, "float32", int(seq))
+    batch = loop.synthetic_data(cfg, int(global_batch), int(seq), seed=1,
+                                device=dev)(0)
+    n = mesh.size(("data",))
+    model = Model(cfg, device=dev, seed=0)
+    named = st.train_shardings(model, policy, mesh, opt_cfg)
+    out = {}
+    if one_card:
+        fn = st.make_train_step(model, opt_cfg, CellPolicy((), n, "float32",
+                                                           int(seq)))
+        opt = adamw.init(model.params, opt_cfg)
+        with _recording(adamw, "update", []) as upd:
+            p1, o1, m1 = fn(model.params, opt, batch)
+        cut = lambda t, nm: shd.local_shard(t, nm.spec, nm.mesh)  # noqa
+        want = {"grad": shd.map_named(cut, upd[0][0][0], named[0]),
+                "param": shd.map_named(cut, p1, named[0]),
+                "m": shd.map_named(cut, o1.m, named[0]),
+                "v": shd.map_named(cut, o1.v, named[0])}
+        del opt, upd
+        out["one_card_loss"] = m1["loss"].reshape(1)
+    else:
+        with torch.no_grad():
+            fwd = [model.loss(None, {k: v[i:i + 1] for k, v in
+                                     batch.items()}).double()
+                   for i in range(int(global_batch))]
+        out["forward_loss"] = torch.stack(fwd).mean().reshape(1)
+    blocks = shd.shard_tree(model.params, named[0])
+    model = Model(cfg, blocks, device=dev)      # the whole tree is freed
+    opt = adamw.init(blocks, opt_cfg)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn = st.make_train_step(model, opt_cfg, policy, named)
+    losses, norms, walls, wire = [], [], [], []
+    for s in range(int(steps)):
+        shd.WIRE.reset()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recording(adamw, "update", []) as upd:
+            blocks, opt, m = fn(blocks, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        w = shd.WIRE.snapshot()
+        wire.append([w["param_gather_bytes"], w["grad_reduce_scatter_bytes"],
+                     w["grad_all_reduce_bytes"], w["all_reduce_bytes"],
+                     w["param_gather"], w["grad_reduce_scatter"]])
+        if one_card and s == 0:
+            got = {"grad": upd[0][0][0], "param": blocks, "m": opt.m,
+                   "v": opt.v}
+            rows = []
+            for tag in ("grad", "param", "m", "v"):
+                for (name, a), (_, b) in zip(_named(got[tag]),
+                                             _named(want[tag])):
+                    d = (a.double() - b.double()).abs().max().item()
+                    rows.append([("grad", "param", "m", "v").index(tag), d,
+                                 b.double().abs().max().item(),
+                                 float(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))])
+            out["compare"] = torch.tensor(rows, dtype=torch.float64)
+            del want, got
+        del upd
+    n_params = count_params(cfg)
+    out.update({
+        "loss": torch.tensor(losses, dtype=torch.float64),
+        "grad_norm": torch.tensor(norms, dtype=torch.float64),
+        "wall": torch.tensor(walls, dtype=torch.float64),
+        "wire": torch.tensor(wire, dtype=torch.float64),
+        "peak": torch.tensor([torch.cuda.max_memory_allocated(), init_peak]),
+        "stored": torch.tensor([fsdp.stored_bytes(blocks)
+                                + fsdp.stored_bytes(opt)]),
+        "whole_state": torch.tensor([4 * 4 * n_params, n_params])})
+    return out
+
+
 # ------------------------------------------------------------------ rank --
 
 def _place(v, dev):

@@ -850,3 +850,76 @@ def test_data_parallel_step_across_cards(cuda, tmp_path):
                         (arch, e_micro)
                 for k in [k for k in got if k.startswith("param.")]:
                     assert torch.equal(got[k], res[0][3 * c][k]), k
+
+
+# ------------------------------- sharded parameter storage, NCCL, cards --
+
+def _fsdp_report(n, r, res):
+    wall = res["wall"].tolist()
+    wire = res["wire"][-1].tolist()
+    print(f"{n} cards, rank {r}: losses {res['loss'].tolist()}, step walls "
+          f"{[round(w, 4) for w in wall]} s; peak device memory "
+          f"{int(res['peak'][0]) / 2 ** 30:.3f} GiB over the steps "
+          f"({int(res['peak'][1]) / 2 ** 30:.3f} GiB set-up); stored "
+          f"{int(res['stored']) / 1e9:.3f} GB of a whole state of "
+          f"{int(res['whole_state'][0]) / 1e9:.3f} GB "
+          f"({int(res['whole_state'][1])} params); wire a step: param "
+          f"gathers {wire[4]:.0f} ({wire[0]:.0f} B), gradient "
+          f"reduce-scatters {wire[5]:.0f} ({wire[1]:.0f} B), gradient "
+          f"all-reduces {wire[2]:.0f} B, other all-reduces {wire[3]:.0f} B")
+
+
+def test_fsdp_danube_full_depth_on_four_cards(cuda, tmp_path):
+    """h2o-danube-3-4b at its full 24 layers and published widths, each
+    rank holding a quarter of the parameters and AdamW state, on a (4, 1)
+    ('data', 'model') mesh: 3 steps of a global batch of 4 x 4096 (one
+    sequence a rank, the same batch each step).  Step 1's loss within 1e-5
+    relative of the mean of one-card forward losses over the same four
+    sequences, and falling over the steps; each rank stores a quarter of
+    the whole state."""
+    from _torch_dist_worker import run_world
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    res = run_world(4, [("fsdp_danube", (4, 1), dict(
+        layers=24, steps=3, global_batch=4, seq=4096, one_card=False))],
+        tmp_path, device="cuda", timeout=1200)
+    for r, (got,) in enumerate(res):
+        _fsdp_report(4, r, got)
+        loss, fwd = got["loss"].tolist(), float(got["forward_loss"])
+        print(f"4 cards, rank {r}: step 1's loss {loss[0]!r}, the one-card "
+              f"forward's {fwd!r} ({abs(loss[0] - fwd) / abs(fwd):.2e} apart)")
+        assert abs(loss[0] - fwd) <= 1e-5 * abs(fwd), (loss[0], fwd)
+        assert loss[0] > loss[1] > loss[2], loss
+        # parameters, m and v: a quarter of each, the norms whole
+        assert int(got["stored"]) <= 1.001 * 12 * int(got["whole_state"][1]) / 4
+        assert got["loss"].tolist() == res[0][0]["loss"].tolist()
+
+
+def test_fsdp_danube_two_layers_across_cards(cuda, tmp_path):
+    """h2o-danube-3-4b cut to 2 layers at its published widths on 2 (and 4)
+    cards, blocks on an (n, 1) mesh, global batch 4 x 4096, against the
+    one-card whole-tree step over n microbatches (the ranks' shapes): at 2
+    cards loss, gradient blocks, new parameter blocks, m and v
+    bit-identical; at 4, each gradient block within 1e-5 x its largest
+    value and the loss within 1e-6 relative."""
+    from _torch_dist_worker import run_world
+    for n in _cards(cuda):
+        res = run_world(n, [("fsdp_danube", (n, 1), dict(
+            layers=2, steps=1, global_batch=4, seq=4096, one_card=True))],
+            tmp_path, device="cuda", timeout=900)
+        for r, (got,) in enumerate(res):
+            _fsdp_report(n, r, got)
+            loss, one = float(got["loss"][0]), float(got["one_card_loss"])
+            rows = got["compare"]
+            grads = rows[rows[:, 0] == 0]
+            worst = (grads[:, 1] / grads[:, 2].clamp_min(1e-30)).max()
+            print(f"{n} cards, rank {r}: loss {loss!r} against one card's "
+                  f"{one!r}; gradient blocks within {float(worst):.3e} of "
+                  f"their largest; bit-identical leaves "
+                  f"{int(rows[:, 3].sum())} of {rows.shape[0]}")
+            if n == 2:
+                assert loss == one
+                assert bool((rows[:, 3] == 1).all())
+            else:
+                assert abs(loss - one) <= 1e-6 * abs(one)
+                assert float(worst) <= 1e-5
