@@ -150,12 +150,26 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    3e-4): 4 ``make_train_step`` steps from blocks placed by
    ``train_shardings`` bit-identical (loss, parameters, m, v) to 4 steps
    on the whole tree, with both steps' walls, the bytes a rank stores and
-   the parameter gathers' wire bytes (none at one rank); qwen2-7b at its
-   published widths and full depth served from blocks under
+   the parameter gathers' wire bytes (none at one rank); the policy
+   leaves 'model' out of the batch axes, so the steps take the
+   tensor-parallel path (``distributed/tp.py``), and ``WIRE``'s
+   ``tp_all_reduce`` calls must equal the layer plan's (``tp_plan``: 7 a
+   layer and 5 outside the stack a step), which shows that the path ran;
+   qwen2-7b at its published widths and full depth served from blocks under
    ``partition_specs()`` (batch 4, prompt 256, 16 new tokens): greedy
    tokens equal and logits bit-identical to the plain decode.  With two or
    more cards it runs the ``fsdp`` card tests (h2o-danube-3-4b at full
-   depth on four cards; danube/2 on 2 and 4 cards against one).
+   depth on four cards; danube/2 on 2 and 4 cards against one);
+17. tensor-parallel compute over 'model' (``distributed/tp.py``: the
+   layers on the blocks that 'model' cuts, the vocabulary-parallel
+   embedding, head and loss; its training steps run in phase 16): a NCCL
+   world of one rank and a (1, 1) mesh.  h2o-danube-3-4b at all 24 layers
+   served from ``param_shardings(drop_fsdp=True)`` blocks (batch 4, prompt
+   256, 16 new tokens, bf16 weights held): greedy tokens equal and logits
+   bit-identical to the plain decode, ``tp_all_reduce`` 49 and
+   ``tp_all_gather`` 1 a step.  With two or more cards it runs the ``tp``
+   card tests (h2o-danube-3-4b at 24 layers trained and served on a (1, 4)
+   mesh of four cards).
 
 Phases 7-12, 14 and 15 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
@@ -2320,10 +2334,11 @@ def mesh_ckpt_check(torch, mesh):
         shutil.rmtree(MESH_ROOT, ignore_errors=True)
 
 
-def mesh_cards_check(select: str = "cards and not fsdp") -> None:
+def mesh_cards_check(select: str = "cards and not fsdp and not tp") -> None:
     """With two or more cards, the card tests that ``-k select`` picks (one
     NCCL rank per card, worlds of 2 and up to 4): phase 15's by default,
-    phase 16's with ``"fsdp and cards"``."""
+    phase 16's with ``"fsdp and cards"``, phase 17's with ``"tp and
+    cards"``; each card test runs in exactly one of them."""
     import torch
     n = torch.cuda.device_count()
     if n < 2:
@@ -2331,13 +2346,17 @@ def mesh_cards_check(select: str = "cards and not fsdp") -> None:
               "multi-rank checks are the -k cards tests, which need two "
               "or more cards)", flush=True)
         return
-    r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-m", "cuda",
-                        "-k", select, "-p", "no:cacheprovider",
+    r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-s", "-m",
+                        "cuda", "-k", select, "-p", "no:cacheprovider",
                         os.path.join(REPO, "tests", "test_torch_cuda.py")],
                        cwd=REPO, capture_output=True, text=True, timeout=900,
                        env=dict(os.environ, PYTHONPATH=os.path.join(
                            REPO, "src")))
-    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    lines = r.stdout.strip().splitlines()
+    for line in lines:
+        if " cards" in line and ("rank" in line or "served" in line):
+            print(f"  {line.strip()}", flush=True)
+    tail = lines[-1] if lines else ""
     print(f"{n} cards: the -k '{select}' tests: {tail}", flush=True)
     check(r.returncode == 0, f"the -k '{select}' tests failed:\n"
           f"{r.stdout[-3000:]}")
@@ -2391,7 +2410,11 @@ def fsdp_train_check(torch, mesh):
     of ``make_train_step`` from blocks placed by ``train_shardings``
     (``shardings=``) against 4 steps of the same step on the whole tree,
     bit for bit at every step (loss, parameters, m, v); each step's wall,
-    the bytes a rank stores and ``WIRE``'s parameter gathers."""
+    the bytes a rank stores and ``WIRE``'s parameter gathers.  The
+    policy's batch axes leave 'model' out, so the steps from blocks take
+    the tensor-parallel path: ``WIRE``'s ``tp_all_reduce`` calls must be
+    the layer plan's (``tp_plan``), which shows that the path ran, and no
+    parameter is gathered."""
     import dataclasses
     from repro_torch.configs.base import SHAPES, get_config
     from repro_torch.distributed import fsdp
@@ -2449,9 +2472,17 @@ def fsdp_train_check(torch, mesh):
               f"blocks; walls from blocks "
               f"{walls['blocks'][-1]:.1f} ms, whole tree "
               f"{walls['whole'][-1]:.1f} ms", flush=True)
+    reduces, gathers = tp_plan(cfg, "train")
+    check(wire.get("tp_all_reduce", 0) == FSDP_STEPS * reduces,
+          f"danube/2 on the tensor-parallel path: {wire.get('tp_all_reduce')}"
+          f" tp_all_reduce calls over {FSDP_STEPS} steps, the plan "
+          f"{FSDP_STEPS * reduces}")
+    check(wire.get("tp_all_gather", 0) == FSDP_STEPS * gathers
+          and wire.get("param_gather_bytes", 0) == 0,
+          f"danube/2 on the tensor-parallel path gathered: {wire}")
     n_params = count_params(cfg)
     gathers = {k: v for k, v in wire.items()
-               if k.startswith(("param_", "grad_")) and v}
+               if k.startswith(("param_", "grad_", "tp_")) and v}
     print(f"h2o-danube-3-4b/2 from blocks ({mesh}, policy batch axes "
           f"{policy.batch_axes}): {FSDP_STEPS} steps bit-identical to the "
           f"whole-tree step; steps 2-{FSDP_STEPS} walls "
@@ -2460,8 +2491,9 @@ def fsdp_train_check(torch, mesh):
           f"Trainer steps add the 8-plane EF pass); a rank stores "
           f"{stored / 1e9:.3f} GB of parameters and AdamW state "
           f"({stored / (12 * n_params):.4f} of the whole {12 * n_params / 1e9:.3f} "
-          f"GB); parameter gathers and gradient reductions on the wire over "
-          f"{FSDP_STEPS} steps: {gathers or 'none (n = 1)'}", flush=True)
+          f"GB); tensor-parallel path: tp_all_reduce {reduces} calls a step, "
+          f"the layer plan's; collectives over {FSDP_STEPS} steps (0 B at "
+          f"n = 1): {gathers}", flush=True)
     del state, out, steps, model
     _free(torch)
 
@@ -2515,18 +2547,110 @@ def fsdp_phase(torch):
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh(1, 1, device="cuda")
     try:
-        t0 = time.perf_counter()
-        fsdp_train_check(torch, mesh)
-        print(f"(a) danube/2 from blocks: {time.perf_counter() - t0:.2f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        fsdp_serve_check(torch, mesh)
-        print(f"(b) qwen2-7b from blocks: {time.perf_counter() - t0:.2f} s",
-              flush=True)
+        for what, fn in (("(a) danube/2 from blocks", fsdp_train_check),
+                         ("(b) qwen2-7b from blocks", fsdp_serve_check)):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fn(torch, mesh)
+            print(f"{what}: {time.perf_counter() - t0:.2f} s, peak device "
+                  f"memory {_peak_gib(torch):.2f} GiB", flush=True)
     finally:
         dist.destroy_process_group()
     _free(torch)
     mesh_cards_check("fsdp and cards")
+
+
+# --------------------------------------------------------------- phase 17 --
+
+def tp_plan(cfg, kind: str):
+    """(``tp_all_reduce``, ``tp_all_gather``) calls of one step of a dense
+    GQA arch whose heads and vocabulary are cut over 'model'
+    (h2o-danube-3-4b), by its layer plan.  A train step under remat: per
+    layer the 2 row-parallel exits (attention, MLP) in the forward, the
+    attention's again in the recompute (``torch.utils.checkpoint`` stops
+    once the last tensor the backward saved is back, before the MLP's
+    exit, whose output nothing saves) and 4 entries summed in the backward
+    (the attention's x, K and V, the MLP's x); outside the stack the
+    embedding's sum, the head's entry, and the loss's maximum, sum of
+    exponentials and target logit.  A serving step (the prefill or a
+    decode step): the 2 exits a layer and the embedding's sum, and the
+    logits gathered once."""
+    if kind == "train":
+        return 7 * cfg.n_layers + 5, 0
+    return 2 * cfg.n_layers + 1, 1
+
+
+def _peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def tp_serve_check(torch, mesh):
+    """h2o-danube-3-4b at its published widths and all 24 layers (bf16
+    weights held) served from ``param_shardings(drop_fsdp=True)`` blocks on
+    the tensor-parallel path: batch 4, prompt 256, 16 new tokens; greedy
+    tokens equal and logits bit-identical to the plain decode of the whole
+    tree, ``WIRE``'s tp counts the layer plan's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.driver import build_inputs
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import param_shardings
+    cfg = get_config("h2o-danube-3-4b")
+    held = Model(cfg, device="cuda", seed=0).compute_params()
+    _free(torch)
+    model = Model(cfg, held, device="cuda")
+    named = param_shardings(model, mesh, drop_fsdp=True)
+    blocks = shd.shard_tree(held, named)
+    prompts, _ = build_inputs(cfg, SEQ_BATCH, SEQ_PROMPT, device="cuda")
+    max_len = SEQ_PROMPT + SEQ_NEW
+    plain = _decode(torch, model, held, prompts, SEQ_NEW, max_len)
+    shd.WIRE.reset()
+    with shd.use_mesh(mesh):
+        got = _decode(torch, model, blocks, prompts, SEQ_NEW, max_len,
+                      shardings=named)
+    wire = _wire(shd)
+    check(torch.equal(got[0], plain[0]), "danube served on the "
+          "tensor-parallel path: greedy tokens differ from the plain decode's")
+    check(torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32)),
+          f"danube served on the tensor-parallel path: logits are not the "
+          f"plain decode's bits (max relative difference "
+          f"{_rel(torch, plain[1], got[1])})")
+    reduces, gathers = tp_plan(cfg, "serve")
+    check(wire.get("tp_all_reduce", 0) == SEQ_NEW * reduces
+          and wire.get("tp_all_gather", 0) == SEQ_NEW * gathers
+          and not wire.get("param_gather_bytes", 0),
+          f"danube served on the tensor-parallel path: WIRE {wire}, the plan "
+          f"{SEQ_NEW} x ({reduces}, {gathers})")
+    print(f"h2o-danube-3-4b (24 layers) served from blocks ({mesh}, "
+          f"param_shardings(drop_fsdp=True)), tensor-parallel: batch "
+          f"{SEQ_BATCH}, prompt {SEQ_PROMPT}, {SEQ_NEW} new tokens: greedy "
+          f"tokens equal, logits bit-identical to the plain decode; "
+          f"{got[3]:.2f} ms/token (plain {plain[3]:.2f}), prefill "
+          f"{got[2]:.3f} s (plain {plain[2]:.3f}); a rank stores "
+          f"{fsdp.stored_bytes(blocks) / 1e9:.3f} GB of weights; WIRE over "
+          f"the prefill and {SEQ_NEW - 1} decode steps {wire}", flush=True)
+    del model, held, blocks, plain, got
+    _free(torch)
+
+
+def tp_phase(torch):
+    """Phase 17: tensor-parallel compute over 'model' in a NCCL world of one
+    rank on a (1, 1) mesh; then, with more cards, the ``tp`` card tests."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, device="cuda")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tp_serve_check(torch, mesh)
+        print(f"danube served tensor-parallel: "
+              f"{time.perf_counter() - t0:.2f} s, peak device memory "
+              f"{_peak_gib(torch):.2f} GiB", flush=True)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    mesh_cards_check("tp and cards")
 
 
 def main(argv) -> int:
@@ -2650,6 +2774,11 @@ def main(argv) -> int:
                "mesh; more cards: the fsdp card tests)")
     fsdp_phase(torch)
     done(t0, "phase 16")
+
+    t0 = phase("17 tensor-parallel compute over 'model' (NCCL, a (1, 1) "
+               "mesh; more cards: the tp card tests)")
+    tp_phase(torch)
+    done(t0, "phase 17")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

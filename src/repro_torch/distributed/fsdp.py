@@ -11,8 +11,7 @@ wraps, so that under ``cfg.remat`` no gathered weight outlives its repeat
 layers save of the gathered weights (a matmul's operand) until the
 backward: the storage is sharded between steps and inside the repeat, not
 across the forward.  This is ZeRO-3 / FSDP over every axis that a spec
-names; the ranks along an axis that does not cut the batch repeat each
-other's compute on the gathered weights (no tensor-parallel compute).
+names, but 'model' where the layer computes on its block (below).
 
 The gradient comes back as the rank's block.  A rank's gradient is the
 gradient of its own loss (as in ``sharding``'s differentiable
@@ -20,11 +19,19 @@ collectives), so each mesh axis reduces the whole gradient by where it
 stands (``B``: the batch axes, ``policy.batch_axes``):
 
 =====  ============  =========  ==========================================
-axis   in the spec   in ``B``   backward over this axis
+axis   in the spec   in ``B``   forward and backward over this axis
 =====  ============  =========  ==========================================
-a      yes           yes        reduce-scatter (sum)
-b      yes           no         the rank's own block, no sum: its ranks
-                                computed the same loss on the same tokens
+a      yes           yes        gather; reduce-scatter (sum)
+b      yes           no         gather; the rank's own block, no sum: its
+                                ranks computed the same loss on the same
+                                tokens.  The ranks repeat each other's
+                                compute: Mamba's leaves (and RWKV's
+                                time mix, should a config cut it)
+b'     yes ('model') no         no gather: the layer computes on the block
+                                (``distributed/tp.py``), which gets its
+                                whole gradient there, no sum; the caller
+                                passes the spec without 'model'
+                                (``drop_axes``, ``tp.compute_named``)
 c      no            yes        all-reduce (sum), as the whole-tree step
 =====  ============  =========  ==========================================
 
@@ -42,6 +49,13 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.distributed import sharding as shd
+
+
+def drop_axes(spec: shd.Spec, keep: Sequence[str]) -> shd.Spec:
+    """``spec`` without the axes ``keep``: the spec of a block that stays
+    cut over them."""
+    return tuple(shd.entry(a for a in shd._dim_axes(e) if a not in keep)
+                 for e in spec)
 
 
 def reduce_to_block(g: torch.Tensor, spec: shd.Spec, mesh: shd.Mesh,
@@ -94,9 +108,10 @@ class _GatherParam(torch.autograd.Function):
 def gather_param(block: torch.Tensor, named: Optional[shd.Named]
                  ) -> torch.Tensor:
     """The whole leaf from this rank's ``block`` of it (``named``: its
-    ``sharding.Named``; ``None``: ``block`` is whole already).  Under
-    autograd the backward hands the block its gradient by the table above,
-    with the batch axes current at the forward."""
+    ``sharding.Named``; ``None``: ``block`` is whole already); a spec
+    without the axes the leaf is computed on leaves it cut over them (case
+    b').  Under autograd the backward hands the block its gradient by the
+    table above, with the batch axes current at the forward."""
     if named is None:
         return block
     if not (torch.is_grad_enabled() and block.requires_grad):
@@ -108,7 +123,8 @@ def gather_param(block: torch.Tensor, named: Optional[shd.Named]
 
 def gather_params(tree, named):
     """:func:`gather_param` over a tree of blocks and its tree of
-    ``Named`` (``None``: the tree is whole)."""
+    ``Named`` (``None``: the tree is whole; a leaf's spec without the axes
+    it is computed on: ``tp.compute_named``)."""
     if named is None:
         return tree
     return shd.map_named(gather_param, tree, named)

@@ -25,13 +25,19 @@ order (``dist.new_group`` is itself a collective).
 
 ``WIRE`` counts the collectives launched and the bytes each puts on the
 wire, by kind, with the ring model of ``repro.launch.hlo_analysis`` (a
-mesh axis of one rank launches one and moves nothing): an all-gather moves
+mesh axis of one rank counts one and moves nothing: an all-reduce or an
+all-gather over it returns the tensor itself, with no copy and no call to
+the backend): an all-gather moves
 ``out x (n-1)/n``, an all-reduce ``2 x out x (n-1)/n`` and a
 reduce-scatter ``out x (n-1)`` (``out``: the bytes of one rank's output).
 The collectives of sharded parameter storage (``distributed/fsdp.py``)
 count under kinds of their own: ``param_gather`` (a block gathered whole),
 ``grad_reduce_scatter`` and ``grad_all_reduce`` (a whole gradient reduced
-to the block), so that every byte is counted once, under one kind.
+to the block), and so do those of tensor-parallel compute over 'model'
+(``distributed/tp.py``): ``tp_all_reduce`` (the forward of ``reduce_from``,
+the backward of ``copy_to``, the vocabulary's max and sums) and
+``tp_all_gather`` (logits and the seq-sharded decode's queries gathered
+whole), so that every byte is counted once, under one kind.
 
 :func:`shard_tree` and :func:`gather_tree` are the counterparts of
 ``jax.device_put(tree, shardings)`` and of reading such a tree back whole.
@@ -69,6 +75,10 @@ class WireCounters(StatCounters):
     grad_reduce_scatter_bytes: int = 0
     grad_all_reduce: int = 0
     grad_all_reduce_bytes: int = 0
+    tp_all_reduce: int = 0
+    tp_all_reduce_bytes: int = 0
+    tp_all_gather: int = 0
+    tp_all_gather_bytes: int = 0
 
 
 WIRE = WireCounters()
@@ -291,14 +301,26 @@ def _count(kind: str, nbytes: int) -> None:
     WIRE.add(**{kind: 1, f"{kind}_bytes": nbytes})
 
 
+def _alone(mesh: Mesh, axes: Axes, kind: str) -> bool:
+    """Whether ``axes`` hold one rank, so that a collective over them is
+    ``x`` itself: no copy and no call to the backend, but counted (0
+    bytes) when the mesh names them, so that ``WIRE`` shows the path."""
+    if mesh.size(axes) > 1:
+        return False
+    if mesh.axes(axes):
+        _count(kind, 0)
+    return True
+
+
 def _all_reduce(x: torch.Tensor, axes: Axes, op, mesh: Optional[Mesh],
                 kind: str = "all_reduce") -> torch.Tensor:
     mesh = _mesh(mesh)
+    if _alone(mesh, axes, kind):
+        return x
     n = mesh.size(axes)
     out = x.contiguous().clone()
-    if mesh.axes(axes):
-        dist.all_reduce(out, op=op, group=mesh.group(axes))
-        _count(kind, 2 * _nbytes(out) * (n - 1) // n)
+    dist.all_reduce(out, op=op, group=mesh.group(axes))
+    _count(kind, 2 * _nbytes(out) * (n - 1) // n)
     return out
 
 
@@ -309,10 +331,10 @@ def psum(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
     return _all_reduce(x, axes, dist.ReduceOp.SUM, mesh, kind)
 
 
-def pmax(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
-         ) -> torch.Tensor:
+def pmax(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
+         kind: str = "all_reduce") -> torch.Tensor:
     """The elementwise maximum of ``x`` over the ranks of ``axes``."""
-    return _all_reduce(x, axes, dist.ReduceOp.MAX, mesh)
+    return _all_reduce(x, axes, dist.ReduceOp.MAX, mesh, kind)
 
 
 def psum_scatter(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
@@ -339,10 +361,10 @@ def all_gather(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
     """Every rank's ``x`` over ``axes``, stacked: (n, *x.shape), row i from
     the rank at index i (``jax.lax.all_gather``, ``tiled=False``)."""
     mesh = _mesh(mesh)
+    if _alone(mesh, axes, kind):
+        return x[None]
     n = mesh.size(axes)
     x = x.contiguous()
-    if not mesh.axes(axes):
-        return x[None].clone()
     out = x.new_empty((n,) + tuple(x.shape))
     _all_gather(out.view(-1), x.view(-1), group=mesh.group(axes))
     _count(kind, _nbytes(out) * (n - 1) // n)
@@ -460,23 +482,23 @@ def gather_tree(blocks, named):
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes, mesh):
-        return psum(x, axes, mesh)
+    def forward(ctx, x, axes, mesh, kind):
+        return psum(x, axes, mesh, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _Copy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes, mesh):
-        ctx.axes, ctx.mesh = axes, mesh
+    def forward(ctx, x, axes, mesh, kind):
+        ctx.axes, ctx.mesh, ctx.kind = axes, mesh, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return psum(g, ctx.axes, ctx.mesh), None, None
+        return psum(g, ctx.axes, ctx.mesh, ctx.kind), None, None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -524,16 +546,45 @@ class _GatherGrad(torch.autograd.Function):
                 .reshape((-1,) + tuple(g.shape[1:])), None, None)
 
 
-def reduce_from(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
-                ) -> torch.Tensor:
+class _GatherDim(torch.autograd.Function):
+    """Every rank's ``x`` over ``axes`` concatenated along ``dim``; the
+    backward takes this rank's block of the cotangent, which every rank of
+    ``axes`` holds whole (they compute one loss)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim, kind):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        g = all_gather(x, axes, mesh, kind)                  # (n, ...)
+        return g.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.size(ctx.axes)
+        size = g.shape[ctx.dim] // n
+        return (g.narrow(ctx.dim, ctx.mesh.index(ctx.axes) * size, size),
+                None, None, None, None)
+
+
+def reduce_from(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
+                kind: str = "all_reduce") -> torch.Tensor:
     """psum forward, identity backward (Megatron's "g")."""
-    return _Reduce.apply(x, axes, _mesh(mesh))
+    return _Reduce.apply(x, axes, _mesh(mesh), kind)
 
 
-def copy_to(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
-            ) -> torch.Tensor:
+def copy_to(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
+            kind: str = "all_reduce") -> torch.Tensor:
     """Identity forward, psum backward (Megatron's "f")."""
-    return _Copy.apply(x, axes, _mesh(mesh))
+    return _Copy.apply(x, axes, _mesh(mesh), kind)
+
+
+def gather_from(x: torch.Tensor, axes: Axes, dim: int,
+                mesh: Optional[Mesh] = None, kind: str = "all_gather"
+                ) -> torch.Tensor:
+    """Every rank's ``x`` over ``axes`` concatenated along ``dim`` (all
+    ranks of ``axes`` computing one loss); the backward keeps the rank's
+    block of the gradient."""
+    dim = dim % x.dim()
+    return _GatherDim.apply(x, axes, _mesh(mesh), dim, kind)
 
 
 def gather_to(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None

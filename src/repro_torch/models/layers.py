@@ -19,6 +19,16 @@ and overwrite the last slot).  The seq-sharded flash decode
 each rank of the current mesh over its shard of the cache's L axis, cut
 over 'model', and combines the shards' partial softmaxes with one
 ``pmax`` and two ``psum``s over 'model'.
+
+Given ``tp`` (``distributed.tp.context``: a step on blocks where 'model'
+does not cut the batch), the layers compute on this rank's blocks of the
+leaves the reference's specs cut over 'model', as GSPMD does: GQA's query
+heads and MLA's up-projections column-parallel and their output heads
+row-parallel, the MLP's ``w1``/``w3`` column- and ``w2`` row-parallel.
+GQA's ``wk``/``wv`` are whole (the reference's spec); each rank computes
+every kv head, so that the cache holds them all alike on every rank, and
+reads those of its q heads through ``tp.enter``, which sums their
+gradients over 'model'.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MLAConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tp as TP
 from repro_torch.models.params import DTYPES, PSpec
 
 
@@ -273,9 +284,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 # ----------------------------------------------------------- GQA attention --
 
+def heads_cut(cfg: ModelConfig) -> bool:
+    """Whether GQA's query and output heads are cut over 'model'; uneven
+    head counts stay local."""
+    return cfg.n_heads % 16 == 0
+
+
 def gqa_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    tp_heads = "tp" if h % 16 == 0 else None  # uneven head counts stay local
+    tp_heads = "tp" if heads_cut(cfg) else None
     p: Dict[str, PSpec] = {
         "wq": PSpec((d, h, dh), ("fsdp", tp_heads, None)),
         "wk": PSpec((d, hkv, dh), ("fsdp", None, None)),
@@ -298,13 +315,17 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, *, cache: Optional[Dict] = None,
               cache_index: Optional[int] = None,
               kv_override: Optional[Tuple[torch.Tensor]] = None,
-              causal: bool = True) -> Tuple[torch.Tensor, Optional[Dict]]:
+              causal: bool = True, tp=None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.  With ``cache``, runs single-token decode at
     ``cache_index`` and returns the cache, updated in place.
     ``kv_override`` supplies external K/V source states (cross-attention).
+    ``tp``: ``wq``/``bq``/``wo`` are this rank's blocks of heads where
+    ``heads_cut``.
     """
     cdt = compute_dtype(cfg)
-    q = einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+    tp = tp if heads_cut(cfg) else None
+    q = einsum("bsd,dhk->bshk", TP.enter(x, tp), p["wq"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
     src = x if kv_override is None else kv_override[0]
@@ -316,6 +337,14 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig,
     if kv_override is None:  # self-attention: rope
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    n_q = q.shape[2]
+    if tp is not None:
+        lo = TP.lo(tp, n_q)
+        kvs = TP.kv_heads(lo, n_q, cfg.n_heads // cfg.n_kv_heads)
+
+    def own(t):
+        """The kv heads of this rank's q heads."""
+        return t if tp is None else t[:, :, kvs]
 
     if cache is not None:
         L = cache["k"].shape[1]
@@ -325,13 +354,18 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig,
             k, ks_new = kv_quantize(k)
             v, vs_new = kv_quantize(v)
         if cfg.seq_shard_decode and not rolling:
+            # the reference's flash decode takes every q head: gather them,
+            # then keep this rank's outputs
+            q_all = TP.gather(q, 2, tp)
             if int8_cache:
                 out = seqshard_decode_gqa_int8(
-                    q, cache["k"], cache["v"], cache["ks"], cache["vs"],
+                    q_all, cache["k"], cache["v"], cache["ks"], cache["vs"],
                     k, v, ks_new, vs_new, cache_index)[0]
             else:
-                out = seqshard_decode_gqa(q, cache["k"], cache["v"], k, v,
-                                          cache_index)[0]
+                out = seqshard_decode_gqa(q_all, cache["k"], cache["v"], k,
+                                          v, cache_index)[0]
+            if tp is not None:
+                out = out[:, :, lo:lo + n_q]
         else:
             # rolling window cache: slot = index mod window; every resident
             # entry is in-window by construction (keys carry absolute RoPE,
@@ -344,19 +378,20 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig,
             if int8_cache:
                 cache["ks"][:, slot] = ks_new[:, 0]
                 cache["vs"][:, slot] = vs_new[:, 0]
-                scales = (cache["ks"], cache["vs"])
+                scales = (own(cache["ks"]), own(cache["vs"]))
             if rolling:
-                out = decode_attention(q, cache["k"], cache["v"],
+                out = decode_attention(q, own(cache["k"]), own(cache["v"]),
                                        min(cache_index + 1, L), window=0,
                                        kv_scales=scales)
             else:
-                out = decode_attention(q, cache["k"], cache["v"],
+                out = decode_attention(q, own(cache["k"]), own(cache["v"]),
                                        cache_index + 1,
                                        window=cfg.attn_window,
                                        kv_scales=scales)
         new_cache = cache
     else:
-        out = flash_attention(q, k, v, causal=causal and kv_override is None,
+        out = flash_attention(q, own(TP.enter(k, tp)), own(TP.enter(v, tp)),
+                              causal=causal and kv_override is None,
                               window=cfg.attn_window)
         if cfg.kv_cache_int8_scale:  # prefill fills an int8 cache
             kq, kss = kv_quantize(k)
@@ -365,7 +400,7 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig,
         else:
             new_cache = {"k": k, "v": v}  # prefill: return built cache
     y = einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
-    return y, new_cache
+    return TP.leave(y, tp), new_cache
 
 
 # --------------------------------------------------------------------- MLA --
@@ -389,21 +424,24 @@ def mla_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
 
 def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
               *, cache: Optional[Dict] = None,
-              cache_index: Optional[int] = None
+              cache_index: Optional[int] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Multi-head Latent Attention.
 
     Prefill/train: expanded form (per-head K/V made from the latent).
     Decode: absorbed form -- the cache stores only (c_kv, k_rope), and the
     queries are projected into the latent space, so decode is MQA with one
-    (kv_lora + rope)-dim KV head."""
+    (kv_lora + rope)-dim KV head.  ``tp``: ``w_uq``/``w_uk``/``w_uv``/``wo``
+    are this rank's blocks of heads; the latents, computed whole, enter
+    through ``tp.enter`` after their norms."""
     m: MLAConfig = cfg.mla
     cdt = compute_dtype(cfg)
     b, s, _ = x.shape
-    h, qk, qr = cfg.n_heads, m.qk_nope_dim, m.qk_rope_dim
+    qk, qr = m.qk_nope_dim, m.qk_rope_dim
 
     cq = rmsnorm(einsum("bsd,dr->bsr", x, p["w_dq"].to(cdt)), p["q_norm"])
-    q = einsum("bsr,rhk->bshk", cq, p["w_uq"].to(cdt))
+    q = einsum("bsr,rhk->bshk", TP.enter(cq, tp), p["w_uq"].to(cdt))
+    h = q.shape[2]                          # this rank's heads under ``tp``
     q_nope, q_rope = q[..., :qk], q[..., qk:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -417,6 +455,7 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
         q_lat = einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(cdt))
         q_abs = torch.cat([q_lat, q_rope], dim=-1)             # (B,1,H,r+qr)
         if cfg.seq_shard_decode:
+            q_abs = TP.gather(q_abs, 2, tp)
             # MQA with one (r + qr)-dim KV head over the cache's L shard;
             # ``v_full`` is a view of ``ckv``, so its update is the cache's
             L_local = cache["ckv"].shape[1]
@@ -429,6 +468,8 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
             o_lat = seqshard_decode_gqa(q_abs, k_full, v_full, k_new,
                                         c_kv[:, :, None], cache_index,
                                         scale=scale)[0]
+            if tp is not None:
+                o_lat = o_lat.narrow(2, TP.lo(tp, h), h)
         else:
             _check_index(cache_index, cache["ckv"].shape[1])
             cache["ckv"][:, cache_index] = c_kv[:, 0]
@@ -441,14 +482,16 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
         out = einsum("bshr,rhv->bshv", o_lat.to(cdt), p["w_uv"].to(cdt))
         new_cache = cache
     else:
-        k_nope = einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(cdt))
-        v = einsum("bsr,rhv->bshv", c_kv, p["w_uv"].to(cdt))
-        k = torch.cat([k_nope, k_rope.expand(b, s, h, qr)], dim=-1)
+        c_in = TP.enter(c_kv, tp)
+        k_nope = einsum("bsr,rhk->bshk", c_in, p["w_uk"].to(cdt))
+        v = einsum("bsr,rhv->bshv", c_in, p["w_uv"].to(cdt))
+        k = torch.cat([k_nope, TP.enter(k_rope, tp).expand(b, s, h, qr)],
+                      dim=-1)
         qfull = torch.cat([q_nope, q_rope], dim=-1)
         out = flash_attention(qfull, k, v, causal=True)
         new_cache = {"ckv": c_kv, "kr": k_rope[:, :, 0, :]}
     y = einsum("bshv,hvd->bsd", out, p["wo"].to(cdt))
-    return y, new_cache
+    return TP.leave(y, tp), new_cache
 
 
 # --------------------------------------------------------------------- MLP --
@@ -463,11 +506,15 @@ def mlp_abstract(cfg: ModelConfig, d_ff: Optional[int] = None
     }
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig, tp=None
+              ) -> torch.Tensor:
+    """The gated MLP; ``tp``: ``w1``/``w3`` column- and ``w2`` row-parallel
+    blocks of the hidden width."""
     cdt = compute_dtype(cfg)
+    x = TP.enter(x, tp)
     g = einsum("bsd,df->bsf", x, p["w1"].to(cdt))
     u = einsum("bsd,df->bsf", x, p["w3"].to(cdt))
-    return einsum("bsf,fd->bsd", silu(g) * u, p["w2"].to(cdt))
+    return TP.leave(einsum("bsf,fd->bsd", silu(g) * u, p["w2"].to(cdt)), tp)
 
 
 # ------------------------------------------------------- int8 KV cache -----

@@ -18,6 +18,13 @@ leaf, when the tree holds each rank's blocks (``sharding.shard_tree``):
 the stack gathers one repeat at a time (``transformer.stack_apply``), and
 ``embed``, ``final_norm``, ``head`` and ``mtp`` are gathered where they are
 read; a tied (or MTP-read) embedding is gathered once for all its uses.
+Where 'model' does not cut the batch (``distributed.tp.context``) and the
+specs cut the vocabulary over it, the embedding and the head stay this
+rank's blocks of the vocabulary: the embedding looks up the rank's tokens
+and sums over 'model', the head gives the rank's block of the logits, the
+loss is a vocabulary-parallel cross-entropy (``tp.vocab_logsumexp``,
+``tp.vocab_gold``), and ``forward``, ``prefill`` and ``decode_step``
+return the logits gathered whole.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import fsdp
+from repro_torch.distributed import tp as TP
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype, einsum, norm
 from repro_torch.models.params import (PSpec, tree_init, tree_map,
@@ -153,59 +161,80 @@ class Model(nn.Module):
     def _tree(self, params):
         return self.params if params is None else params
 
-    def _shared(self, params, shardings, mtp: bool = False):
+    def _vocab_tp(self, shardings):
+        """``tp.context(shardings)`` where the specs cut the vocabulary
+        over 'model', else ``None``."""
+        tp = TP.context(shardings)
+        key = "embed" if self.cfg.tie_embeddings else "head"
+        return tp if tp is not None and TP.cuts(shardings[key]) else None
+
+    def _shared(self, params, shardings, vt, mtp: bool = False):
         """``params`` and ``shardings`` with the embedding gathered once
-        when more than one site reads it (tied to the head, or read again
-        by the MTP loss)."""
+        (over every axis but the vocabulary's 'model' under ``vt``) when
+        more than one site reads it (tied to the head, or read again by
+        the MTP loss)."""
         if shardings is None or "embed" not in params or not (
                 self.cfg.tie_embeddings or mtp):
             return params, shardings
-        return (dict(params, embed=fsdp.gather_param(params["embed"],
-                                                     shardings["embed"])),
+        return (dict(params, embed=self._read(params, shardings, "embed",
+                                              vt)),
                 dict(shardings, embed=None))
 
     @staticmethod
     def _sub(shardings, key):
         return None if shardings is None else shardings[key]
 
-    def _read(self, params, shardings, key):
-        """Leaf ``key`` whole (gathered from its block under
-        ``shardings``)."""
-        return fsdp.gather_param(params[key], self._sub(shardings, key))
+    def _read(self, params, shardings, key, vt=None):
+        """Leaf ``key`` gathered from its block under ``shardings``: whole,
+        or this rank's block of the vocabulary under ``vt``."""
+        return fsdp.gather_param(params[key], TP.compute_named(
+            self._sub(shardings, key), vt))
 
     # ------------------------------------------------------------- forward --
-    def _embed(self, params, tokens=None, embeds=None, shardings=None
-               ) -> torch.Tensor:
+    def _embed(self, params, tokens=None, embeds=None, shardings=None,
+               vt=None) -> torch.Tensor:
         cdt = compute_dtype(self.cfg)
         if embeds is not None:
             return embeds.to(cdt)
+        table = self._read(params, shardings, "embed", vt)
+        if vt is not None:
+            return TP.vocab_embed(table, tokens, vt, cdt)
         # gather, then cast: the bits of casting the table first
-        return self._read(params, shardings, "embed")[tokens].to(cdt)
+        return table[tokens].to(cdt)
 
-    def _head_weight(self, params, shardings=None) -> torch.Tensor:
+    def _head_weight(self, params, shardings=None, vt=None) -> torch.Tensor:
         cdt = compute_dtype(self.cfg)
         if self.cfg.tie_embeddings:
-            return self._read(params, shardings, "embed").to(cdt).T
-        return self._read(params, shardings, "head").to(cdt)
+            return self._read(params, shardings, "embed", vt).to(cdt).T
+        return self._read(params, shardings, "head", vt).to(cdt)
 
-    def _head(self, params, x: torch.Tensor, shardings=None) -> torch.Tensor:
+    def _logits(self, params, x, shardings, vt, whole: bool
+                ) -> torch.Tensor:
+        """float32 logits of ``x`` by the head: this rank's block of the
+        vocabulary under ``vt``, gathered whole with ``whole``."""
+        logits = einsum("bsd,dv->bsv", TP.enter(x, vt),
+                        self._head_weight(params, shardings, vt)).float()
+        return TP.gather(logits, -1, vt) if whole else logits
+
+    def _head(self, params, x: torch.Tensor, shardings=None, vt=None,
+              whole: bool = True) -> torch.Tensor:
         x = norm(x, self._read(params, shardings, "final_norm"), self.cfg.norm)
-        return einsum("bsd,dv->bsv", x,
-                      self._head_weight(params, shardings)).float()
+        return self._logits(params, x, shardings, vt, whole)
 
     def forward(self, params=None, tokens=None, embeds=None,
                 vision_states=None, positions=None, shardings=None
                 ) -> torch.Tensor:
         """Full-sequence forward -> float32 logits (B,S,V)."""
-        params, shardings = self._shared(self._tree(params), shardings)
-        x = self._embed(params, tokens, embeds, shardings)
+        vt = self._vocab_tp(shardings)
+        params, shardings = self._shared(self._tree(params), shardings, vt)
+        x = self._embed(params, tokens, embeds, shardings, vt)
         b, s, _ = x.shape
         if positions is None:
             positions = _positions(b, s, x.device)
         x, _, _ = T.stack_apply(params["blocks"], x, self.cfg, positions,
                                 vision_states=vision_states,
                                 shardings=self._sub(shardings, "blocks"))
-        return self._head(params, x, shardings)
+        return self._head(params, x, shardings, vt)
 
     # ---------------------------------------------------------------- loss --
     def loss(self, params, batch: Dict[str, torch.Tensor], shardings=None
@@ -215,54 +244,59 @@ class Model(nn.Module):
         ``value_and_grad`` takes its gradient)."""
         cfg = self.cfg
         mtp = bool(cfg.mtp_depth and "tokens" in batch)
-        params, shardings = self._shared(self._tree(params), shardings, mtp)
+        vt = self._vocab_tp(shardings)
+        params, shardings = self._shared(self._tree(params), shardings, vt,
+                                         mtp)
         x = self._embed(params, batch.get("tokens"), batch.get("embeds"),
-                        shardings)
+                        shardings, vt)
         b, s, _ = x.shape
         positions = _positions(b, s, x.device)
         h, _, aux = T.stack_apply(params["blocks"], x, cfg, positions,
                                   vision_states=batch.get("vision_states"),
                                   shardings=self._sub(shardings, "blocks"))
-        logits = self._head(params, h, shardings)
-        loss = _xent(logits, batch["labels"]) + aux
+        logits = self._head(params, h, shardings, vt, whole=False)
+        loss = _xent(logits, batch["labels"], vt) + aux
         if mtp:
             loss = loss + 0.1 * self._mtp_loss(params, h, batch, positions,
-                                               shardings)
+                                               shardings, vt)
         return loss
 
-    def _mtp_loss(self, params, h, batch, positions, shardings=None
-                  ) -> torch.Tensor:
+    def _mtp_loss(self, params, h, batch, positions, shardings=None,
+                  vt=None) -> torch.Tensor:
         """DeepSeek-V3 multi-token prediction: one extra depth, predicts t+2."""
         cfg = self.cfg
         cdt = compute_dtype(cfg)
-        mtp = fsdp.gather_params(params["mtp"], self._sub(shardings, "mtp"))
+        tp = TP.context(shardings)
+        mtp = fsdp.gather_params(params["mtp"], TP.compute_named(
+            self._sub(shardings, "mtp"), tp))
         tokens, labels = batch["tokens"], batch["labels"]
         # combine hidden state at t with embedding of token t+1
         nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-        z = torch.cat([h, self._read(params, shardings, "embed")[nxt].to(cdt)],
-                      dim=-1)
+        z = torch.cat([h, self._embed(params, nxt, shardings=shardings,
+                                      vt=vt)], dim=-1)
         z = einsum("bsd,dk->bsk", z, mtp["proj"].to(cdt))
-        z, _, _ = T.block_apply(mtp["block"], z, cfg, "attn", positions)
+        z, _, _ = T.block_apply(mtp["block"], z, cfg, "attn", positions,
+                                tp=tp)
         z = norm(z, mtp["norm"], cfg.norm)
-        logits2 = einsum("bsd,dv->bsv", z,
-                         self._head_weight(params, shardings)).float()
+        logits2 = self._logits(params, z, shardings, vt, whole=False)
         lab2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
-        return _xent(logits2, lab2)
+        return _xent(logits2, lab2, vt)
 
     # -------------------------------------------------------------- serving --
     def prefill(self, params=None, tokens=None, embeds=None,
                 vision_states=None, max_len: Optional[int] = None,
                 shardings=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Run the prompt; returns (last-position logits, decode cache)."""
-        params, shardings = self._shared(self._tree(params), shardings)
-        x = self._embed(params, tokens, embeds, shardings)
+        vt = self._vocab_tp(shardings)
+        params, shardings = self._shared(self._tree(params), shardings, vt)
+        x = self._embed(params, tokens, embeds, shardings, vt)
         b, s, _ = x.shape
         h, caches, _ = T.stack_apply(params["blocks"], x, self.cfg,
                                      _positions(b, s, x.device),
                                      vision_states=vision_states,
                                      build_caches=True,
                                      shardings=self._sub(shardings, "blocks"))
-        logits = self._head(params, h[:, -1:, :], shardings)
+        logits = self._head(params, h[:, -1:, :], shardings, vt)
         if max_len is not None and max_len > s:
             caches = _pad_caches(caches, max_len, seq_axis=2)
         return logits, caches
@@ -276,9 +310,10 @@ class Model(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One-token decode: tokens (B,1) at position ``index``.  The cache
         is updated in place and returned."""
-        params, shardings = self._shared(self._tree(params), shardings)
+        vt = self._vocab_tp(shardings)
+        params, shardings = self._shared(self._tree(params), shardings, vt)
         index = int(index)
-        x = self._embed(params, tokens, shardings=shardings)
+        x = self._embed(params, tokens, shardings=shardings, vt=vt)
         b = x.shape[0]
         positions = torch.full((b, 1), index, dtype=torch.int32,
                                device=x.device)
@@ -288,12 +323,19 @@ class Model(nn.Module):
                                         vision_states=vision_states,
                                         shardings=self._sub(shardings,
                                                             "blocks"))
-        return self._head(params, h, shardings), new_cache
+        return self._head(params, h, shardings, vt), new_cache
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+def _xent(logits: torch.Tensor, labels: torch.Tensor, vt=None
+          ) -> torch.Tensor:
+    """Mean cross-entropy; under ``vt`` ``logits`` is this rank's block of
+    the vocabulary."""
+    if vt is not None:
+        lse = TP.vocab_logsumexp(logits, vt)
+        gold = TP.vocab_gold(logits, labels, vt)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(lse - gold)
 
 

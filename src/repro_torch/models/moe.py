@@ -18,6 +18,14 @@ C_l, D) buffer for the tokens of its data-parallel shard, with the capacity
 the combine is one model-axis psum (``reduce_from``, or ``scatter_from``
 when the model axis also cuts the batch).
 
+Given ``tp`` (``distributed.tp.context``: a step on blocks where 'model'
+does not cut the batch), ``p``'s experts are this rank's block of them, as
+stored: the capacity dispatch computes those experts' rows of the (E, C,
+D) buffer from the routing that every rank computes alike, entering the
+tokens and the routing weights through ``tp.enter``, and the combine
+leaves through ``tp.leave``; the ``shard_map`` dispatch takes the block
+as it is instead of cutting a gathered whole leaf.
+
 Ties: ``jax.lax.top_k`` puts the lower expert index first among equal
 probabilities and ``_rank_in_expert`` ranks with a stable sort, so both are
 stable sorts here and capacity drops fall on the reference's tokens.  The
@@ -35,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tp as TP
 from repro_torch.models.layers import (compute_dtype, einsum, mlp_abstract,
                                        mlp_apply, silu)
 from repro_torch.models.params import PSpec
@@ -104,16 +113,16 @@ def _expert_ffn(buf, p, cdt):
     return einsum("ecf,efd->ecd", silu(g) * u, p["w2"].to(cdt))
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D), this rank's shard of the batch under a mesh -> (out,
-    aux_loss)."""
+    aux_loss); ``tp``: the experts are this rank's block."""
     m: MoEConfig = cfg.moe
     mesh = shd.get_current_mesh()
-    tp = mesh.shape.get("model", 1) if mesh is not None else 1
-    if m.dispatch == "shard_map" and tp > 1 and m.n_experts % tp == 0:
-        return _moe_apply_shard_map(p, x, cfg, mesh, tp)
-    return _moe_apply_gspmd(p, x, cfg)
+    n = mesh.shape.get("model", 1) if mesh is not None else 1
+    if m.dispatch == "shard_map" and n > 1 and m.n_experts % n == 0:
+        return _moe_apply_shard_map(p, x, cfg, mesh, n, tp)
+    return _moe_apply_gspmd(p, x, cfg, tp)
 
 
 def _global_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -164,29 +173,34 @@ def _dispatch(xs, top_w, top_e, w, cfg: ModelConfig, cap: int, lo: int,
     return out
 
 
-def _moe_apply_gspmd(p, x: torch.Tensor, cfg: ModelConfig):
+def _moe_apply_gspmd(p, x: torch.Tensor, cfg: ModelConfig, tp=None):
     """The capacity dispatch over the global batch (the reference's path
-    without a shard_map dispatch)."""
+    without a shard_map dispatch); under ``tp`` each rank's experts."""
     m: MoEConfig = cfg.moe
     b, s, d = x.shape
     xs, lo = _global_tokens(x)
     top_w, top_e, aux = _routing(p, xs, m)
-    out = _dispatch(xs, top_w, top_e, p, cfg, _capacity(xs.shape[0], m), 0,
-                    m.n_experts).narrow(0, lo, b * s)
+    e_local = p["w1"].shape[0]
+    e_lo = 0 if tp is None else TP.lo(tp, e_local)
+    out = _dispatch(TP.enter(xs, tp), TP.enter(top_w, tp), top_e, p, cfg,
+                    _capacity(xs.shape[0], m), e_lo, e_local
+                    ).narrow(0, lo, b * s)
+    out = TP.leave(out, tp)
     if m.n_shared:
-        out = out + mlp_apply(p["shared"], x, cfg).reshape(b * s, d)
+        out = out + mlp_apply(p["shared"], x, cfg, tp).reshape(b * s, d)
     return out.reshape(b, s, d), aux
 
 
 def _moe_apply_shard_map(p, x: torch.Tensor, cfg: ModelConfig, mesh,
-                         tp: int):
+                         n: int, tp=None):
     """EP-as-TP manual dispatch: each model rank builds only its local
-    (E/tp, C_l, D) buffer from the tokens of its data-parallel shard (no
+    (E/n, C_l, D) buffer from the tokens of its data-parallel shard (no
     dispatch collective); the combine is a single (T_l, D) psum over
-    'model'.  Routing and the aux loss see the global batch."""
+    'model'.  Routing and the aux loss see the global batch.  ``tp``: the
+    experts are this rank's block, as stored."""
     m: MoEConfig = cfg.moe
     b, s, d = x.shape
-    e_local = m.n_experts // tp
+    e_local = m.n_experts // n
     batch = shd.batch_axes()
     dp = mesh.axes(("pod", "data"))
     fold = "model" in batch            # the model axis also cuts the batch
@@ -201,10 +215,16 @@ def _moe_apply_shard_map(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     r0 = mesh.index(dp) * t_l
     xs_l, tw_l, te_l = (t.narrow(0, r0, t_l) for t in (xs, top_w, top_e))
     lo = mesh.index("model") * e_local
+    kind = "all_reduce" if tp is None else TP.REDUCE
     if fold:
         # every rank has a loss of its own: the gradients of the weights'
         # blocks are summed with the rest over the batch axes
         w = {n: p[n].narrow(0, lo, e_local) for n in ("w1", "w3", "w2")}
+    elif tp is not None:
+        # the blocks as stored: the entered tokens and routing give each
+        # its whole gradient
+        xs_l, tw_l = TP.enter(xs_l, tp), TP.enter(tw_l, tp)
+        w = {n: p[n] for n in ("w1", "w3", "w2")}
     else:
         # the model axis computes one loss: each rank's partial gradient of
         # its tokens and routing is summed over the axis, and each weight's
@@ -219,9 +239,9 @@ def _moe_apply_shard_map(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     if fold:
         out = shd.scatter_from(out_l, "model", mesh)
     else:
-        out = shd.reduce_from(out_l, "model", mesh)
+        out = shd.reduce_from(out_l, "model", mesh, kind)
     if m.n_shared:
-        out = out + mlp_apply(p["shared"], x, cfg).reshape(b * s, d)
+        out = out + mlp_apply(p["shared"], x, cfg, tp).reshape(b * s, d)
     return out.reshape(b, s, d), aux
 
 

@@ -24,7 +24,7 @@ from repro_torch.distributed import sharding as shd
 Axis = Union[None, str, Tuple[str, ...]]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 # values drawn at once by ``tree_init``: a leaf is drawn in float32 in
 # pieces of this many and each piece is cast, so no leaf needs a float32

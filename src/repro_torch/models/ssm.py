@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp as TP
 from repro_torch.models.layers import compute_dtype, einsum, sigmoid, silu
 from repro_torch.models.params import PSpec
 from repro_torch.obs import trace as obs_trace
@@ -73,9 +74,11 @@ def _rwkv_ddlerp(p, x, sx, cdt):
 
 
 def rwkv_time_mix_apply(p, x: torch.Tensor, cfg: ModelConfig,
-                        state: Optional[Dict] = None
+                        state: Optional[Dict] = None, tp=None
                         ) -> Tuple[torch.Tensor, Dict]:
-    """x: (B,S,D). state (decode): {'shift': (B,D), 'wkv': (B,H,K,V)}."""
+    """x: (B,S,D). state (decode): {'shift': (B,D), 'wkv': (B,H,K,V)}.
+    ``tp``: the leaves are blocks cut over 'model', gathered whole here."""
+    p = TP.whole(p, rwkv_time_mix_abstract(cfg), tp)
     cdt = compute_dtype(cfg)
     b, s, d = x.shape
     hd = RWKV_HEAD_DIM
@@ -131,15 +134,17 @@ def rwkv_channel_mix_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
 
 
 def rwkv_channel_mix_apply(p, x: torch.Tensor, cfg: ModelConfig,
-                           state: Optional[Dict] = None
+                           state: Optional[Dict] = None, tp=None
                            ) -> Tuple[torch.Tensor, Dict]:
+    """``tp``: ``wk`` column- and ``wv`` row-parallel blocks of the hidden
+    width (the MLP's pattern)."""
     cdt = compute_dtype(cfg)
     sx = _shifted(x, state, cdt)
     xk = x + (sx - x) * p["mu_k"].to(cdt)
     xr = x + (sx - x) * p["mu_r"].to(cdt)
-    k = einsum("btd,df->btf", xk, p["wk"].to(cdt))
+    k = einsum("btd,df->btf", TP.enter(xk, tp), p["wk"].to(cdt))
     k = torch.square(torch.relu(k))
-    v = einsum("btf,fd->btd", k, p["wv"].to(cdt))
+    v = TP.leave(einsum("btf,fd->btd", k, p["wv"].to(cdt)), tp)
     r = sigmoid(einsum("btd,de->bte", xr, p["wr"].to(cdt)))
     return r * v, {"shift": x[:, -1, :]}
 
@@ -168,8 +173,12 @@ def mamba_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
 
 
 def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
-    """x: (B,S,D).  state (decode): {'conv': (B,W-1,din), 'ssm': (B,din,ds)}."""
+                state: Optional[Dict] = None, tp=None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,S,D).  state (decode): {'conv': (B,W-1,din), 'ssm': (B,din,ds)}.
+    ``tp``: the leaves are blocks cut over 'model', gathered whole here
+    (``in_proj``'s block does not hold matching halves of ``[x, z]``)."""
+    p = TP.whole(p, mamba_abstract(cfg), tp)
     cdt = compute_dtype(cfg)
     ssm = cfg.ssm
     b, s, d = x.shape

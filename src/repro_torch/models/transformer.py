@@ -24,7 +24,11 @@ each rank's blocks, and repeat ``r``'s block of a leaf is ``block[r]``
 (a stacked spec's leading entry is ``None``); ``_repeat_apply`` gathers a
 repeat's leaves whole (``distributed.fsdp.gather_param``) inside the
 function that ``checkpoint`` wraps, so that under remat no gathered weight
-outlives its repeat and the backward gathers again.
+outlives its repeat and the backward gathers again.  Where 'model' does
+not cut the batch (``distributed.tp.context``) the leaves that the specs
+cut over 'model' are gathered over their other axes only and the layers
+compute on the blocks (``tp`` below); Mamba and RWKV's time mix gather
+theirs whole over 'model' themselves (``distributed.tp.whole``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tp as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -89,9 +94,10 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, *,
                 cache: Optional[Dict] = None,
                 cache_index: Optional[int] = None,
-                vision_states: Optional[torch.Tensor] = None
+                vision_states: Optional[torch.Tensor] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss).  ``tp``: the leaves that the
+    specs cut over 'model' are this rank's blocks."""
     aux = torch.zeros((), device=x.device)
     nrm = functools.partial(L.norm, kind=cfg.norm)
 
@@ -99,47 +105,50 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         h = nrm(x, p["norm1"])
         attn = L.mla_apply if cfg.mla else L.gqa_apply
         a, new_cache = attn(p["attn"], h, cfg, positions, cache=cache,
-                            cache_index=cache_index)
+                            cache_index=cache_index, tp=tp)
         if cfg.parallel_block and kind == "attn":
-            x = x + a + L.mlp_apply(p["mlp"], h, cfg)
+            x = x + a + L.mlp_apply(p["mlp"], h, cfg, tp)
         else:
             x = x + a
             h2 = nrm(x, p["norm2"])
             if kind == "attn_moe":
-                mo, aux = MOE.moe_apply(p["moe"], h2, cfg)
+                mo, aux = MOE.moe_apply(p["moe"], h2, cfg, tp)
                 x = x + mo
             else:
-                x = x + L.mlp_apply(p["mlp"], h2, cfg)
+                x = x + L.mlp_apply(p["mlp"], h2, cfg, tp)
     elif kind == "rwkv":
         h = nrm(x, p["norm1"])
         a, tstate = SSM.rwkv_time_mix_apply(
-            p["tmix"], h, cfg, state=cache.get("tmix") if cache else None)
+            p["tmix"], h, cfg, state=cache.get("tmix") if cache else None,
+            tp=tp)
         x = x + a
         h2 = nrm(x, p["norm2"])
         c, cstate = SSM.rwkv_channel_mix_apply(
-            p["cmix"], h2, cfg, state=cache.get("cmix") if cache else None)
+            p["cmix"], h2, cfg, state=cache.get("cmix") if cache else None,
+            tp=tp)
         x = x + c
         new_cache = {"tmix": tstate, "cmix": cstate}
     elif kind in ("mamba", "mamba_moe"):
         h = nrm(x, p["norm1"])
         a, mstate = SSM.mamba_apply(
-            p["mamba"], h, cfg, state=cache.get("mamba") if cache else None)
+            p["mamba"], h, cfg, state=cache.get("mamba") if cache else None,
+            tp=tp)
         x = x + a
         h2 = nrm(x, p["norm2"])
         if kind == "mamba_moe":
-            mo, aux = MOE.moe_apply(p["moe"], h2, cfg)
+            mo, aux = MOE.moe_apply(p["moe"], h2, cfg, tp)
             x = x + mo
         else:
-            x = x + L.mlp_apply(p["mlp"], h2, cfg)
+            x = x + L.mlp_apply(p["mlp"], h2, cfg, tp)
         new_cache = {"mamba": mstate}
     elif kind == "cross":
         h = nrm(x, p["norm1"])
         a, _ = L.gqa_apply(p["attn"], h, cfg, positions,
-                           kv_override=(vision_states,), causal=False)
+                           kv_override=(vision_states,), causal=False, tp=tp)
         x = x + torch.tanh(p["gate_attn"].to(x.dtype)) * a
         h2 = nrm(x, p["norm2"])
         x = x + torch.tanh(p["gate_mlp"].to(x.dtype)) * L.mlp_apply(
-            p["mlp"], h2, cfg)
+            p["mlp"], h2, cfg, tp)
         new_cache = {}  # vision KV is recomputed (stub frontend, tiny)
     else:
         raise ValueError(kind)
@@ -214,11 +223,12 @@ def _store(dst: Dict, src: Dict) -> None:
 
 
 def _repeat_apply(g: StackGroup, cfg: ModelConfig, positions, cache_index,
-                  vision_states, named, h: torch.Tensor, p_layer: Dict,
+                  vision_states, named, tp, h: torch.Tensor, p_layer: Dict,
                   c_layer: Optional[Dict]):
     """One repeat of a group's pattern: (h, the last sub-layer's aux, the
     repeat's new caches); ``p_layer`` holds blocks of ``named``'s specs
-    (``None``: whole leaves), gathered here."""
+    (``None``: whole leaves), gathered here over every axis they name (the
+    layers compute on what ``tp`` leaves cut: ``tp.compute_named``)."""
     p_layer = fsdp.gather_params(p_layer, named)
     new_c = {}
     for i, kind in enumerate(g.kinds):
@@ -226,7 +236,7 @@ def _repeat_apply(g: StackGroup, cfg: ModelConfig, positions, cache_index,
         sub_c = c_layer[key] if c_layer is not None else None
         h, nc, aux = block_apply(p_layer[key], h, cfg, kind, positions,
                                  cache=sub_c, cache_index=cache_index,
-                                 vision_states=vision_states)
+                                 vision_states=vision_states, tp=tp)
         new_c[key] = nc if nc is not None else {}
     return h, aux, new_c
 
@@ -244,6 +254,7 @@ def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     place by a decode step, or ``{}`` (the forward and the loss).
     ``shardings``: each stacked leaf's ``sharding.Named`` when ``params``
     holds blocks."""
+    tp = TP.context(shardings)
     total_aux = torch.zeros((), device=x.device)
     new_caches: Dict[str, Any] = {}
     remat = (cfg.remat and caches is None and not build_caches
@@ -252,10 +263,10 @@ def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     for g in stack_plan(cfg):
         gc = caches.get(g.name) if caches is not None else None
         layers = tree_map(lambda t: t.unbind(0), params[g.name])
-        named = None if shardings is None else tree_map(
-            lambda n: shd.Named(n.mesh, n.spec[1:]), shardings[g.name])
+        named = None if shardings is None else TP.compute_named(tree_map(
+            lambda n: shd.Named(n.mesh, n.spec[1:]), shardings[g.name]), tp)
         run = functools.partial(_repeat_apply, g, cfg, positions,
-                                cache_index, vision_states, named)
+                                cache_index, vision_states, named, tp)
         built = []
         for r in range(g.repeats):
             p_layer = tree_map(lambda ts: ts[r], layers)

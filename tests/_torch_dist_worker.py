@@ -386,25 +386,45 @@ def _mesh_device(mesh):
         f"cuda:{torch.cuda.current_device()}"
 
 
-def fsdp_train(mesh, arch, params, batch, batch_axes, n_micro=1,
-               dispatch=None, gathered=False):
-    """One ``make_train_step`` step with ``shardings=`` on this rank's
-    blocks, and the whole-tree step (no ``shardings``) under the same mesh
-    cut to the same blocks: loss, grad norm, the gradient blocks handed to AdamW, new
-    parameter blocks, AdamW m and v, the bytes stored and ``WIRE``'s
-    counts; with ``gathered``, the sharded step's gradients gathered
-    whole."""
+def _cfg_of(arch, overrides=None, dispatch=None):
+    """``arch``'s SMOKE config with ``overrides`` (fields; ``moe`` and
+    ``mla`` as dicts of their own fields) and the MoE ``dispatch``."""
     import dataclasses as dc
     from repro_torch.configs.base import smoke_config
+    cfg = smoke_config(arch)
+    kw = dict(overrides or {})
+    for k in ("moe", "mla"):
+        if k in kw:
+            kw[k] = dc.replace(getattr(cfg, k), **kw[k])
+    if dispatch:
+        kw["moe"] = dc.replace(kw.get("moe", cfg.moe), dispatch=dispatch)
+    return dc.replace(cfg, **kw)
+
+
+def fsdp_train(mesh, arch, params, batch, batch_axes, n_micro=1,
+               dispatch=None, gathered=False, overrides=None,
+               float64=False):
+    """One ``make_train_step`` step with ``shardings=`` on this rank's
+    blocks, and the whole-tree step (no ``shardings``) under the same mesh
+    cut to the same blocks: loss, grad norm, the gradient blocks handed to
+    AdamW, new parameter blocks, AdamW m and v, the bytes stored and
+    ``WIRE``'s counts, and the norm of the sharded step's own gradient
+    gathered whole; with ``gathered``, that gradient itself.
+    ``overrides``: ``_cfg_of``'s.  ``float64``: the parameters and the
+    compute in float64 (AdamW's state stays float32), so that a sum taken
+    in another order rounds far below float32's ulp."""
+    import dataclasses as dc
     from repro_torch.distributed import fsdp
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.policy import CellPolicy
     from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_map
     from repro_torch.optim import adamw
     from repro_torch.train import step as st
-    cfg = smoke_config(arch)
-    if dispatch:
-        cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, dispatch=dispatch))
+    cfg = _cfg_of(arch, overrides, dispatch)
+    if float64:
+        cfg = dc.replace(cfg, param_dtype="float64", compute_dtype="float64")
+        params = tree_map(lambda t: t.double(), params)
     model = Model(cfg, params, device=_dev(params))
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     policy = CellPolicy(tuple(batch_axes), int(n_micro), "float32",
@@ -430,8 +450,11 @@ def fsdp_train(mesh, arch, params, batch, batch_axes, n_micro=1,
         p2, o2, m2 = fn(blocks, oblocks, batch)
     wire = shd.WIRE.snapshot()
     g2 = upd[0][0][0]
+    with shd.use_mesh(mesh):
+        own = adamw.global_norm(shd.gather_tree(g2, named[0]))
     out = {"loss": torch.stack([m1["loss"], m2["loss"]]).reshape(2),
            "grad_norm": torch.stack([m1["grad_norm"], m2["grad_norm"]]),
+           "own_norm": own.reshape(1),
            "stored": torch.tensor([stored]),
            "wire": torch.tensor([wire[k] for k in sorted(wire)]),
            "wire_keys": sorted(wire), "saved_shapes": saved}
@@ -448,58 +471,78 @@ def fsdp_train(mesh, arch, params, batch, batch_axes, n_micro=1,
     return out
 
 
-def _serve(model, params, prompts, n_new, max_len, mesh, policy, shardings):
+def _sync(t):
+    if t.is_cuda:
+        torch.cuda.synchronize()
+
+
+def _serve(model, params, prompts, n_new, max_len, mesh, policy, shardings,
+           forced=None):
     """Greedy tokens and last-position logits of a prefill and ``n_new - 1``
     decode steps, under ``mesh`` with the caches cut by
-    ``cache_shardings``."""
+    ``cache_shardings``, and the prefill's seconds and a decode step's ms;
+    with ``forced`` (B, n_new), each step reads those tokens instead of
+    its own (teacher forcing)."""
+    import time
     from repro_torch.distributed import sharding as shd
     from repro_torch.train import step as st
     prefill = st.make_prefill_step(model, shardings)
     decode = st.make_decode_step(model, shardings)
     with torch.inference_mode(), shd.use_mesh(mesh), \
             shd.use_batch_axes(policy.batch_axes):
+        _sync(prompts)
+        t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": prompts}, max_len)
         cache = shd.shard_tree(cache, st.cache_shardings(cache, policy,
                                                          mesh))
         tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        _sync(prompts)
+        prefill_s = time.perf_counter() - t0
         toks, steps = [tok], [logits[:, -1]]
+        t0 = time.perf_counter()
         for i in range(n_new - 1):
+            feed = tok if forced is None else forced[:, i:i + 1]
             logits, cache = decode(params, cache, prompts.shape[1] + i,
-                                   {"tokens": tok})
+                                   {"tokens": feed})
             tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
             toks.append(tok)
             steps.append(logits[:, -1])
-    return torch.cat(toks, 1), torch.stack(steps, 1)
+        _sync(prompts)
+        ms = (time.perf_counter() - t0) * 1e3 / max(n_new - 1, 1)
+    return torch.cat(toks, 1), torch.stack(steps, 1), prefill_s, ms
 
 
 def fsdp_serve(mesh, arch, params, prompts, n_new, drop_fsdp=False,
-               seq_shard=False):
+               seq_shard=False, overrides=None):
     """Prefill and greedy decode from this rank's blocks under
     ``param_shardings(drop_fsdp)`` and from the whole tree, on the same
     mesh (with ``seq_shard``, the flash decode over a cache whose L axis
     is cut over 'model'): tokens and logits of both, the gathers' wire
-    bytes and the bytes stored."""
+    bytes, ``WIRE``'s counts and the bytes stored."""
     import dataclasses as dc
-    from repro_torch.configs.base import smoke_config
     from repro_torch.distributed import fsdp
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.policy import CellPolicy
     from repro_torch.models.model import Model
     from repro_torch.train import step as st
-    cfg = dc.replace(smoke_config(arch), seq_shard_decode=bool(seq_shard))
+    cfg = dc.replace(_cfg_of(arch, overrides),
+                     seq_shard_decode=bool(seq_shard))
     model = Model(cfg, params, device=_dev(params))
     max_len = prompts.shape[1] + int(n_new)
     policy = CellPolicy((), 1, "float32", max_len, seq_shard=bool(seq_shard))
     named = st.param_shardings(model, mesh, bool(drop_fsdp))
     blocks = shd.shard_tree(model.params, named)
     whole = _serve(model, model.params, prompts, int(n_new), max_len, mesh,
-                   policy, None)
+                   policy, None)[:2]
     shd.WIRE.reset()
     got = _serve(model, blocks, prompts, int(n_new), max_len, mesh, policy,
-                 named)
+                 named)[:2]
+    wire = shd.WIRE.snapshot()
     return {"tokens": got[0], "logits": got[1], "whole_tokens": whole[0],
             "whole_logits": whole[1],
             "gather_bytes": torch.tensor([shd.WIRE.param_gather_bytes]),
+            "wire": torch.tensor([wire[k] for k in sorted(wire)]),
+            "wire_keys": sorted(wire),
             "stored": torch.tensor([fsdp.stored_bytes(blocks)])}
 
 
@@ -536,7 +579,96 @@ def fsdp_ckpt_order(mesh, params, root):
     return {"log": torch.tensor(log), "n_leaves": torch.tensor([len(names)])}
 
 
-def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card):
+def _memory_at_peak(snap, base: int, top: int = 12):
+    """The peak of allocated bytes over the allocation history of a
+    ``torch.cuda.memory._snapshot()`` recorded from a moment when
+    ``base`` bytes were allocated, and the allocations live at that peak,
+    grouped by the innermost frame of ``repro_torch`` that made them:
+    (peak bytes, [(bytes, count, where), ...] largest first).  A block
+    counts as freed at ``free_requested``, where the allocator's
+    ``allocated_bytes`` drops (its reuse may wait for another stream)."""
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    cur, peak, at = base, base, -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            cur += e["size"]
+        elif e["action"] == "free_requested":   # blocks from before too
+            cur -= e["size"]
+        if cur > peak:
+            peak, at = cur, i
+    live, groups, gone = {}, {}, 0
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested":
+            if live.pop(e["addr"], None) is None:
+                gone += e["size"]
+    for e in live.values():
+        frames = [f for f in e.get("frames", ())
+                  if "repro_torch" in f["filename"]]
+        where = (f"{os.path.basename(frames[0]['filename'])}:"
+                 f"{frames[0]['line']} {frames[0]['name']}" if frames
+                 else "(outside repro_torch)")
+        b, c = groups.get(where, (0, 0))
+        groups[where] = (b + e["size"], c + 1)
+    rows = sorted(((b, c, w) for w, (b, c) in groups.items()), reverse=True)
+    return peak, [(base - gone, 0, "(allocated before the step, still "
+                                   "live)")] + rows[:top]
+
+
+def _nudged(t, seed: int = 0):
+    """``t`` rounded to bfloat16 with every value moved one bfloat16 ulp up
+    or down at random (from ``seed``; zeros kept), in ``t``'s dtype: a
+    rounding-sized change of an input, to measure how far rounding alone
+    moves a model's outputs."""
+    b = t.to(torch.bfloat16)
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    step = torch.randint(0, 2, b.shape, generator=gen, device=t.device,
+                         dtype=torch.int16) * 2 - 1
+    moved = (b.view(torch.int16) + step).view(torch.bfloat16)
+    return torch.where(b == 0, b, moved).to(t.dtype)
+
+
+def _write_snapshot(snap, path, limit=48 << 20):
+    """``snap`` gzipped to ``path``, removed again if it is over ``limit``
+    bytes (a note of its size is left beside it instead)."""
+    import gzip
+    import pickle
+    with gzip.open(path + ".gz", "wb") as f:
+        pickle.dump(snap, f)
+    size = os.path.getsize(path + ".gz")
+    if size > limit:
+        os.remove(path + ".gz")
+        with open(path + ".too_large.txt", "w") as f:
+            f.write(f"the gzipped snapshot took {size} B\n")
+
+
+def _all_reduce_ms(mesh, lead, widths, reps: int = 10):
+    """The device time of one all-reduce over 'model' of a bfloat16
+    (*lead, width) tensor for each of ``widths``, by CUDA events over
+    ``reps`` calls after a warm-up: the collectives of the
+    tensor-parallel step, timed alone."""
+    from repro_torch.distributed import sharding as shd
+    dev = _mesh_device(mesh)
+    times = []
+    for width in widths:
+        x = torch.zeros(*lead, width, dtype=torch.bfloat16, device=dev)
+        for _ in range(3):
+            shd.psum(x, "model", mesh)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            shd.psum(x, "model", mesh)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return torch.tensor(times, dtype=torch.float64)
+
+
+def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card,
+                snapshot=None, compute_dtype=None):
     """h2o-danube-3-4b at its published widths, cut to ``layers``, trained
     ``steps`` steps from this rank's blocks under ``train_shardings`` on
     ``mesh`` with phase 14's settings of ``chip_smoke.py`` (AdamW lr 3e-4,
@@ -550,7 +682,17 @@ def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card):
     ranks' shapes): the loss, each gradient block's largest difference and
     largest value, and whether the new parameter, m and v blocks are
     bit-identical.  Without it: the mean of the one-card forward losses of
-    the batch's sequences (no_grad), step 1's parameters."""
+    the batch's sequences (no_grad), and again with the embedding moved one
+    bfloat16 ulp at random (``_nudged``: how far rounding alone moves that
+    loss).  The last step
+    runs with the allocator's history recorded: the peak it reconstructs
+    and the allocations live there (``_memory_at_peak``), and with
+    ``snapshot`` (a path) rank 0 writes the snapshot there as a pickle.
+    Under a mesh where 'model' does not cut the batch (('data',) is the
+    policy's batch axes) the step computes over 'model' on the blocks
+    (``distributed/tp.py``); with 'model' of more than one rank, the time
+    of one all-reduce over it of an activation and of a K (or V) alone
+    (``_all_reduce_ms``).  ``compute_dtype``: in place of bfloat16."""
     import dataclasses as dc
     import time
     import torch.distributed as dist
@@ -564,6 +706,8 @@ def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card):
     from repro_torch.train import step as st
     dev = _mesh_device(mesh)
     cfg = dc.replace(get_config("h2o-danube-3-4b"), n_layers=int(layers))
+    if compute_dtype:
+        cfg = dc.replace(cfg, compute_dtype=compute_dtype)
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
                                 total_steps=int(steps))
     policy = CellPolicy(("data",), 1, "float32", int(seq))
@@ -587,13 +731,20 @@ def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card):
         del opt, upd
         out["one_card_loss"] = m1["loss"].reshape(1)
     else:
-        with torch.no_grad():
-            fwd = [model.loss(None, {k: v[i:i + 1] for k, v in
-                                     batch.items()}).double()
-                   for i in range(int(global_batch))]
-        out["forward_loss"] = torch.stack(fwd).mean().reshape(1)
+        def forward(tree):
+            with torch.no_grad():
+                return torch.stack([model.loss(tree, {
+                    k: v[i:i + 1] for k, v in batch.items()}).double()
+                    for i in range(int(global_batch))]).mean().reshape(1)
+        out["forward_loss"] = forward(None)
+        out["forward_loss_ulp"] = forward(dict(
+            model.params, embed=_nudged(model.params["embed"])))
     blocks = shd.shard_tree(model.params, named[0])
     model = Model(cfg, blocks, device=dev)      # the whole tree is freed
+    # the step reads the blocks it is given: the model's own parameters
+    # would keep step 0's blocks alive through every step
+    for p in model.parameters():
+        p.data = p.data.new_empty(0)
     opt = adamw.init(blocks, opt_cfg)
     torch.cuda.synchronize()
     init_peak = torch.cuda.max_memory_allocated()
@@ -601,20 +752,31 @@ def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card):
     fn = st.make_train_step(model, opt_cfg, policy, named)
     losses, norms, walls, wire = [], [], [], []
     for s in range(int(steps)):
+        last = s == int(steps) - 1
         shd.WIRE.reset()
         dist.barrier()
         torch.cuda.synchronize()
+        if last:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.memory._record_memory_history(
+                max_entries=2_000_000, stacks="python")
         t0 = time.perf_counter()
         with _recording(adamw, "update", []) as upd:
             blocks, opt, m = fn(blocks, opt, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        if last:
+            snap = torch.cuda.memory._snapshot()
+            torch.cuda.memory._record_memory_history(enabled=None)
+            out["snapshot_peak"], out["snapshot_rows"] = _memory_at_peak(
+                snap, base)
+            if snapshot and mesh.rank == 0:
+                _write_snapshot(snap, snapshot)
+            del snap
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         w = shd.WIRE.snapshot()
-        wire.append([w["param_gather_bytes"], w["grad_reduce_scatter_bytes"],
-                     w["grad_all_reduce_bytes"], w["all_reduce_bytes"],
-                     w["param_gather"], w["grad_reduce_scatter"]])
+        wire.append([w[k] for k in sorted(w)])
         if one_card and s == 0:
             got = {"grad": upd[0][0][0], "param": blocks, "m": opt.m,
                    "v": opt.v}
@@ -630,17 +792,151 @@ def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card):
             out["compare"] = torch.tensor(rows, dtype=torch.float64)
             del want, got
         del upd
+    if mesh.shape["model"] > 1:
+        out["all_reduce_ms"] = _all_reduce_ms(
+            mesh, (int(global_batch) // n, int(seq)),
+            (cfg.d_model, cfg.n_kv_heads * cfg.head_dim))
     n_params = count_params(cfg)
     out.update({
         "loss": torch.tensor(losses, dtype=torch.float64),
         "grad_norm": torch.tensor(norms, dtype=torch.float64),
         "wall": torch.tensor(walls, dtype=torch.float64),
         "wire": torch.tensor(wire, dtype=torch.float64),
+        "wire_keys": sorted(shd.WIRE.snapshot()),
         "peak": torch.tensor([torch.cuda.max_memory_allocated(), init_peak]),
         "stored": torch.tensor([fsdp.stored_bytes(blocks)
                                 + fsdp.stored_bytes(opt)]),
         "whole_state": torch.tensor([4 * 4 * n_params, n_params])})
     return out
+
+
+# ------------------------------------- tensor-parallel compute, 'model' --
+
+def _layer_cfg(cfg_kw):
+    from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                          SSMConfig)
+    kw = dict(cfg_kw)
+    for k, cls in (("moe", MoEConfig), ("mla", MLAConfig), ("ssm", SSMConfig)):
+        if kw.get(k) is not None:
+            kw[k] = cls(**kw[k])
+    return ModelConfig(**kw)
+
+
+def tp_layer(mesh, module, params, x, cot, cfg_kw):
+    """One layer ``module`` ('gqa', 'mla', 'mlp', 'moe' or 'cmix') of the
+    config ``cfg_kw`` under the mesh, its batch cut over 'data' alone (of
+    one rank), on the whole ``params`` and, under ``tp``, on this rank's
+    blocks of the leaves its specs cut over 'model' (``local_shard``):
+    both outputs, and the gradients of ``sum(out * cot)`` (plus the MoE's
+    aux loss) with respect to ``x`` and every leaf, the blocks' beside the
+    whole gradient's own block; ``WIRE``'s counts of the block run."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.params import tree_map, tree_partition_specs
+    from repro_torch.train.step import value_and_grad
+    cfg = _layer_cfg(cfg_kw)
+    pos = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[0], -1)
+    abstract, fn = {
+        "gqa": (L.gqa_abstract,
+                lambda p, h, tp: L.gqa_apply(p, h, cfg, pos, tp=tp)[0]),
+        "mla": (L.mla_abstract,
+                lambda p, h, tp: L.mla_apply(p, h, cfg, pos, tp=tp)[0]),
+        "mlp": (L.mlp_abstract, lambda p, h, tp: L.mlp_apply(p, h, cfg, tp)),
+        "moe": (MOE.moe_abstract, lambda p, h, tp: MOE.moe_apply(p, h, cfg,
+                                                                  tp)),
+        "cmix": (SSM.rwkv_channel_mix_abstract,
+                 lambda p, h, tp: SSM.rwkv_channel_mix_apply(p, h, cfg,
+                                                             tp=tp)[0]),
+    }[module]
+    with shd.use_mesh(mesh):
+        named = tree_map(lambda sp: shd.Named(mesh, sp),
+                         tree_partition_specs(abstract(cfg), drop_fsdp=True))
+    blocks = shd.shard_tree(params, named)
+
+    def run(p, tp):
+        def loss(t):
+            y = fn(t["p"], t["x"], tp)
+            out.append(y)
+            if isinstance(y, tuple):
+                return torch.sum(y[0] * cot) + y[1]
+            return torch.sum(y * cot)
+        out = []
+        with shd.use_mesh(mesh), shd.use_batch_axes(("data",)):
+            _, g = value_and_grad(loss, {"p": p, "x": x})
+        y = out[0]
+        return (y[0] if isinstance(y, tuple) else y).detach(), g
+    y_whole, g_whole = run(params, None)
+    shd.WIRE.reset()
+    y_tp, g_tp = run(blocks, mesh)
+    wire = shd.WIRE.snapshot()
+    res = {"out": y_tp, "whole_out": y_whole, "grad_x": g_tp["x"],
+           "whole_grad_x": g_whole["x"],
+           "wire": torch.tensor([wire[k] for k in sorted(wire)]),
+           "wire_keys": sorted(wire)}
+    cut = shd.map_named(lambda t, n: shd.local_shard(t, n.spec, n.mesh),
+                        g_whole["p"], named)
+    for (name, a), (_, b) in zip(_named(g_tp["p"]), _named(cut)):
+        res[f"grad.{name}"], res[f"whole_grad.{name}"] = a, b
+    return res
+
+
+def danube_serve(mesh, layers, batch, prompt, n_new, compute_dtype=None):
+    """h2o-danube-3-4b at its published widths cut to ``layers`` (and with
+    ``compute_dtype``, else bfloat16), its weights (seed 0) held in the
+    compute dtype, greedy-served (``batch`` prompts of ``prompt`` tokens,
+    ``n_new`` new tokens) on this rank's card alone from the whole tree,
+    and under the mesh from this rank's blocks under
+    ``param_shardings(drop_fsdp=True)``, teacher-forced with the one-card
+    tokens: the tokens and logits of both, the prefill seconds and decode
+    ms/token of both, the peak device memory of the block run, the bytes a
+    rank stores and ``WIRE`` by kind over the block run; and the one-card
+    logits, teacher-forced alike, with the embedding moved one bfloat16
+    ulp at random (``_nudged``: how far rounding alone moves them)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.driver import build_inputs
+    from repro_torch.launch.policy import CellPolicy
+    from repro_torch.models.model import Model
+    from repro_torch.train import step as st
+    dev = _mesh_device(mesh)
+    cfg = dc.replace(get_config("h2o-danube-3-4b"), n_layers=int(layers))
+    if compute_dtype:
+        cfg = dc.replace(cfg, compute_dtype=compute_dtype)
+    held = Model(cfg, device=dev, seed=0).compute_params()
+    model = Model(cfg, held, device=dev)
+    prompts, _ = build_inputs(cfg, int(batch), int(prompt), device=dev)
+    max_len = int(prompt) + int(n_new)
+    policy = CellPolicy((), 1, "float32", max_len)
+    one = _serve(model, held, prompts, int(n_new), max_len, mesh, policy,
+                 None)
+    ulp = _serve(model, dict(held, embed=_nudged(held["embed"])), prompts,
+                 int(n_new), max_len, mesh, policy, None,
+                 forced=one[0][:, :-1])
+    named = st.param_shardings(model, mesh, drop_fsdp=True)
+    blocks = shd.shard_tree(held, named)
+    del model, held
+    model = Model(cfg, blocks, device=dev)      # the whole tree is freed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _serve(model, blocks, prompts, 2, max_len, mesh, policy, named)  # warm
+    shd.WIRE.reset()
+    got = _serve(model, blocks, prompts, int(n_new), max_len, mesh, policy,
+                 named, forced=one[0][:, :-1])
+    wire = shd.WIRE.snapshot()
+    return {"tokens": got[0], "logits": got[1], "one_tokens": one[0],
+            "one_logits": one[1], "ulp_logits": ulp[1],
+            "times": torch.tensor([got[2], got[3], one[2], one[3]],
+                                  dtype=torch.float64),
+            "peak": torch.tensor([torch.cuda.max_memory_allocated()]),
+            "stored": torch.tensor([fsdp.stored_bytes(blocks)]),
+            "wire": torch.tensor([wire[k] for k in sorted(wire)]),
+            "wire_keys": sorted(wire)}
 
 
 # ------------------------------------------------------------------ rank --

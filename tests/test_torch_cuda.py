@@ -854,19 +854,24 @@ def test_data_parallel_step_across_cards(cuda, tmp_path):
 
 # ------------------------------- sharded parameter storage, NCCL, cards --
 
+def _wire_of(res, step=-1):
+    """``WIRE``'s counts of one step of an ``fsdp_danube`` result."""
+    return dict(zip(res["wire_keys"], res["wire"][step].tolist()))
+
+
 def _fsdp_report(n, r, res):
     wall = res["wall"].tolist()
-    wire = res["wire"][-1].tolist()
+    wire = {k: int(v) for k, v in _wire_of(res).items() if v}
     print(f"{n} cards, rank {r}: losses {res['loss'].tolist()}, step walls "
           f"{[round(w, 4) for w in wall]} s; peak device memory "
           f"{int(res['peak'][0]) / 2 ** 30:.3f} GiB over the steps "
           f"({int(res['peak'][1]) / 2 ** 30:.3f} GiB set-up); stored "
           f"{int(res['stored']) / 1e9:.3f} GB of a whole state of "
           f"{int(res['whole_state'][0]) / 1e9:.3f} GB "
-          f"({int(res['whole_state'][1])} params); wire a step: param "
-          f"gathers {wire[4]:.0f} ({wire[0]:.0f} B), gradient "
-          f"reduce-scatters {wire[5]:.0f} ({wire[1]:.0f} B), gradient "
-          f"all-reduces {wire[2]:.0f} B, other all-reduces {wire[3]:.0f} B")
+          f"({int(res['whole_state'][1])} params); WIRE of the last step "
+          f"{wire}; the last step's peak from its allocation history "
+          f"{int(res['snapshot_peak']) / 2 ** 30:.3f} GiB, live there (bytes, "
+          f"count, where): {res['snapshot_rows']}")
 
 
 def test_fsdp_danube_full_depth_on_four_cards(cuda, tmp_path):
@@ -923,3 +928,120 @@ def test_fsdp_danube_two_layers_across_cards(cuda, tmp_path):
             else:
                 assert abs(loss - one) <= 1e-6 * abs(one)
                 assert float(worst) <= 1e-5
+
+
+# ------------------------- tensor-parallel compute over 'model', NCCL, cards --
+
+def test_tp_danube_full_depth_on_four_cards(cuda, tmp_path):
+    """h2o-danube-3-4b at its full 24 layers and published widths on a
+    (1, 4) ('data', 'model') mesh, computed over 'model' on the blocks
+    (``distributed/tp.py``): 3 steps of a global batch of 4 x 4096 (the
+    whole batch on every rank, the same batch each step), phase 14's
+    settings, and one step more in float32 compute.  Step 1's loss
+    against the mean of one-card forward losses over the same four
+    sequences: in float32 within 1e-5 relative; in bfloat16 within 1e-5
+    or twice as far as one bfloat16 ulp of noise on the embedding moves
+    that one-card loss (the row-parallel sums add bfloat16 partial sums,
+    so the step is the one-card forward to within the model's rounding);
+    the loss falling; no parameter gathered; the ``tp_all_reduce`` calls
+    of a step the layer plan's (``chip_smoke.tp_plan``); the last step's
+    peak with the allocations live there, from its allocation history
+    (with ``REPRO_MEMORY_SNAPSHOT_DIR`` set, rank 0 writes the bfloat16
+    run's snapshot there).  Every rank reports before any check."""
+    import os
+    from _torch_dist_worker import run_world
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    out = os.environ.get("REPRO_MEMORY_SNAPSHOT_DIR")
+    snap = os.path.join(out, "tp_danube_rank0.pickle") if out else None
+    kw = dict(layers=24, global_batch=4, seq=4096, one_card=False)
+    res = run_world(4, [("fsdp_danube", (1, 4), dict(kw, steps=3,
+                                                    snapshot=snap)),
+                        ("fsdp_danube", (1, 4), dict(
+                            kw, steps=1, compute_dtype="float32"))],
+                    tmp_path, device="cuda", timeout=1200)
+    rows = []
+    for r, runs in enumerate(res):
+        for what, got in zip(("bf16", "float32"), runs):
+            _fsdp_report(4, r, got)
+            loss, fwd = got["loss"].tolist(), float(got["forward_loss"])
+            ulp = float(got["forward_loss_ulp"])
+            dev = abs(loss[0] - fwd) / abs(fwd)
+            dev_ulp = abs(ulp - fwd) / abs(fwd)
+            t_act, t_kv = got["all_reduce_ms"].tolist()
+            wire_ms = (5 * 24 + 2) * t_act + 2 * 24 * t_kv
+            print(f"4 cards (1, 4), rank {r}, {what}: step 1's loss "
+                  f"{loss[0]!r}, the one-card forward's {fwd!r} ({dev:.2e} "
+                  f"apart; one bfloat16 ulp of noise on the embedding moves "
+                  f"it {dev_ulp:.2e}); an all-reduce over 'model' of an "
+                  f"activation {t_act:.3f} ms, of a K {t_kv:.3f} ms alone; "
+                  f"a step's 173 at those times {wire_ms:.1f} ms, "
+                  f"{wire_ms / 1e3 / got['wall'][-1]:.3f} of the last "
+                  f"step's wall")
+            rows.append((what, loss, dev, dev_ulp, got))
+    for what, loss, dev, dev_ulp, got in rows:
+        if what == "float32":
+            assert dev <= 1e-5, dev
+        else:
+            assert dev <= max(1e-5, 2 * dev_ulp), (dev, dev_ulp)
+            assert loss[0] > loss[1] > loss[2], loss
+        for step in range(len(loss)):
+            wire = _wire_of(got, step)
+            assert wire["param_gather_bytes"] == 0, wire
+            assert wire["tp_all_reduce"] == 7 * 24 + 5, wire
+        assert loss == [x[1] for x in rows if x[0] == what][0]
+
+
+def test_tp_danube_serving_on_four_cards(cuda, tmp_path):
+    """h2o-danube-3-4b served on a (1, 4) mesh from
+    ``param_shardings(drop_fsdp=True)`` blocks (batch 4, prompt 256, 16 new
+    tokens), teacher-forced with one card's greedy tokens, against one
+    card's decode of the whole tree: at 24 layers and at 2 layers in
+    float32, each step's logits within 2**-8 x max|logit| (the
+    tensor-parallel path at full width without bfloat16's rounding:
+    float32's reordered sums, where a missing rank's share would move the
+    logits as far as one bfloat16 ulp of noise on the embedding does,
+    printed beside); at 24 layers in bfloat16 the same numbers printed and
+    not held (the row-parallel sums add bfloat16 partial sums, and this
+    random-weight model carries their rounding as far as that of one ulp
+    of noise).  The greedy agreement printed; no parameter gathered, 49
+    ``tp_all_reduce`` and 1 ``tp_all_gather`` a step at 24 layers.  Every
+    rank reports before any check."""
+    from _torch_dist_worker import run_world
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    new = 16
+    kw = dict(batch=4, prompt=256, n_new=new)
+    jobs = (("24 layers float32", 24, "float32"),
+            ("24 layers bf16", 24, None), ("2 layers float32", 2, "float32"))
+    res = run_world(4, [("danube_serve", (1, 4), dict(
+        kw, layers=n, compute_dtype=dt)) for _, n, dt in jobs],
+                    tmp_path, device="cuda", timeout=900)
+    rows = []
+    for r, runs in enumerate(res):
+        for (what, layers, dt), got in zip(jobs, runs):
+            one = got["one_logits"].double()
+            top = one.abs().max()
+            err = float((got["logits"].double() - one).abs().max() / top)
+            ulp = float((got["ulp_logits"].double() - one).abs().max() / top)
+            agree = float((got["tokens"] == got["one_tokens"]).double()
+                          .mean())
+            t = got["times"].tolist()
+            wire = {k: int(v) for k, v in zip(got["wire_keys"],
+                                              got["wire"].tolist()) if v}
+            print(f"4 cards (1, 4), rank {r}: danube {what} served "
+                  f"tensor-parallel: logits within {err:.3e} of max|logit| "
+                  f"of one card's (one ulp of noise on the embedding: "
+                  f"{ulp:.3e}), greedy agreement {agree:.4f}; prefill "
+                  f"{t[0]:.3f} s, decode {t[1]:.2f} ms/token (one card "
+                  f"{t[2]:.3f} s, {t[3]:.2f} ms/token); peak "
+                  f"{int(got['peak']) / 2 ** 30:.3f} GiB; stored "
+                  f"{int(got['stored']) / 1e9:.3f} GB; WIRE {wire}")
+            rows.append((layers, dt, err, wire))
+    for layers, dt, err, wire in rows:
+        if dt == "float32":
+            assert err <= 2 ** -8, (layers, err)
+        if layers == 24:
+            assert wire["tp_all_reduce"] == new * (2 * 24 + 1)
+        assert wire.get("param_gather", 0) == 0
+        assert wire["tp_all_gather"] == new

@@ -15,30 +15,43 @@ What is held, and to what:
   (deepseek-v2-236b) with both dispatches and an SSM (rwkv6-3b): loss,
   gradient blocks, new parameter blocks, ``m`` and ``v`` bit-identical to
   ``local_shard`` of the whole-tree step under the same mesh.  Each of
-  ``fsdp``'s three gradient rules runs: (a) reduce-scatter ('data' or
-  'model' cutting the leaf and the batch), (b) the own block ('model' not
-  cutting the batch, as for a TP-friendly arch; 'data' trimmed from the
-  batch axes), (c) all-reduce (the norms, which no axis cuts).  A sum of
-  two terms rounds alike in any order, so nothing separates them;
+  ``fsdp``'s gradient rules runs: (a) reduce-scatter ('data' or 'model'
+  cutting the leaf and the batch), (b) the own block ('data' trimmed from
+  the batch axes), (b') the block computed on ('model' not cutting the
+  batch, as for a TP-friendly arch: ``distributed/tp.py``), (c)
+  all-reduce (the norms, which no axis cuts).  A sum of two terms rounds
+  alike in any order, so nothing separates them, but the cases on the
+  tensor-parallel path ('model' of two ranks outside the batch axes):
+  their row-parallel matmuls and vocabulary-parallel loss sum the terms
+  in another order.  They run twice: with the parameters and the compute
+  in float64 (``fsdp_train``'s ``float64``) every block within 1e-5 x
+  each leaf's largest value, and in float32 within ``TP_TOL`` (1e-3;
+  ``tests/test_torch_tp.py`` says why), the loss within 1e-6 relative;
 * at four ranks on (2, 2): gradient blocks within 1e-5 x each leaf's
-  largest value of the whole-tree step's, the loss within 1e-6 relative
-  (the reduce-scatter and the all-reduce sum four terms in orders of their
+  largest value of the whole-tree step's (on the tensor-parallel path in
+  float64, and in float32 within ``TP_TOL`` beside it), the loss within 1e-6 relative (the
+  reduce-scatter and the all-reduce sum four terms in orders of their
   own); the gathered gradients within ``REF_GRAD_TOL`` (2e-3, as
   ``tests/test_torch_distributed_train.py``) of the reference's jitted
   step;
 * two microbatches (the gradient accumulated as blocks: the sum over ranks
   comes before the sum over microbatches, so within the 1e-5 above) and
   clipping (every case's gradient norm is above ``clip_norm``; the norm of
-  the blocks within 1e-6 relative of the whole tree's);
+  the blocks within 1e-6 relative of the norm of the same step's
+  gradient gathered whole, and of the whole tree's, on the
+  tensor-parallel path in float64);
 * ``WIRE``: the parameter gathers of a step are the ring model's count,
-  one gather per cut leaf, per repeat for a stacked leaf, twice under
+  one gather per cut leaf (over every axis but 'model' on the
+  tensor-parallel path), per repeat for a stacked leaf, twice under
   remat (the recompute gathers again), and the gradient reduce-scatters
   one per gathered leaf; under remat no whole stacked leaf is saved for
   the backward;
 * serving from blocks at two and four ranks (with and without
-  ``drop_fsdp``, and the seq-sharded decode): greedy tokens equal and
-  logits bit-identical to the same steps on the whole tree, under the
-  same mesh (the gathered weights are the whole tree's bits);
+  ``drop_fsdp``, and the seq-sharded decode): greedy tokens equal to the
+  same steps on the whole tree, under the same mesh, and logits
+  bit-identical where 'model' has one rank (the gathered weights are the
+  whole tree's bits), within 1e-5 x max|logit| where it has two (the
+  tensor-parallel path);
 * ``ckpt.manager.save`` under a mesh: leaf i is written before leaf i+1 is
   gathered, and the files equal a save without a mesh byte for byte.
 
@@ -66,6 +79,7 @@ from repro_torch.models.params import (params_from_reference,  # noqa: E402
 from _torch_dist_worker import run_world  # noqa: E402
 from conftest import run_devices  # noqa: E402
 from test_torch_distributed_train import REFERENCE  # noqa: E402
+from test_torch_tp import TP_TOL  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -96,6 +110,12 @@ SERVE = [("fsdp", 2, (2, 1), False, False), ("tp", 2, (1, 2), True, False),
          ("fsdp", 4, (2, 2), False, False), ("tp", 4, (2, 2), True, False),
          ("seq_shard", 4, (2, 2), False, True)]
 SERVE_ARCH, SERVE_PROMPT, SERVE_NEW = "qwen2-7b", 6, 4
+
+
+def _on_tp(mesh, axes):
+    """Whether a step on ``mesh`` with the batch over ``axes`` computes
+    over 'model' (of more than one rank) on the blocks."""
+    return mesh[1] > 1 and "model" not in axes
 
 PLACEMENT = r"""
 import math, sys
@@ -169,12 +189,12 @@ def runs(tmp_path_factory):
     batches = {a: {k: torch.from_numpy(inp[f"{a}.{k}"])
                    for k in ("tokens", "labels")} for a in TRAIN_ARCHS}
 
-    def train(case, gathered=False):
+    def train(case, gathered=False, float64=False):
         _, arch, dispatch, mesh, axes, n_micro = case
         return ("fsdp_train", mesh, dict(
             arch=arch, params=params[arch], batch=batches[arch],
             batch_axes=axes, n_micro=n_micro, dispatch=dispatch,
-            gathered=gathered))
+            gathered=gathered, float64=float64))
     serve_params = Model(smoke_config(SERVE_ARCH), device="cpu",
                          seed=3).params
     prompts = torch.from_numpy(rng.integers(
@@ -193,6 +213,14 @@ def runs(tmp_path_factory):
                                                  root=str(tmp / "ckpt")))])
     jobs4 = ([("fsdp_placement", m, {"arch": a}) for m in PLACE_MESHES
               for a in ARCHS] + [train(c, True) for c in FOUR] + serve(4))
+    # the cases on the tensor-parallel path again in float64, at the end
+    ckpt_job = len(jobs2) - 1
+    f64 = {}
+    for world, cases, jobs in ((2, TWO, jobs2), (4, FOUR, jobs4)):
+        for c in cases:
+            if _on_tp(c[3], c[4]):
+                f64[(world, c[0])] = len(jobs)
+                jobs.append(train(c, float64=True))
     with ThreadPoolExecutor(4) as ex:
         ref = ex.submit(run_devices, ref_script, 8)
         place = ex.submit(run_devices, place_script, 4)
@@ -204,6 +232,7 @@ def runs(tmp_path_factory):
     n_place = len(PLACE_MESHES) * len(ARCHS)
     n_two = len(TWO) + 1
     return {"two": two, "four": four, "n_two": n_two, "n_place": n_place,
+            "f64": f64, "ckpt_job": ckpt_job,
             "ref": dict(np.load(tmp / "reference.npz")),
             "place": dict(np.load(tmp / "placement.npz")),
             "ckpt": tmp / "ckpt"}
@@ -256,26 +285,49 @@ def _four(runs, case):
     return [r[i] for r in runs["four"]]
 
 
+def _float64(runs, case, world):
+    """The float64 run of a case on the tensor-parallel path."""
+    i = runs["f64"][(world, case)]
+    return [r[i] for r in runs["two" if world == 2 else "four"]]
+
+
 @pytest.mark.parametrize("case", [c[0] for c in TWO])
 def test_two_ranks_bit_identical_to_the_whole_tree_step(runs, case):
-    for res in _two(runs, case):
-        assert torch.equal(_bits(res["loss"][0]), _bits(res["loss"][1]))
-        for tag in ("grad", "param", "m", "v"):
-            names = _leaf_keys(res, tag)
-            assert names and names == _leaf_keys(res, f"whole_{tag}")
-            for name in names:
-                a, b = res[f"{tag}.{name}"], res[f"whole_{tag}.{name}"]
-                assert a.shape == b.shape and a.dtype == b.dtype, name
-                assert torch.equal(_bits(a), _bits(b)), (tag, name)
+    """Bit for bit, but on the tensor-parallel path: within 1e-5 in
+    float64 and within ``TP_TOL`` in float32."""
+    _, _, _, mesh, axes, _ = [c for c in TWO if c[0] == case][0]
+    tp = _on_tp(mesh, axes)
+    runs_tols = [(_two(runs, case), TP_TOL if tp else 0)]
+    if tp:
+        runs_tols.append((_float64(runs, case, 2), GRAD_TOL))
+    for results, tol in runs_tols:
+        for res in results:
+            if tol:
+                lw, ls = (float(x) for x in res["loss"])
+                assert abs(ls - lw) <= 1e-6 * abs(lw)
+            else:
+                assert torch.equal(_bits(res["loss"][0]),
+                                   _bits(res["loss"][1]))
+            for tag in ("grad", "param", "m", "v"):
+                names = _leaf_keys(res, tag)
+                assert names and names == _leaf_keys(res, f"whole_{tag}")
+                for name in names:
+                    a, b = res[f"{tag}.{name}"], res[f"whole_{tag}.{name}"]
+                    assert a.shape == b.shape and a.dtype == b.dtype, name
+                    if tol:
+                        assert _within(a.numpy(), b.numpy(), tol), \
+                            (tag, name)
+                    else:
+                        assert torch.equal(_bits(a), _bits(b)), (tag, name)
 
 
-def _close_to_whole(res):
+def _close_to_whole(res, tol=GRAD_TOL):
     lw, ls = (float(x) for x in res["loss"])
     assert abs(ls - lw) <= 1e-6 * abs(lw)
     for name in _leaf_keys(res, "grad"):
         a, b = res[f"grad.{name}"], res[f"whole_grad.{name}"]
         assert a.shape == b.shape
-        assert _within(a.numpy(), b.numpy(), GRAD_TOL), name
+        assert _within(a.numpy(), b.numpy(), tol), name
 
 
 def test_two_microbatches_accumulate_blocks(runs):
@@ -289,8 +341,12 @@ def test_four_ranks_within_rounding_and_the_reference(runs, case):
     want = {k[len(case) + 6:]: v for k, v in ref.items()
             if k.startswith(f"{case}.grad.")}
     results = _four(runs, case)
+    _, _, _, mesh, axes, _ = [c for c in FOUR if c[0] == case][0]
+    if _on_tp(mesh, axes):
+        for res in _float64(runs, case, 4):
+            _close_to_whole(res)
     for res in results:
-        _close_to_whole(res)
+        _close_to_whole(res, TP_TOL if _on_tp(mesh, axes) else GRAD_TOL)
         got = {k[9:]: v for k, v in res.items() if k.startswith("gathered.")}
         assert sorted(got) == sorted(want)
         for name, w in want.items():
@@ -301,28 +357,38 @@ def test_four_ranks_within_rounding_and_the_reference(runs, case):
 
 def test_global_norm_of_blocks_counts_each_element_once(runs):
     """Every case clips (its gradient norm is above ``clip_norm``), and the
-    norm from the blocks is the whole tree's within 1e-6 relative."""
-    for case in [c[0] for c in TWO + [MICRO]]:
-        for res in _two(runs, case):
+    norm from the blocks is the norm of the same gradient gathered whole
+    within 1e-6 relative, and the whole tree's: on the tensor-parallel
+    path in float64 (in float32 the gradient itself is the whole tree's
+    within ``TP_TOL`` there)."""
+    for case in TWO + [MICRO] + FOUR:
+        two = case in TWO + [MICRO]
+        tp = _on_tp(case[3], case[4])
+        results = [(r, not tp) for r in (_two(runs, case[0]) if two
+                                          else _four(runs, case[0]))]
+        if tp:
+            results += [(r, True) for r in _float64(runs, case[0],
+                                                     2 if two else 4)]
+        for res, to_whole in results:
             whole, blocks = (float(x) for x in res["grad_norm"])
+            own = float(res["own_norm"])
             assert whole > CLIP, case
-            assert abs(blocks - whole) <= 1e-6 * whole, case
-    for case in [c[0] for c in FOUR]:
-        for res in _four(runs, case):
-            whole, blocks = (float(x) for x in res["grad_norm"])
-            assert whole > CLIP and abs(blocks - whole) <= 1e-6 * whole
+            assert abs(blocks - own) <= 1e-6 * own, case
+            if to_whole:
+                assert abs(blocks - whole) <= 1e-6 * whole, case
 
 
-def _gather_bytes(shape, spec, mesh):
+def _gather_bytes(shape, spec, mesh, keep=()):
     """(all-gathers, bytes on the wire) of ``gather_shard`` of a float32
-    block of the whole ``shape`` under ``spec``, by the ring model."""
+    block of the whole ``shape`` under ``spec``, by the ring model, over
+    every axis but ``keep``."""
     block = list(shape)
     cuts = []
     for d, e in enumerate(spec):
         axes = (e,) if isinstance(e, str) else tuple(e or ())
-        n = math.prod(mesh.shape[a] for a in axes)
-        block[d] //= n
-        cuts.append((d, n))
+        block[d] //= math.prod(mesh.shape[a] for a in axes)
+        cuts.append((d, math.prod(mesh.shape[a] for a in axes
+                                  if a not in keep)))
     calls = nbytes = 0
     for d, n in reversed(cuts):
         if n == 1:
@@ -333,12 +399,14 @@ def _gather_bytes(shape, spec, mesh):
     return calls, nbytes
 
 
-def _ring_counts(arch, mesh_shape):
+def _ring_counts(arch, mesh_shape, tp=False):
     """The ring model's (gathers, gather bytes, reduce-scatters) of one
     step of ``arch`` at SMOKE under remat: each cut top-level leaf gathered
     once, each cut stacked leaf once per repeat in the forward and once in
     the recompute; a reduce-scatter per gather of a leaf cut over a batch
-    axis."""
+    axis.  ``tp``: the step computes over 'model' on the blocks, which are
+    gathered over their other axes only (no arch here has Mamba's
+    leaves, which stay gathered)."""
     cfg = smoke_config(arch)
     assert cfg.remat and not cfg.tie_embeddings and not cfg.mtp_depth
     mesh = _duck(mesh_shape)
@@ -351,12 +419,13 @@ def _ring_counts(arch, mesh_shape):
     calls = nbytes = scatters = 0
     for key in structs:
         sub_specs, sub = specs[key], structs[key]
+        keep = ("model",) if tp else ()
         for ps, spec in zip(tree_leaves(sub), tree_leaves(sub_specs)):
             if key == "blocks":
-                c, b = _gather_bytes(ps.shape[1:], spec[1:], mesh)
+                c, b = _gather_bytes(ps.shape[1:], spec[1:], mesh, keep)
                 reps = 2 * ps.shape[0]
             else:
-                c, b = _gather_bytes(ps.shape, spec, mesh)
+                c, b = _gather_bytes(ps.shape, spec, mesh, keep)
                 reps = 1
             calls, nbytes = calls + reps * c, nbytes + reps * b
             if c:
@@ -368,10 +437,12 @@ def _ring_counts(arch, mesh_shape):
 def test_param_gathers_follow_the_ring_model(runs, case):
     """deepseek-67b: every cut leaf is gathered (each stacked one per
     repeat, again in the recompute); with 'data' cutting both leaf and
-    batch each gathered leaf's gradient is reduce-scattered, with 'model'
-    cutting the leaf alone it is not (the own block)."""
-    mesh = [c for c in TWO if c[0] == case][0][3]
-    calls, nbytes, scatters = _ring_counts("deepseek-67b", mesh)
+    batch each gathered leaf's gradient is reduce-scattered; with 'model'
+    cutting the leaf alone it is not gathered over 'model' at all (the
+    layers compute on the block), so on (1, 2) nothing is gathered."""
+    _, _, _, mesh, axes, _ = [c for c in TWO if c[0] == case][0]
+    calls, nbytes, scatters = _ring_counts("deepseek-67b", mesh,
+                                           _on_tp(mesh, axes))
     for res in _two(runs, case):
         wire = dict(zip(res["wire_keys"], res["wire"].tolist()))
         assert (wire["param_gather"], wire["param_gather_bytes"]) == \
@@ -405,7 +476,7 @@ def test_no_whole_stacked_leaf_is_saved_under_remat(runs):
 @pytest.mark.parametrize("i", range(len(SERVE)),
                          ids=[f"{s[0]}-{s[1]}ranks" for s in SERVE])
 def test_serving_from_blocks_is_the_whole_tree(runs, i):
-    world = SERVE[i][1]
+    _, world, mesh, drop, _ = SERVE[i]
     k = [s for s in SERVE if s[1] == world].index(SERVE[i])
     j = (runs["n_two"] if world == 2 else runs["n_place"] + len(FOUR)) + k
     results = [r[j] for r in runs["two" if world == 2 else "four"]]
@@ -413,8 +484,14 @@ def test_serving_from_blocks_is_the_whole_tree(runs, i):
         smoke_config(SERVE_ARCH), device="cpu", seed=3).params))
     for res in results:
         assert torch.equal(res["tokens"], res["whole_tokens"])
-        assert torch.equal(_bits(res["logits"]), _bits(res["whole_logits"]))
-        assert int(res["gather_bytes"]) > 0
+        if mesh[1] == 1:
+            assert torch.equal(_bits(res["logits"]),
+                               _bits(res["whole_logits"]))
+        else:           # the tensor-parallel path: the blocks' own sums
+            assert _within(res["logits"].numpy(),
+                           res["whole_logits"].numpy(), GRAD_TOL)
+        # gathers over 'data' alone: nothing is gathered over 'model'
+        assert (int(res["gather_bytes"]) > 0) == (mesh[0] > 1 and not drop)
         assert int(res["stored"]) < whole_bytes
 
 
@@ -422,7 +499,7 @@ def test_serving_from_blocks_is_the_whole_tree(runs, i):
 
 def test_save_under_a_mesh_gathers_and_writes_one_leaf_at_a_time(runs):
     root = runs["ckpt"]
-    logs = [r[-1] for r in runs["two"]]
+    logs = [r[runs["ckpt_job"]] for r in runs["two"]]
     n = int(logs[0]["n_leaves"])
     assert logs[0]["log"].tolist() == [x for i in range(1, n + 1)
                                        for x in (i, -i)]

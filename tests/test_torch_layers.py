@@ -333,6 +333,39 @@ def test_seq_shard_decode_raises_not_silently_another_branch():
     assert not cache["k"].any() and not cache["v"].any()
 
 
+@pytest.mark.parametrize("case", ["gqa_past_end", "gqa_negative",
+                                  "gqa_window_past_end", "mla_past_end"])
+def test_cache_index_outside_the_cache_raises_index_error(case):
+    """A decode index outside the cache raises ``IndexError`` and leaves
+    the cache as it was (the reference's ``dynamic_update_slice`` would
+    clamp it and overwrite the last slot, a difference by design)."""
+    L_cache = 8
+    if case.startswith("mla"):
+        mla = cfgs.MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
+                             qk_rope_dim=8, v_head_dim=16)
+        _, cfg = _cfg(mla=mla, n_kv_heads=4)
+        p = P.tree_init(L.mla_abstract(cfg), torch.Generator().manual_seed(0),
+                        "float32", "cpu")
+        cache = {"ckv": torch.zeros(1, L_cache, 16),
+                 "kr": torch.zeros(1, L_cache, 8)}
+        fn, index = L.mla_apply, L_cache
+    else:
+        # a window shorter than the cache is not the rolling cache: the
+        # index is not taken modulo the cache
+        _, cfg = _cfg(attn_window=4 if "window" in case else 0)
+        p = P.tree_init(L.gqa_abstract(cfg), torch.Generator().manual_seed(0),
+                        "float32", "cpu")
+        cache = {"k": torch.zeros(1, L_cache, 2, 16),
+                 "v": torch.zeros(1, L_cache, 2, 16)}
+        fn, index = L.gqa_apply, -1 if case == "gqa_negative" else L_cache
+    x = torch.ones(1, 1, 64)
+    with pytest.raises(IndexError, match=f"cache index {index} outside a "
+                                         f"cache of {L_cache}"):
+        fn(p, x, cfg, torch.full((1, 1), index), cache=cache,
+           cache_index=index)
+    assert not any(t.any() for t in cache.values())
+
+
 def test_mla_prefill_and_absorbed_decode_match_the_reference():
     mla = cfgs.MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
                          qk_rope_dim=8, v_head_dim=16)
