@@ -169,7 +169,20 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    bit-identical to the plain decode, ``tp_all_reduce`` 49 and
    ``tp_all_gather`` 1 a step.  With two or more cards it runs the ``tp``
    card tests (h2o-danube-3-4b at 24 layers trained and served on a (1, 4)
-   mesh of four cards).
+   mesh of four cards);
+18. Mamba on its 'model' blocks and the scans' chunked remat: (a) a NCCL
+   world of one rank and a (1, 1) mesh, jamba-v0.1-52b at its published
+   widths cut to one 8-layer period (7 Mamba layers, 1 GQA, 4 MoE layers
+   of 16 experts, vocabulary 65,536; bf16 weights held, the stacked leaves
+   rescaled to their per-layer fan-in, finite logits that differ) served from
+   ``param_shardings(drop_fsdp=True)`` blocks (batch 4, prompt 256, 16 new
+   tokens): greedy tokens equal and logits bit-identical to the plain
+   decode, ``WIRE``'s tp counts the layer plan's (``jamba_serve_plan``);
+   (b) one Mamba layer at jamba's widths and one RWKV6 time mix at
+   rwkv6-3b's, 1 x 4096 tokens, forward and backward with and without the
+   chunks (``ssm.REMAT_CHUNK``): gradients bit-identical, each pass's peak
+   device memory.  With two or more cards it runs the ``jamba and cards``
+   card tests (one period on a (1, 4) mesh, served and trained).
 
 Phases 7-12, 14 and 15 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
@@ -2338,7 +2351,8 @@ def mesh_cards_check(select: str = "cards and not fsdp and not tp") -> None:
     """With two or more cards, the card tests that ``-k select`` picks (one
     NCCL rank per card, worlds of 2 and up to 4): phase 15's by default,
     phase 16's with ``"fsdp and cards"``, phase 17's with ``"tp and
-    cards"``; each card test runs in exactly one of them."""
+    cards and not jamba"``, phase 18's with ``"jamba and cards"``; each card
+    test runs in exactly one of them."""
     import torch
     n = torch.cuda.device_count()
     if n < 2:
@@ -2650,7 +2664,214 @@ def tp_phase(torch):
     finally:
         dist.destroy_process_group()
     _free(torch)
-    mesh_cards_check("tp and cards")
+    mesh_cards_check("tp and cards and not jamba")
+
+
+# --------------------------------------------------------------- phase 18 --
+
+JAMBA_PERIOD = 8            # one attention layer and seven Mamba layers
+REMAT_SEQ = 4096            # SHAPES["train_4k"]'s sequence
+
+
+def jamba_serve_plan(cfg):
+    """(``tp_all_reduce``, ``tp_all_gather``, ``tp_all_to_all``) calls of one
+    serving step (the prefill or a decode step) of a jamba config on the
+    tensor-parallel path, by its layer plan: a Mamba layer's output and its
+    three sums (the delta's low rank, B, C), its conv and SSM states
+    gathered whole for the cache, its ``in_proj`` re-cut once; an
+    attention layer's output where its heads are cut; each MLP's or MoE's
+    combine (and shared experts'); the embedding's sum and the logits
+    gathered, where the vocabulary is cut."""
+    from repro_torch.models.layers import heads_cut
+    from repro_torch.models.transformer import stack_plan
+    vocab = int(cfg.vocab_size % 16 == 0)
+    reduces, gathers, recuts = vocab, vocab, 0
+    for g in stack_plan(cfg):
+        for kind in g.kinds:
+            if kind.startswith("mamba"):
+                reduces += 4 * g.repeats
+                gathers += 2 * g.repeats
+                recuts += g.repeats
+            elif heads_cut(cfg):
+                reduces += g.repeats
+            shared = kind.endswith("_moe") and cfg.moe.n_shared
+            reduces += (2 if shared else 1) * g.repeats
+    return reduces, gathers, recuts
+
+
+def unstack_fan_in(tree, stacked: bool = False):
+    """A parameter tree (``Model.params``' nesting) with every stacked leaf
+    of 3 or more dims (under ``blocks``) divided in place by the square
+    root of its first per-layer dim; returns ``tree``.  ``tree_init``
+    takes a stacked leaf's fan-in from its leading, repeat axis (the
+    reference's rule), so at one repeat every stacked weight is drawn with
+    a standard deviation of 1; divided so, the draw has the fan-in of the
+    layer's own leaf.  Not the reference's init: for runs of a model at
+    its published widths that must stay finite (jamba's 8-layer period
+    drawn by the rule overflows float32 in its norms)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            unstack_fan_in(v, stacked or k == "blocks")
+        elif stacked and v.dim() >= 3:
+            v.data.div_(v.shape[1] ** 0.5)
+    return tree
+
+
+def jamba_serve_check(torch, mesh):
+    """jamba-v0.1-52b at its published widths, one period of 8 layers, bf16
+    weights (seed 0, the stacked leaves rescaled to the fan-in of the
+    layer's own by ``unstack_fan_in``: drawn by the stacked rule, std
+    1 at one repeat, the norms overflow and every logit is the same),
+    finite logits that differ, served from
+    ``param_shardings(drop_fsdp=True)`` blocks on the
+    tensor-parallel path (Mamba on its blocks of ``d_inner``, ``in_proj``
+    re-cut): batch 4, prompt 256, 16 new tokens; greedy tokens equal and
+    logits bit-identical to the plain decode of the whole tree, ``WIRE``'s
+    tp counts the layer plan's."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.driver import build_inputs
+    from repro_torch.models.model import Model, count_params
+    from repro_torch.train.step import param_shardings
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_PERIOD)
+    model = Model(cfg, device="cuda", seed=0)
+    unstack_fan_in(model.params)
+    held = model.compute_params()
+    prompts, _ = build_inputs(cfg, SEQ_BATCH, SEQ_PROMPT, device="cuda")
+    max_len = SEQ_PROMPT + SEQ_NEW
+    plain = _decode(torch, model, held, prompts, SEQ_NEW, max_len)
+    spread = float(plain[1].float().std())
+    check(bool(torch.isfinite(plain[1]).all()) and spread > 0,
+          f"jamba's plain decode: logits not finite or all equal (std "
+          f"{spread})")
+    named = param_shardings(model, mesh, drop_fsdp=True)
+    blocks = shd.shard_tree(held, named)
+    del model, held
+    _free(torch)
+    model = Model(cfg, blocks, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    shd.WIRE.reset()
+    with shd.use_mesh(mesh):
+        got = _decode(torch, model, blocks, prompts, SEQ_NEW, max_len,
+                      shardings=named)
+    wire = _wire(shd)
+    check(torch.equal(got[0], plain[0]), "jamba served on the "
+          "tensor-parallel path: greedy tokens differ from the plain decode's")
+    check(torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32)),
+          f"jamba served on the tensor-parallel path: logits are not the "
+          f"plain decode's bits (max relative difference "
+          f"{_rel(torch, plain[1], got[1])})")
+    plan = jamba_serve_plan(cfg)
+    counts = tuple(shd.WIRE.snapshot()[k] for k in (
+        "tp_all_reduce", "tp_all_gather", "tp_all_to_all"))
+    check(counts == tuple(SEQ_NEW * x for x in plan)
+          and not wire.get("param_gather_bytes", 0),
+          f"jamba served on the tensor-parallel path: (tp_all_reduce, "
+          f"tp_all_gather, tp_all_to_all) {counts}, the plan {SEQ_NEW} x "
+          f"{plan}; WIRE {wire}")
+    print(f"jamba-v0.1-52b, one period ({JAMBA_PERIOD} of 32 layers, "
+          f"{count_params(cfg):,} params), served from blocks ({mesh}, "
+          f"param_shardings(drop_fsdp=True)), tensor-parallel with Mamba on "
+          f"its blocks: batch {SEQ_BATCH}, prompt {SEQ_PROMPT}, {SEQ_NEW} new "
+          f"tokens: greedy tokens equal, logits bit-identical to the plain "
+          f"decode; {got[3]:.2f} ms/token (plain {plain[3]:.2f}), prefill "
+          f"{got[2]:.3f} s (plain {plain[2]:.3f}); a rank stores "
+          f"{fsdp.stored_bytes(blocks) / 1e9:.3f} GB of weights; peak device "
+          f"memory of the block run {_peak_gib(torch):.2f} GiB; (tp_all_reduce, "
+          f"tp_all_gather, tp_all_to_all) a step {plan}, the layer plan's; "
+          f"WIRE over the prefill and {SEQ_NEW - 1} decode steps {wire}",
+          flush=True)
+    del model, blocks, plain, got
+    _free(torch)
+
+
+def remat_check(torch):
+    """One Mamba layer at jamba-v0.1-52b's widths and one RWKV6 time mix at
+    rwkv6-3b's, their config's parameter and compute dtypes, 1 x 4096
+    tokens: the loss ``sum(out * cot)`` and its gradients (x and every
+    leaf), with the scans' chunked remat (``REMAT_CHUNK`` = 64) and
+    without (0): bit-identical; the peak device memory of each pass over
+    what was allocated before it, and its wall (after a warm-up of both
+    paths at 128 tokens)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.layers import compute_dtype
+    from repro_torch.models.params import tree_init, tree_leaves
+    from repro_torch.train.step import value_and_grad
+    layers = (("Mamba, jamba-v0.1-52b", "jamba-v0.1-52b", SSM.mamba_abstract,
+               SSM.mamba_apply),
+              ("RWKV6 time mix, rwkv6-3b", "rwkv6-3b",
+               SSM.rwkv_time_mix_abstract, SSM.rwkv_time_mix_apply))
+    chunk = SSM.REMAT_CHUNK
+    try:
+        for what, arch, abstract, apply in layers:
+            cfg = get_config(arch)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = tree_init(abstract(cfg), gen, cfg.param_dtype, "cuda")
+            x, cot = (torch.randn((1, REMAT_SEQ, cfg.d_model), generator=gen,
+                                  device="cuda").to(compute_dtype(cfg))
+                      for _ in range(2))
+            runs = {}
+
+            def grads(t):
+                return value_and_grad(lambda q: torch.sum(
+                    apply(q["p"], q["x"], cfg)[0].float() * q["c"].float()),
+                    {"p": params, "x": t, "c": cot[:, :t.shape[1]]})[1]
+            for c in (chunk, 0):          # warm-up: both paths at 128 tokens
+                SSM.REMAT_CHUNK = c
+                grads(x[:, :2 * max(chunk, 64)])
+            for c in (chunk, 0):
+                SSM.REMAT_CHUNK = c
+                _free(torch)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                g = grads(x)
+                torch.cuda.synchronize()
+                runs[c] = (tree_leaves(g), time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated() - base)
+                del g
+            same = all(torch.equal(a, b) for a, b in zip(runs[chunk][0],
+                                                         runs[0][0]))
+            check(same, f"{what}: gradients with the scans' chunked remat "
+                  f"differ from those without")
+            print(f"{what}, 1 x {REMAT_SEQ} tokens, forward and backward: "
+                  f"gradients bit-identical with and without the chunks; "
+                  f"peak over the parameters and inputs "
+                  f"{runs[chunk][2] / 2 ** 30:.3f} GiB with chunks of "
+                  f"{chunk}, {runs[0][2] / 2 ** 30:.3f} GiB without; walls "
+                  f"{runs[chunk][1]:.2f} s and {runs[0][1]:.2f} s", flush=True)
+            del params, x, cot, runs
+            _free(torch)
+    finally:
+        SSM.REMAT_CHUNK = chunk
+
+
+def jamba_phase(torch):
+    """Phase 18: jamba's period served from TP blocks in a NCCL world of one
+    rank on a (1, 1) mesh, the scans' chunked remat at full width; then,
+    with more cards, the ``jamba and cards`` card tests."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, device="cuda")
+    try:
+        for what, fn in (("(a) jamba's period served tensor-parallel",
+                          lambda: jamba_serve_check(torch, mesh)),
+                         ("(b) the scans' chunked remat",
+                          lambda: remat_check(torch))):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fn()
+            print(f"{what}: {time.perf_counter() - t0:.2f} s, peak device "
+                  f"memory {_peak_gib(torch):.2f} GiB", flush=True)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    mesh_cards_check("jamba and cards")
 
 
 def main(argv) -> int:
@@ -2779,6 +3000,12 @@ def main(argv) -> int:
                "mesh; more cards: the tp card tests)")
     tp_phase(torch)
     done(t0, "phase 17")
+
+    t0 = phase("18 Mamba on its 'model' blocks (jamba's period served, NCCL, "
+               "a (1, 1) mesh) and the scans' chunked remat; more cards: the "
+               "jamba card tests")
+    jamba_phase(torch)
+    done(t0, "phase 18")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

@@ -25,8 +25,8 @@ a      yes           yes        gather; reduce-scatter (sum)
 b      yes           no         gather; the rank's own block, no sum: its
                                 ranks computed the same loss on the same
                                 tokens.  The ranks repeat each other's
-                                compute: Mamba's leaves (and RWKV's
-                                time mix, should a config cut it)
+                                compute: RWKV's time mix, should a
+                                config cut it
 b'     yes ('model') no         no gather: the layer computes on the block
                                 (``distributed/tp.py``), which gets its
                                 whole gradient there, no sum; the caller

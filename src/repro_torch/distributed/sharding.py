@@ -28,16 +28,19 @@ wire, by kind, with the ring model of ``repro.launch.hlo_analysis`` (a
 mesh axis of one rank counts one and moves nothing: an all-reduce or an
 all-gather over it returns the tensor itself, with no copy and no call to
 the backend): an all-gather moves
-``out x (n-1)/n``, an all-reduce ``2 x out x (n-1)/n`` and a
-reduce-scatter ``out x (n-1)`` (``out``: the bytes of one rank's output).
+``out x (n-1)/n``, an all-reduce ``2 x out x (n-1)/n``, a reduce-scatter
+``out x (n-1)`` and an all-to-all ``out x (n-1)/n`` (``out``: the bytes of
+one rank's output).
 The collectives of sharded parameter storage (``distributed/fsdp.py``)
 count under kinds of their own: ``param_gather`` (a block gathered whole),
 ``grad_reduce_scatter`` and ``grad_all_reduce`` (a whole gradient reduced
 to the block), and so do those of tensor-parallel compute over 'model'
 (``distributed/tp.py``): ``tp_all_reduce`` (the forward of ``reduce_from``,
 the backward of ``copy_to``, the vocabulary's max and sums) and
-``tp_all_gather`` (logits and the seq-sharded decode's queries gathered
-whole), so that every byte is counted once, under one kind.
+``tp_all_gather`` (logits, the seq-sharded decode's queries and Mamba's
+decode state gathered whole) and ``tp_all_to_all`` (Mamba's ``in_proj``
+re-cut to the rank's channels, and back in the backward), so that every
+byte is counted once, under one kind.
 
 :func:`shard_tree` and :func:`gather_tree` are the counterparts of
 ``jax.device_put(tree, shardings)`` and of reading such a tree back whole.
@@ -79,6 +82,8 @@ class WireCounters(StatCounters):
     tp_all_reduce_bytes: int = 0
     tp_all_gather: int = 0
     tp_all_gather_bytes: int = 0
+    tp_all_to_all: int = 0
+    tp_all_to_all_bytes: int = 0
 
 
 WIRE = WireCounters()
@@ -367,6 +372,26 @@ def all_gather(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
     x = x.contiguous()
     out = x.new_empty((n,) + tuple(x.shape))
     _all_gather(out.view(-1), x.view(-1), group=mesh.group(axes))
+    _count(kind, _nbytes(out) * (n - 1) // n)
+    return out
+
+
+def all_to_all(x: torch.Tensor, axes: Axes, send: Sequence[int],
+               recv: Sequence[int], kind: str,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Rows of ``x`` (dim 0) exchanged over the ranks of ``axes``: the
+    first ``send[0]`` rows go to the rank at index 0, the next ``send[1]``
+    to index 1, and so on; this rank gets ``recv[j]`` rows from the rank at
+    index j, concatenated in rank order (``all_to_all_single`` with split
+    sizes; counted in ``WIRE`` under ``kind``)."""
+    mesh = _mesh(mesh)
+    if _alone(mesh, axes, kind):
+        return x
+    n = mesh.size(axes)
+    x = x.contiguous()
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, list(recv), list(send),
+                           group=mesh.group(axes))
     _count(kind, _nbytes(out) * (n - 1) // n)
     return out
 

@@ -14,25 +14,32 @@ entered through :func:`enter` (identity forward, all-reduce backward:
 Megatron's "f") and a row-parallel one left through :func:`leave`
 (all-reduce forward, identity backward: "g"), so that every rank of
 'model' ends with the whole gradient of the one loss they compute, as in
-``sharding``'s differentiable collectives.
+``sharding``'s differentiable collectives.  A row-parallel sum that every
+rank's block then reads again (Mamba's low-rank delta, B and C) takes
+both, :func:`summed`.
 The rule holds at any size of 'model', one included, so a one-card run
 goes through the same code.  Without blocks, or where 'model' cuts the
 batch (the archs whose ``cell_policy`` folds it into data), every layer
 computes on whole leaves as before.
 
+Mamba's ``in_proj`` is cut over 'model' in contiguous blocks of the
+concatenated ``[x, z]``, so a rank's stored block does not hold matching
+halves of the two; :func:`recut` exchanges the blocks once a repeat
+(``all_to_all`` over 'model') so that each rank holds its own channels of
+both, and its backward sends each gradient back to the stored block.
+
 A layer that does not compute on its blocks gathers them whole over
 'model' itself (:func:`whole`, case b of ``fsdp``'s table: the ranks
-repeat each other's compute).  Mamba does: ``in_proj`` cuts the
-concatenated ``[x, z]`` in contiguous blocks, so a rank's block does not
-hold matching halves.  So does RWKV's time mix, which no config cuts (40
-heads for rwkv6-3b).
+repeat each other's compute).  Only RWKV's time mix does, and no config
+cuts it (40 heads for rwkv6-3b; the spec cuts heads that divide 16).
 
 The vocabulary-parallel pieces (:func:`vocab_embed`,
 :func:`vocab_logsumexp`, :func:`vocab_gold`) compute the embedding and the
 cross-entropy from a rank's block of the vocabulary; at one rank they give
 the bits of the whole-vocabulary ops (``torch.logsumexp`` and its
 backward, ``torch.gather``, indexing).  Every collective here counts in
-``sharding.WIRE`` under ``tp_all_reduce`` or ``tp_all_gather``.
+``sharding.WIRE`` under ``tp_all_reduce``, ``tp_all_gather`` or
+``tp_all_to_all``.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from repro_torch.distributed import sharding as shd
 AXIS = "model"
 REDUCE = "tp_all_reduce"
 GATHER = "tp_all_gather"
+ALL_TO_ALL = "tp_all_to_all"
 
 
 def _first_named(shardings) -> Optional[shd.Named]:
@@ -123,10 +131,74 @@ def leave(x: torch.Tensor, tp: Optional[shd.Mesh]) -> torch.Tensor:
     return x if tp is None else shd.reduce_from(x, AXIS, tp, REDUCE)
 
 
+def summed(x: torch.Tensor, tp: Optional[shd.Mesh]) -> torch.Tensor:
+    """The sum over 'model' of each rank's part, read again by every
+    rank's block: all-reduced forward and backward (:func:`leave`, then
+    :func:`enter`), so that each part gets the gradient of every rank's
+    reading, not of its own alone."""
+    return enter(leave(x, tp), tp)
+
+
 def gather(x: torch.Tensor, dim: int, tp: Optional[shd.Mesh]
            ) -> torch.Tensor:
     """Every rank's block along ``dim`` concatenated, whole on each."""
     return x if tp is None else shd.gather_from(x, AXIS, dim, tp, GATHER)
+
+
+def own(x: torch.Tensor, dim: int, tp: Optional[shd.Mesh]) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, whole on every rank."""
+    if tp is None:
+        return x
+    n = x.shape[dim] // tp.shape[AXIS]
+    return x.narrow(dim, lo(tp, n), n)
+
+
+def _exchange(rows: torch.Tensor, dests, srcs, tp: shd.Mesh
+              ) -> torch.Tensor:
+    """Two chunks of ``rows`` (its halves along dim 0) sent to the ranks
+    ``dests`` of 'model', and the two chunks this rank gets back from the
+    ranks ``srcs``, in the order of ``srcs``."""
+    n, c = tp.shape[AXIS], rows.shape[0] // 2
+    if dests[0] > dests[1]:
+        rows = torch.cat([rows[c:], rows[:c]])
+    got = shd.all_to_all(rows, AXIS, [c * dests.count(j) for j in range(n)],
+                         [c * srcs.count(j) for j in range(n)], ALL_TO_ALL,
+                         tp)
+    return got if srcs[0] < srcs[1] else torch.cat([got[c:], got[:c]])
+
+
+def _recut(w: torch.Tensor, tp: shd.Mesh, back: bool) -> torch.Tensor:
+    """``w`` (d, 2c) from the stored block to ``[x_r, z_r]`` (``back``:
+    the other way).  Of the 2n column chunks of ``[x, z]``, rank q stores
+    2q and 2q + 1, and rank r computes on r (its ``x``) and n + r (its
+    ``z``)."""
+    n, r = tp.shape[AXIS], tp.index(AXIS)
+    if n == 1:          # the identity, counted at 0 B
+        return shd.all_to_all(w, AXIS, [w.shape[0]], [w.shape[0]],
+                              ALL_TO_ALL, tp).view_as(w)
+    stored = [(2 * r) % n, (2 * r + 1) % n]
+    wanted = [r // 2, (n + r) // 2]
+    dests, srcs = (wanted, stored) if back else (stored, wanted)
+    return _exchange(w.t(), dests, srcs, tp).t()
+
+
+class _Recut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, tp):
+        ctx.tp = tp
+        return _recut(w, tp, back=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recut(g, ctx.tp, back=True), None
+
+
+def recut(w: torch.Tensor, tp: Optional[shd.Mesh]) -> torch.Tensor:
+    """Mamba's ``in_proj``, this rank's stored block (d, 2c) of the
+    concatenated ``[x, z]`` (d, 2 x n x c), as this rank's ``c`` channels of
+    ``x`` beside the same channels of ``z``: one ``all_to_all`` over
+    'model', and one back in the backward (a view at one rank)."""
+    return w if tp is None else _Recut.apply(w, tp)
 
 
 def kv_heads(lo_q: int, n_q: int, group: int) -> slice:

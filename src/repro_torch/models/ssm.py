@@ -1,22 +1,43 @@
 """Attention-free sequence mixers: RWKV6 (Finch) and Mamba (selective SSM).
 
 A port of ``repro.models.ssm``.  Prefill runs the recurrence as a Python
-loop over tokens (the reference's ``lax.scan``; its chunked
-rematerialization changes no value and matters only for a backward pass),
-and decode is the same step applied once to the carried state.  The loop
-runs inside an ``ssm.scan`` span (host wall; the loop is launch-bound on
-the card, so that is its share of a prefill).
+loop over tokens (the reference's ``lax.scan``), and decode is the same
+step applied once to the carried state.  When autograd records and the
+sequence is a multiple of ``REMAT_CHUNK`` (64) steps longer than one, the
+loop runs as chunks of 64 steps, each under ``torch.utils.checkpoint``
+(the reference's ``jax.checkpoint`` around its inner scan): the backward
+keeps only the states at chunk boundaries and recomputes a chunk's steps
+(64x fewer states; the gradients are the same bits, since the recomputed
+graph is the recorded one).  The loop runs inside an ``ssm.scan`` span
+(host wall; the loop is launch-bound on the card, so that is its share of
+a prefill).
 
 RWKV6 has the data-dependent decay ``w_t = exp(-exp(w0 + lora(x_t)))``
 and Finch's ddlerp token-shift mixers (arXiv:2404.05892).  Mamba is the
 selective SSM (S4D discretization, input-dependent Delta/B/C) with the
 depthwise causal conv, as in Jamba's Mamba layers.
+
+Under ``tp`` (``distributed.tp.context``) Mamba computes on the rank's
+channels of ``d_inner``, the blocks its specs cut over 'model', as GSPMD
+does: ``in_proj`` re-cut to the rank's channels of ``x`` and ``z``
+(``tp.recut``) and column-parallel behind ``tp.enter``; the conv, the
+delta's up-projection, ``A``, the skip and the gate on those channels;
+``w_dt_down``, ``w_b`` and ``w_c`` row-parallel, their partial sums
+all-reduced forward and backward (``tp.summed``: every rank's channels
+read the sums); ``out_proj`` row-parallel behind ``tp.leave``.  The decode
+state is whole on every rank (``cache_shardings``): a step reads its
+channels and returns its channels of the new state, which
+``transformer.stack_apply`` gathers whole where a cache keeps it.  RWKV's
+time mix gathers its leaves whole over 'model' (``tp.whole``); no config
+cuts them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tp as TP
@@ -27,6 +48,35 @@ from repro_torch.obs import trace as obs_trace
 RWKV_HEAD_DIM = 64
 DDLERP_RANK = 32
 DECAY_RANK = 64
+REMAT_CHUNK = 64        # steps a rematerialized chunk of a scan; 0: none
+
+
+def _steps(step, carry, *xs):
+    """``step(carry, *x_t) -> (carry, y_t)`` over dim 1 of ``xs``:
+    (the last carry, the ``y_t`` stacked along dim 1)."""
+    ys = []
+    for t in range(xs[0].shape[1]):
+        carry, y = step(carry, *(x[:, t] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
+def _scan(step, carry, *xs):
+    """:func:`_steps` over the whole sequence, as chunks of ``REMAT_CHUNK``
+    steps under ``checkpoint`` when autograd records and the length is a
+    multiple of the chunk longer than one (the reference's rule)."""
+    s, c = xs[0].shape[1], REMAT_CHUNK
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (carry,) + xs)
+    if not (records and c and s % c == 0 and s > c):
+        return _steps(step, carry, *xs)
+    ys = []
+    for lo in range(0, s, c):
+        carry, y = checkpoint(_steps, step, carry,
+                              *(x[:, lo:lo + c] for x in xs),
+                              use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys, dim=1)
 
 
 # ------------------------------------------------------------------- RWKV6 --
@@ -105,13 +155,9 @@ def rwkv_time_mix_apply(p, x: torch.Tensor, cfg: ModelConfig,
     wh = w.reshape(b, s, h, hd)
     u = p["u"].float().reshape(h, hd)[None, :, :, None]
 
-    outs = []
     with obs_trace.span("ssm.scan", kind="rwkv6", steps=s):
-        for t in range(s):
-            kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]   # (B,H,K,V)
-            outs.append(torch.einsum("bhk,bhkv->bhv", rh[:, t], S + u * kv))
-            S = wh[:, t, :, :, None] * S + kv
-    out = torch.stack(outs, dim=1)                            # (B,S,H,V)
+        S, out = _scan(functools.partial(_rwkv_step, u), S, rh, kh, vh,
+                       wh)                                    # (B,S,H,V)
 
     # per-head groupnorm
     mean = torch.mean(out, dim=-1, keepdim=True)
@@ -120,6 +166,12 @@ def rwkv_time_mix_apply(p, x: torch.Tensor, cfg: ModelConfig,
     out = out.reshape(b, s, d) * p["ln_w"].float()
     y = einsum("btd,de->bte", out.to(cdt) * g, p["wo"].to(cdt))
     return y, {"shift": x[:, -1, :], "wkv": S}
+
+
+def _rwkv_step(u, S, rt, kt, vt, wt):
+    kv = kt[:, :, :, None] * vt[:, :, None, :]                # (B,H,K,V)
+    out = torch.einsum("bhk,bhkv->bhv", rt, S + u * kv)
+    return wt[:, :, :, None] * S + kv, out
 
 
 def rwkv_channel_mix_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
@@ -172,27 +224,36 @@ def mamba_abstract(cfg: ModelConfig) -> Dict[str, PSpec]:
     }
 
 
+def _mamba_step(A, h, xt, dtt, bt, ct):
+    da = torch.exp(dtt[..., None] * A[None])                   # (B,din,ds)
+    h = da * h + (dtt * xt)[..., None] * bt[:, None, :]
+    return h, torch.einsum("bds,bs->bd", h, ct)
+
+
 def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[Dict] = None, tp=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """x: (B,S,D).  state (decode): {'conv': (B,W-1,din), 'ssm': (B,din,ds)}.
-    ``tp``: the leaves are blocks cut over 'model', gathered whole here
-    (``in_proj``'s block does not hold matching halves of ``[x, z]``)."""
-    p = TP.whole(p, mamba_abstract(cfg), tp)
+    ``tp``: the leaves are this rank's blocks of ``d_inner`` (the module
+    docstring); the state is read whole and returned as this rank's
+    channels."""
     cdt = compute_dtype(cfg)
     ssm = cfg.ssm
     b, s, d = x.shape
-    din = ssm.expand * d
+    din = p["d_skip"].shape[0]                  # this rank's under ``tp``
     wconv = ssm.conv_width
 
-    xz = einsum("btd,de->bte", x, p["in_proj"].to(cdt))
+    w_in = p["in_proj"].to(cdt)
+    if tp is not None:
+        w_in, x = TP.recut(w_in, tp), TP.enter(x, tp)
+    xz = einsum("btd,de->bte", x, w_in)
     xin, z = xz[..., :din], xz[..., din:]
 
     # depthwise causal conv
     if state is None:
         pad = torch.zeros((b, wconv - 1, din), dtype=cdt, device=x.device)
     else:
-        pad = state["conv"].to(cdt)
+        pad = TP.own(state["conv"], -1, tp).to(cdt)
     xpad = torch.cat([pad, xin], dim=1)                        # (B, S+W-1, din)
     conv = sum(xpad[:, i:i + s, :] * p["conv_w"][i].to(cdt)
                for i in range(wconv)) + p["conv_b"].to(cdt)
@@ -200,25 +261,21 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
 
     # the low-rank delta contracts xc with w_dt_down first, as the
     # reference's einsum path does
-    dt = einsum("bte,er->btr", xc, p["w_dt_down"].to(cdt))
+    dt = TP.summed(einsum("bte,er->btr", xc, p["w_dt_down"].to(cdt)), tp)
     dt = einsum("btr,rf->btf", dt, p["w_dt_up"].to(cdt)) + p["dt_bias"].to(cdt)
     dt = dt.float()
     dt = torch.logaddexp(dt, torch.zeros_like(dt))             # softplus
-    Bm = einsum("bte,es->bts", xc, p["w_b"].to(cdt)).float()
-    Cm = einsum("bte,es->bts", xc, p["w_c"].to(cdt)).float()
+    Bm = TP.summed(einsum("bte,es->bts", xc, p["w_b"].to(cdt)), tp).float()
+    Cm = TP.summed(einsum("bte,es->bts", xc, p["w_c"].to(cdt)), tp).float()
     A = -torch.exp(p["a_log"].float())                         # (din, ds)
 
-    h = (state["ssm"] if state is not None
+    h = (TP.own(state["ssm"], 1, tp) if state is not None
          else torch.zeros((b, din, ssm.d_state), device=x.device))
     xc32 = xc.float()
-    ys = []
     with obs_trace.span("ssm.scan", kind="mamba", steps=s):
-        for t in range(s):
-            da = torch.exp(dt[:, t, :, None] * A[None])        # (B,din,ds)
-            h = (da * h
-                 + (dt[:, t] * xc32[:, t])[..., None] * Bm[:, t, None, :])
-            ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
-    y = torch.stack(ys, dim=1) + xc32 * p["d_skip"].float()
+        h, ys = _scan(functools.partial(_mamba_step, A), h, xc32, dt, Bm,
+                      Cm)
+    y = ys + xc32 * p["d_skip"].float()
     y = y.to(cdt) * silu(z)
-    out = einsum("bte,ed->btd", y, p["out_proj"].to(cdt))
+    out = TP.leave(einsum("bte,ed->btd", y, p["out_proj"].to(cdt)), tp)
     return out, {"conv": xpad[:, -(wconv - 1):, :], "ssm": h}

@@ -27,8 +27,10 @@ function that ``checkpoint`` wraps, so that under remat no gathered weight
 outlives its repeat and the backward gathers again.  Where 'model' does
 not cut the batch (``distributed.tp.context``) the leaves that the specs
 cut over 'model' are gathered over their other axes only and the layers
-compute on the blocks (``tp`` below); Mamba and RWKV's time mix gather
-theirs whole over 'model' themselves (``distributed.tp.whole``).
+compute on the blocks (``tp`` below); RWKV's time mix gathers its own
+whole over 'model' (``distributed.tp.whole``).  Mamba returns its rank's
+channels of the decode state, gathered whole here only where a cache
+keeps it (a prefill that builds the caches, a decode step).
 """
 from __future__ import annotations
 
@@ -222,6 +224,20 @@ def _store(dst: Dict, src: Dict) -> None:
     tree_map(put, dst, src)
 
 
+def _whole_states(new_c: Dict, tp) -> Dict:
+    """A repeat's new caches with each Mamba state gathered whole over
+    'model' (``cache_shardings`` keeps them whole; under ``tp`` the layer
+    returns its rank's channels)."""
+    if tp is None:
+        return new_c
+    for c in new_c.values():
+        if "mamba" in c:
+            m = c["mamba"]
+            c["mamba"] = {"conv": TP.gather(m["conv"], -1, tp),
+                          "ssm": TP.gather(m["ssm"], 1, tp)}
+    return new_c
+
+
 def _repeat_apply(g: StackGroup, cfg: ModelConfig, positions, cache_index,
                   vision_states, named, tp, h: torch.Tensor, p_layer: Dict,
                   c_layer: Optional[Dict]):
@@ -277,9 +293,9 @@ def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
             else:
                 x, aux, new_c = run(x, p_layer, c_layer)
                 if c_layer is not None:
-                    _store(c_layer, new_c)
+                    _store(c_layer, _whole_states(new_c, tp))
                 elif build_caches:
-                    built.append(new_c)
+                    built.append(_whole_states(new_c, tp))
             # the reference's scan carries only the last sub-layer's aux
             # of each repeat (jamba's period of 8 adds one of its 4 MoE
             # layers' aux); kept so that the loss matches it

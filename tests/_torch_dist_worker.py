@@ -27,6 +27,25 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 
 
+def unstack_fan_in(tree, stacked: bool = False):
+    """A parameter tree (``Model.params``' nesting) with every stacked leaf
+    of 3 or more dims (under ``blocks``) divided in place by the square
+    root of its first per-layer dim; returns ``tree``.  ``tree_init``
+    takes a stacked leaf's fan-in from its leading, repeat axis (the
+    reference's rule), so at one repeat every stacked weight is drawn with
+    a standard deviation of 1; divided so, the draw has the fan-in of the
+    layer's own leaf.  Not the reference's init: for runs of a model at
+    its published widths that must stay finite (jamba's 8-layer period
+    drawn by the rule overflows float32 in its norms)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            unstack_fan_in(v, stacked or k == "blocks")
+        elif stacked and v.dim() >= 3:
+            with torch.no_grad():
+                v.div_(v.shape[1] ** 0.5)
+    return tree
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -407,9 +426,9 @@ def fsdp_train(mesh, arch, params, batch, batch_axes, n_micro=1,
     """One ``make_train_step`` step with ``shardings=`` on this rank's
     blocks, and the whole-tree step (no ``shardings``) under the same mesh
     cut to the same blocks: loss, grad norm, the gradient blocks handed to
-    AdamW, new parameter blocks, AdamW m and v, the bytes stored and
-    ``WIRE``'s counts, and the norm of the sharded step's own gradient
-    gathered whole; with ``gathered``, that gradient itself.
+    AdamW, the parameter blocks before and after, AdamW m and v, the bytes
+    stored and ``WIRE``'s counts, and the norm of the sharded step's own
+    gradient gathered whole; with ``gathered``, that gradient itself.
     ``overrides``: ``_cfg_of``'s.  ``float64``: the parameters and the
     compute in float64 (AdamW's state stays float32), so that a sum taken
     in another order rounds far below float32's ulp."""
@@ -459,6 +478,8 @@ def fsdp_train(mesh, arch, params, batch, batch_axes, n_micro=1,
            "wire": torch.tensor([wire[k] for k in sorted(wire)]),
            "wire_keys": sorted(wire), "saved_shapes": saved}
     cut = lambda t, n: shd.local_shard(t, n.spec, n.mesh)  # noqa: E731
+    for name, x in _named(blocks):
+        out[f"start.{name}"] = x
     for tag, a, b in (("grad", g2, g1), ("param", p2, p1),
                       ("m", o2.m, o1.m), ("v", o2.v, o1.v)):
         for (name, x), (_, y), (_, n) in zip(_named(a), _named(b),
@@ -668,8 +689,11 @@ def _all_reduce_ms(mesh, lead, widths, reps: int = 10):
 
 
 def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card,
-                snapshot=None, compute_dtype=None):
-    """h2o-danube-3-4b at its published widths, cut to ``layers``, trained
+                snapshot=None, compute_dtype=None, arch="h2o-danube-3-4b",
+                overrides=None, unstacked=False):
+    """h2o-danube-3-4b (or ``arch``, its config's fields ``overrides``
+    replaced, its stacked weights rescaled by ``unstack_fan_in``
+    with ``unstacked``) at its published widths, cut to ``layers``, trained
     ``steps`` steps from this rank's blocks under ``train_shardings`` on
     ``mesh`` with phase 14's settings of ``chip_smoke.py`` (AdamW lr 3e-4,
     warmup 1, bf16 compute, remat, float32 parameters and state), the
@@ -705,7 +729,8 @@ def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card,
     from repro_torch.train import loop
     from repro_torch.train import step as st
     dev = _mesh_device(mesh)
-    cfg = dc.replace(get_config("h2o-danube-3-4b"), n_layers=int(layers))
+    cfg = dc.replace(get_config(arch), n_layers=int(layers),
+                     **(overrides or {}))
     if compute_dtype:
         cfg = dc.replace(cfg, compute_dtype=compute_dtype)
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
@@ -715,6 +740,8 @@ def fsdp_danube(mesh, layers, steps, global_batch, seq, one_card,
                                 device=dev)(0)
     n = mesh.size(("data",))
     model = Model(cfg, device=dev, seed=0)
+    if unstacked:
+        unstack_fan_in(model.params)
     named = st.train_shardings(model, policy, mesh, opt_cfg)
     out = {}
     if one_card:
@@ -822,15 +849,19 @@ def _layer_cfg(cfg_kw):
     return ModelConfig(**kw)
 
 
-def tp_layer(mesh, module, params, x, cot, cfg_kw):
-    """One layer ``module`` ('gqa', 'mla', 'mlp', 'moe' or 'cmix') of the
-    config ``cfg_kw`` under the mesh, its batch cut over 'data' alone (of
-    one rank), on the whole ``params`` and, under ``tp``, on this rank's
-    blocks of the leaves its specs cut over 'model' (``local_shard``):
-    both outputs, and the gradients of ``sum(out * cot)`` (plus the MoE's
-    aux loss) with respect to ``x`` and every leaf, the blocks' beside the
-    whole gradient's own block; ``WIRE``'s counts of the block run."""
+def tp_layer(mesh, module, params, x, cot, cfg_kw, leave_only=False):
+    """One layer ``module`` ('gqa', 'mla', 'mlp', 'moe', 'cmix' or
+    'mamba') of the config ``cfg_kw`` under the mesh, its batch cut over
+    'data' alone (of one rank), on the whole ``params`` and, under ``tp``,
+    on this rank's blocks of the leaves its specs cut over 'model'
+    (``local_shard``): both outputs, and the gradients of ``sum(out *
+    cot)`` (plus the MoE's aux loss) with respect to ``x`` and every leaf,
+    the blocks' beside the whole gradient's own block; ``WIRE``'s counts
+    of the block run.  ``leave_only``: the block run with ``tp.summed``
+    replaced by ``tp.leave`` (a sum all-reduced forward only, the fault
+    the gradient test must catch)."""
     from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tp as TP
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
     from repro_torch.models import ssm as SSM
@@ -850,6 +881,8 @@ def tp_layer(mesh, module, params, x, cot, cfg_kw):
         "cmix": (SSM.rwkv_channel_mix_abstract,
                  lambda p, h, tp: SSM.rwkv_channel_mix_apply(p, h, cfg,
                                                              tp=tp)[0]),
+        "mamba": (SSM.mamba_abstract,
+                  lambda p, h, tp: SSM.mamba_apply(p, h, cfg, tp=tp)[0]),
     }[module]
     with shd.use_mesh(mesh):
         named = tree_map(lambda sp: shd.Named(mesh, sp),
@@ -869,8 +902,14 @@ def tp_layer(mesh, module, params, x, cot, cfg_kw):
         y = out[0]
         return (y[0] if isinstance(y, tuple) else y).detach(), g
     y_whole, g_whole = run(params, None)
+    summed = TP.summed
+    if leave_only:
+        TP.summed = TP.leave
     shd.WIRE.reset()
-    y_tp, g_tp = run(blocks, mesh)
+    try:
+        y_tp, g_tp = run(blocks, mesh)
+    finally:
+        TP.summed = summed
     wire = shd.WIRE.snapshot()
     res = {"out": y_tp, "whole_out": y_whole, "grad_x": g_tp["x"],
            "whole_grad_x": g_whole["x"],
@@ -883,8 +922,46 @@ def tp_layer(mesh, module, params, x, cot, cfg_kw):
     return res
 
 
-def danube_serve(mesh, layers, batch, prompt, n_new, compute_dtype=None):
-    """h2o-danube-3-4b at its published widths cut to ``layers`` (and with
+def tp_recut(mesh, w, cot):
+    """``tp.recut`` of this rank's block (``local_shard`` over 'model' of
+    dim 1) of the whole ``w`` (d, 2 x din), and the gradient that its
+    backward hands the block for the cotangent ``cot`` (d, 2 x din, whole;
+    this rank's channels of its ``x`` and ``z`` halves taken); and the
+    same two from the whole leaves by slicing."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tp as TP
+    block = shd.local_shard(w, (None, "model"), mesh).clone()
+    block.requires_grad_(True)
+    din = w.shape[1] // 2
+
+    def mine(t):
+        return torch.cat([TP.own(t[:, :din], 1, mesh),
+                          TP.own(t[:, din:], 1, mesh)], 1)
+    shd.WIRE.reset()
+    got = TP.recut(block, mesh)
+    (g,) = torch.autograd.grad(got, block, mine(cot))
+    wire = shd.WIRE.snapshot()
+    return {"got": got.detach(), "want": mine(w), "grad": g,
+            "want_grad": shd.local_shard(cot, (None, "model"), mesh),
+            "wire": torch.tensor([wire[k] for k in sorted(wire)]),
+            "wire_keys": sorted(wire)}
+
+
+def dryrun_real(mesh, spec):
+    """``launch.dryrun.measure`` of the cell ``spec`` on this rank of a real
+    world (the model's weights, real tensors), the counterpart of the dry
+    run's fake world: argument bytes, FLOPs and ``WIRE`` by kind."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.measure(spec, mesh, fake=False)
+    return {k: rec[k] for k in ("memory", "flops_per_device", "flops_by_op",
+                                "collectives", "policy")}
+
+
+def danube_serve(mesh, layers, batch, prompt, n_new, compute_dtype=None,
+                 arch="h2o-danube-3-4b", overrides=None, unstacked=False):
+    """h2o-danube-3-4b (or ``arch``, its config's fields ``overrides``
+    replaced, its stacked weights rescaled by ``unstack_fan_in``
+    with ``unstacked``) at its published widths cut to ``layers`` (and with
     ``compute_dtype``, else bfloat16), its weights (seed 0) held in the
     compute dtype, greedy-served (``batch`` prompts of ``prompt`` tokens,
     ``n_new`` new tokens) on this rank's card alone from the whole tree,
@@ -904,10 +981,14 @@ def danube_serve(mesh, layers, batch, prompt, n_new, compute_dtype=None):
     from repro_torch.models.model import Model
     from repro_torch.train import step as st
     dev = _mesh_device(mesh)
-    cfg = dc.replace(get_config("h2o-danube-3-4b"), n_layers=int(layers))
+    cfg = dc.replace(get_config(arch), n_layers=int(layers),
+                     **(overrides or {}))
     if compute_dtype:
         cfg = dc.replace(cfg, compute_dtype=compute_dtype)
-    held = Model(cfg, device=dev, seed=0).compute_params()
+    model = Model(cfg, device=dev, seed=0)
+    if unstacked:
+        unstack_fan_in(model.params)
+    held = model.compute_params()
     model = Model(cfg, held, device=dev)
     prompts, _ = build_inputs(cfg, int(batch), int(prompt), device=dev)
     max_len = int(prompt) + int(n_new)

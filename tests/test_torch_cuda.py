@@ -9,6 +9,8 @@ The CUDA kernels are held bit-exact against their plain torch versions, and
 the whole port on the card against the port on the CPU (which the other
 ``tests/test_torch_*.py`` files hold against the reference).
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -1045,3 +1047,159 @@ def test_tp_danube_serving_on_four_cards(cuda, tmp_path):
             assert wire["tp_all_reduce"] == new * (2 * 24 + 1)
         assert wire.get("param_gather", 0) == 0
         assert wire["tp_all_gather"] == new
+
+
+# ---------------- Mamba on its 'model' blocks, jamba's period, NCCL, cards --
+
+JAMBA = "jamba-v0.1-52b"
+JAMBA_PERIOD = 8     # one attention layer, seven Mamba layers
+
+
+def _jamba_train_plan(n, b, s, d=4096, din=8192, dtr=256, ds=16, kv=1024):
+    """(``tp_all_reduce``, ``tp_all_to_all``) (calls, bytes) of one remat
+    train step of jamba's period without its MoE, float32, ``b`` x ``s``
+    tokens a rank, ``n`` ranks of 'model', by its layer plan (the one of
+    ``tests/test_torch_tp.py``'s ``_tp_plan``): a Mamba layer all-reduces
+    its output and its three sums forward, again in the recompute, and its
+    x and the three sums backward; attention its output forward and in the
+    recompute, its x, K and V backward; each MLP its output forward and in
+    the recompute (but the repeat's last) and its x backward; outside the
+    stack the embedding's sum, the head's entry and the loss's three
+    reductions.  ``in_proj`` is re-cut forward, in the recompute and
+    backward, (d, 2 din / n) each time."""
+    ring = lambda numel: 2 * 4 * numel * (n - 1) // n  # noqa: E731
+    act = ring(b * s * d)
+    sums = [ring(b * s * dtr), ring(b * s * ds), ring(b * s * ds)]
+    each = []
+    for i in range(JAMBA_PERIOD):
+        if i == 4:                                     # attn_offset
+            exits, entries = [act], [act, ring(b * s * kv), ring(b * s * kv)]
+        else:
+            exits, entries = [act] + sums, [act] + sums
+        exits, entries = exits + [act], entries + [act]     # the MLP
+        recompute = exits[:-1] if i == JAMBA_PERIOD - 1 else exits
+        each += exits + recompute + entries
+    each += [act, act, ring(b * s), ring(b * s), ring(b * s)]
+    recuts = 3 * (JAMBA_PERIOD - 1)
+    recut = 4 * d * 2 * (din // n) * (n - 1) // n
+    return (len(each), sum(each)), (recuts, recuts * recut)
+
+
+def test_tp_jamba_serving_on_four_cards(cuda, tmp_path):
+    """jamba-v0.1-52b at its published widths, one period (8 of 32 layers,
+    16 experts), float32, its stacked weights drawn with the fan-in of the
+    layer's own leaves (``_torch_dist_worker.unstack_fan_in``: by the
+    stacked rule, std 1 at one repeat, its norms overflow and every logit
+    is 0 or NaN), served on a (1, 4) mesh from
+    ``param_shardings(drop_fsdp=True)`` blocks (Mamba on its blocks of
+    ``d_inner``), batch 4, prompt 256, 16 new tokens, teacher-forced with
+    one card's greedy tokens, against one card's decode of the whole tree:
+    each step's logits within 2**-8 x max|logit|, greedy agreement at least
+    0.9 (as for danube); no parameter gathered; per step 38
+    ``tp_all_reduce`` (7 Mamba layers' output and three sums, the
+    attention's output, 8 MLP or MoE combines, the embedding), 15
+    ``tp_all_gather`` (the logits, 7 conv and 7 SSM states) and 7
+    ``tp_all_to_all`` (the ``in_proj`` re-cuts).  Every rank reports
+    before any check."""
+    from _torch_dist_worker import run_world
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    new = 16
+    res = run_world(4, [("danube_serve", (1, 4), dict(
+        batch=4, prompt=256, n_new=new, layers=JAMBA_PERIOD,
+        compute_dtype="float32", arch=JAMBA,
+        overrides={"param_dtype": "float32"}, unstacked=True))], tmp_path,
+        device="cuda", timeout=1200)
+    rows = []
+    for r, (got,) in enumerate(res):
+        one = got["one_logits"].double()
+        top = one.abs().max()
+        err = float((got["logits"].double() - one).abs().max() / top)
+        ulp = float((got["ulp_logits"].double() - one).abs().max() / top)
+        agree = float((got["tokens"] == got["one_tokens"]).double().mean())
+        t = got["times"].tolist()
+        wire = {k: int(v) for k, v in zip(got["wire_keys"],
+                                          got["wire"].tolist()) if v}
+        print(f"4 cards (1, 4), rank {r}: jamba period float32 served "
+              f"tensor-parallel: logits within {err:.3e} of max|logit| of "
+              f"one card's (one bf16 ulp of noise on the embedding: "
+              f"{ulp:.3e}), greedy agreement {agree:.4f}; prefill "
+              f"{t[0]:.3f} s, decode {t[1]:.2f} ms/token (one card "
+              f"{t[2]:.3f} s, {t[3]:.2f} ms/token); peak "
+              f"{int(got['peak']) / 2 ** 30:.3f} GiB; stored "
+              f"{int(got['stored']) / 1e9:.3f} GB; WIRE {wire}")
+        rows.append((err, agree, wire))
+    for err, agree, wire in rows:
+        assert math.isfinite(err) and err <= 2 ** -8, err
+        assert agree >= 0.9, agree
+        assert wire.get("param_gather", 0) == 0
+        assert wire["tp_all_reduce"] == new * (7 * 4 + 1 + 8 + 1)
+        assert wire["tp_all_gather"] == new * (1 + 2 * 7)
+        assert wire["tp_all_to_all"] == new * 7
+
+
+def test_tp_jamba_training_on_four_cards(cuda, tmp_path):
+    """jamba-v0.1-52b at its published widths, one period without its MoE
+    (``moe=None``: the MLP in every layer, ~2.7 B parameters; the
+    experts' path is danube's and PR 21's), float32 parameters and
+    compute, the stacked weights rescaled as for serving, on a (1, 4)
+    mesh: 3 steps of 1 x 4096 (the same batch).
+    Step 1's loss within 1e-6 relative of the one-card forward's, and
+    falling; no parameter gathered (0 B over 'model'); ``tp_all_reduce``
+    and ``tp_all_to_all`` calls and bytes the layer plan's
+    (``_jamba_train_plan``); and the dry run's prediction of the same cell
+    (``repro_torch.launch.dryrun`` on a fake world of four ranks on the
+    CPU) equal to the measured ``WIRE``, kind by kind.  Every rank reports
+    before any check."""
+    from _torch_dist_worker import run_world
+    from repro_torch.launch import dryrun
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    from concurrent.futures import ThreadPoolExecutor
+    over = {"moe": None, "param_dtype": "float32"}
+    seq = 4096
+    with ThreadPoolExecutor(2) as ex:        # the dry run on the host's CPU
+        pred = ex.submit(dryrun.run_spec, dryrun.cell_spec(
+            JAMBA, "train", "custom", overrides=dict(
+                over, n_layers=JAMBA_PERIOD, compute_dtype="float32"),
+            shape_dims=("train", seq, 1),
+            mesh_dims=((1, 4), ("data", "model"))), 1500)
+        res = run_world(4, [("fsdp_danube", (1, 4), dict(
+            layers=JAMBA_PERIOD, steps=3, global_batch=1, seq=seq,
+            one_card=False, compute_dtype="float32", arch=JAMBA,
+            overrides=over, unstacked=True))], tmp_path, device="cuda",
+            timeout=1500)
+        pred = pred.result()
+    print(f"the dry run's cell: {pred['status']}, "
+          f"{pred.get('wall_s', 0):.1f} s, args/rank "
+          f"{pred.get('memory', {}).get('argument_bytes')}, flops/rank "
+          f"{pred.get('flops_per_device')}, by kind "
+          f"{pred.get('collectives', {}).get('by_kind')}")
+    reduce_plan, recut_plan = _jamba_train_plan(4, 1, seq)
+    rows = []
+    for r, (got,) in enumerate(res):
+        _fsdp_report(4, r, got)
+        loss, fwd = got["loss"].tolist(), float(got["forward_loss"])
+        dev = abs(loss[0] - fwd) / abs(fwd)
+        print(f"4 cards (1, 4), rank {r}, jamba period (moe=None) float32: "
+              f"step 1's loss {loss[0]!r}, the one-card forward's {fwd!r} "
+              f"({dev:.2e} apart); the plan: tp_all_reduce {reduce_plan}, "
+              f"tp_all_to_all {recut_plan} (calls, bytes) a step; stored "
+              f"{int(got['stored']) / 1e9:.3f} GB a rank")
+        rows.append((loss, dev, got))
+    assert pred["status"] == "ok", pred.get("traceback", pred)
+    for loss, dev, got in rows:
+        assert dev <= 1e-6, dev
+        assert loss[0] > loss[1] > loss[2], loss
+        for step in range(len(loss)):
+            wire = _wire_of(got, step)
+            assert wire["param_gather_bytes"] == 0, wire
+            assert (wire["tp_all_reduce"], wire["tp_all_reduce_bytes"]) \
+                == reduce_plan, wire
+            assert (wire["tp_all_to_all"], wire["tp_all_to_all_bytes"]) \
+                == recut_plan, wire
+            measured = {k: {"count": int(wire[k]),
+                            "wire_bytes": int(wire[f"{k}_bytes"])}
+                        for k in wire if not k.endswith("_bytes") and wire[k]}
+            assert measured == pred["collectives"]["by_kind"], (measured,
+                                                                pred)
