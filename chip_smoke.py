@@ -75,10 +75,14 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    2**24) batch must equal the batch ops for every design, and a batch of 6
    must raise.  This is the split path on one card, not several cards;
 11. the autotuner: ``tune()`` at Isabel's shape with a fresh cache under
-   ``build/tune_smoke/`` probes all 9 programs (the default first), then 3
+   ``build/tune_smoke/`` scores all 9 programs with the cost model
+   (``tune.cost``: 9 finite, positive model seconds), probes the default
+   and the 3 best-scored programs (at most 4, the default first), with
+   each probe's model and measured seconds, calibrates the model's scale
+   (finite, positive) on the default's probe, then probes 3
    ``dispatch_ahead`` and 3 ``depth`` values through the real pipelines,
-   with no failed probe; the winner's probe is no slower than the
-   default's, and a second call is a cache hit.  Then the chunk problem a
+   with no failed score or probe; the winner's probe is no slower than
+   the default's, and a second call is a cache hit.  Then the chunk problem a
    pipeline looks up (chunks of 2**20, levels 2) is tuned, and a
    ``ChunkedRefactorPipeline`` with the cache on (``REPRO_TUNE_CACHE``)
    must pick its winner and write an explicit ``config=winner`` write's
@@ -182,7 +186,19 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    rwkv6-3b's, 1 x 4096 tokens, forward and backward with and without the
    chunks (``ssm.REMAT_CHUNK``): gradients bit-identical, each pass's peak
    device memory.  With two or more cards it runs the ``jamba and cards``
-   card tests (one period on a (1, 4) mesh, served and trained).
+   card tests (one period on a (1, 4) mesh, served and trained);
+19. the dispatched-op analysis (``launch/op_analysis.py``) and the cost
+   model (``tune/cost.py``) against the card: (a) the fused write program
+   of Isabel's chunk at the default config run under ``OpAnalysis`` on the
+   card and counted by ``CostModel`` on ``meta``: FLOPs, bytes and every
+   operator's count equal, the kernel operators equal to the launches, the
+   byte bound at 3.35 TB/s no more than the measured wall (measured /
+   predicted printed); (b) danube/2's train step (phase 14's settings, a
+   NCCL world of one rank, a (1, 1) mesh) counted by ``dryrun.measure`` on
+   ``meta`` and run on the card under ``OpAnalysis``: FLOPs and bytes
+   within 1% (operators that dispatch differently listed), the allocator's
+   peak within [0.80, 1.25] x the predicted arguments + temp bytes, and
+   neither the FLOP bound (989 TFLOP/s) nor the byte bound above the wall.
 
 Phases 7-12, 14 and 15 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
@@ -413,6 +429,44 @@ def encode_sweep(torch, bp, n=FINEST_N):
             f"{name} {rows[(name, p)] * 1e3:.1f} us" for name in
             ("loc_encode", "rb_encode", "shuffle_encode"))
             + f"; bound {bound * 1e3:.1f} us", flush=True)
+    return rows
+
+
+def registration_cost(torch, bp, sizes=(4096, FINEST_N), p=MAG_BITS):
+    """Each kernel called back to back three ways, 23 planes, at each of
+    ``sizes``: through its wrapper (nothing observes the dispatcher, so it
+    launches directly), through its dispatcher operator
+    (``torch.ops.repro_torch.<name>``, the path a dispatch mode such as
+    ``OpAnalysis`` sees), and through its launch function alone.  At 4096
+    elements the host's time a call is what is timed.  Rows keyed (kernel,
+    n): (wrapper, operator, direct) in ms."""
+    rows = {}
+    for n in sizes:
+        x = torch.randint(0, 2 ** MAG_BITS, (1, n), dtype=torch.int32,
+                          device="cuda")
+        calls = []
+        for name, fn in (("rb_encode", bp.encode_register_block_cuda),
+                         ("loc_encode", bp.encode_locality_cuda),
+                         ("shuffle_encode", bp.encode_shuffle_cuda)):
+            calls.append((name, fn, (x, p)))
+        for name, fn, enc in (
+                ("rb_decode", bp.decode_register_block_cuda,
+                 bp.encode_register_block_cuda),
+                ("loc_decode", bp.decode_locality_cuda,
+                 bp.encode_locality_cuda)):
+            calls.append((name, fn, (enc(x, p), p, n)))
+        for name, fn, args in calls:
+            def via_op(name=name, args=args):
+                with torch._C._AutoDispatchBelowADInplaceOrView():
+                    return bp._OPS[name](*args)
+            rows[(name, n)] = (time_ms(lambda: fn(*args)), time_ms(via_op),
+                               time_ms(lambda: bp._LAUNCH[name](*args)))
+    for (name, n), (wrap, op, direct) in rows.items():
+        print(f"{name} (N={n}, 23 planes) back to back: wrapper "
+              f"{wrap * 1e3:.2f} us ({(wrap - direct) * 1e3:+.2f} us over "
+              f"the launch alone, {direct * 1e3:.2f} us); through the "
+              f"dispatcher operator {op * 1e3:.2f} us "
+              f"({(op - direct) * 1e3:+.2f} us)", flush=True)
     return rows
 
 
@@ -1129,9 +1183,14 @@ TUNE_CHUNK = 1 << 20    # the chunk DatasetWriter writes by default
 def _print_tune(r, what):
     print(f"{what}: {r.tune_s:.3f} s, winner {r.config.design} "
           f"group_size={r.config.group_size} dispatch_ahead="
-          f"{r.config.dispatch_ahead} depth={r.config.depth}", flush=True)
+          f"{r.config.dispatch_ahead} depth={r.config.depth}; model scale "
+          f"{r.model_scale:.4g} (calibrated on the default's probe)",
+          flush=True)
+    model = dict(r.scores)
     for c, sec in r.probes:
-        print(f"  probe {c.design}/group_size={c.group_size}: {sec:.4f} s")
+        print(f"  probe {c.design}/group_size={c.group_size}: model "
+              f"{model[c]:.6f} s (x scale {model[c] * r.model_scale:.4f} s), "
+              f"measured {sec:.4f} s")
     for c, sec in r.dispatch_probes:
         print(f"  probe dispatch_ahead={c.dispatch_ahead}: {sec:.4f} s")
     for c, sec in r.depth_probes:
@@ -1166,12 +1225,18 @@ def _tune_phase(torch, bp, x_np, root):
     _print_tune(r, f"tune {ISABEL_SHAPE} float32 (levels auto)")
     st = ts.STATS.snapshot()
     print(f"tuner stats: {st}; failures {list(r.failures)}", flush=True)
-    check(st["probes_failed"] == 0 and not r.failures,
+    check(st["probes_failed"] == 0 and st["scores_failed"] == 0
+          and not r.failures, f"{st['scores_failed']} scores and "
           f"{st['probes_failed']} tuner probes failed: {r.failures}")
-    check(not r.cache_hit and len(r.probes) == 9
+    check(len(r.scores) == 9 and all(math.isfinite(sec) and sec > 0
+                                     for _, sec in r.scores),
+          f"model scores: {[sec for _, sec in r.scores]}")
+    check(math.isfinite(r.model_scale) and r.model_scale > 0,
+          f"model scale {r.model_scale}")
+    check(not r.cache_hit and 1 <= len(r.probes) <= 4
           and r.probes[0][0].design == "register_block"
           and r.probes[0][0].group_size == 4, "the default did not head "
-          "the 9 program probes")
+          "at most 4 program probes")
     check(len(r.dispatch_probes) == 3 and len(r.depth_probes) == 3,
           "the pipeline knobs were not probed")
     best, win = min(r.probes, key=lambda cs: cs[1])
@@ -1182,11 +1247,13 @@ def _tune_phase(torch, bp, x_np, root):
           f"{r.probes[0][1]} s")
     print(f"winner's program probe {win:.4f} s <= default's "
           f"{r.probes[0][1]:.4f} s", flush=True)
-    # every design's encoder ran in the program probes; the read probes
-    # decode the winner's design
-    read_launches(bp, ("rb_encode", "loc_encode", "shuffle_encode",
-                       "rb_decode" if r.config.design == "register_block"
-                       else "loc_decode"), "phase-11 launches")
+    # each probed design's encoder ran in the program probes; the read
+    # probes decode the winner's design
+    encoders = {"register_block": "rb_encode", "locality": "loc_encode",
+                "shuffle": "shuffle_encode"}
+    read_launches(bp, {encoders[c.design] for c, _ in r.probes} | {
+        "rb_decode" if r.config.design == "register_block"
+        else "loc_decode"}, "phase-11 launches")
     r2 = ts.tune(ISABEL_SHAPE, cache_root=root)
     check(r2.cache_hit and r2.config == r.config
           and ts.STATS.snapshot()["searches"] == st["searches"],
@@ -2874,6 +2941,163 @@ def jamba_phase(torch):
     mesh_cards_check("jamba and cards")
 
 
+# --------------------------------------------------------------- phase 19 --
+
+def _op_diff(a, b):
+    """The operators whose count or bytes differ between two
+    ``ops_by_name`` tables: {name: (a's, b's)}."""
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if a.get(k) != b.get(k)}
+
+
+def fused_program_check(torch, bp, x_np):
+    """The fused write program (``fused_encode_plan(...).run``) for Isabel's
+    chunk at the default config, counted twice: on the card, run for real
+    under ``OpAnalysis``, and by ``CostModel`` on ``meta`` (nothing
+    executed).  FLOPs, bytes and every operator's count and bytes equal;
+    the kernels' operators equal the launches ``bp``'s counters saw; the
+    byte bound at 3.35 TB/s no more than the measured wall."""
+    from repro_torch.core import decompose as dc
+    from repro_torch.core import refactor as rf
+    from repro_torch.core import refactor_fused as rff
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.tune import cost as tc
+    from repro_torch.tune.config import DEFAULT_CONFIG as cfg
+    mag_bits = cfg.resolved_mag_bits()
+    plan = rff.fused_encode_plan(
+        ISABEL_SHAPE, dc.num_levels(ISABEL_SHAPE), cfg.design, mag_bits,
+        tuple(rf._group_plane_split(mag_bits, cfg.group_size)), cfg.backend)
+    x = torch.from_numpy(x_np).to("cuda")
+    walls = []
+    for _ in range(4):                       # the first is a warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan.run(x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls[1:])
+    bp.reset_launches()
+    t0 = time.perf_counter()
+    with OpAnalysis() as ana:
+        plan.run(x)
+    torch.cuda.synchronize()
+    wall_counted = time.perf_counter() - t0
+    card = ana.summary()
+    launches = read_launches(bp, ("rb_encode",), "phase-19 (a) launches")
+    t0 = time.perf_counter()
+    model = tc.CostModel(ISABEL_SHAPE)
+    cost = model.cost(cfg)
+    meta = tc.program_analysis(ISABEL_SHAPE, None, cfg)
+    meta_s = time.perf_counter() - t0
+    diff = _op_diff(card["ops_by_name"], meta["ops_by_name"])
+    check(not diff, f"fused program: card and meta operators differ: {diff}")
+    check(card["flops_per_device"] == meta["flops_per_device"] == cost.flops
+          and card["hbm_bytes_per_device"] == meta["hbm_bytes_per_device"]
+          == cost.hbm_bytes, f"fused program: card {card['flops_per_device']}"
+          f" FLOP / {card['hbm_bytes_per_device']} B, meta "
+          f"{meta['flops_per_device']} / {meta['hbm_bytes_per_device']}, "
+          f"model {cost}")
+    kernels = {k.split(".")[1]: v["count"] for k, v in
+               card["ops_by_name"].items() if k.startswith("repro_torch.")}
+    check(kernels and all(launches[k] == n for k, n in kernels.items())
+          and sum(launches.values()) == sum(kernels.values()),
+          f"kernel operators {kernels} against launches {launches}")
+    predicted = cost.seconds(tc.NOMINAL_PEAKS["gpu"])
+    check(predicted <= wall, f"the byte bound {predicted} s exceeds the "
+          f"measured wall {wall} s")
+    print(f"fused write program {ISABEL_SHAPE} (default config): "
+          f"{sum(v['count'] for v in card['ops_by_name'].values())} "
+          f"operators, {card['hbm_bytes_per_device'] / 1e9:.4f} GB, "
+          f"{card['flops_per_device']} FLOP, temp "
+          f"{card['temp_bytes'] / 1e9:.4f} GB; card == meta operator by "
+          f"operator (meta counted in {meta_s:.2f} s); kernel operators "
+          f"{kernels} == launches; predicted {predicted * 1e3:.3f} ms at "
+          f"3.35 TB/s, measured {wall * 1e3:.3f} ms (median of 3 warm; "
+          f"{wall_counted * 1e3:.3f} ms under the analysis): measured / "
+          f"predicted {wall / predicted:.2f}", flush=True)
+    top = sorted(card["ops_by_name"].items(), key=lambda kv: -kv[1]["bytes"])
+    print("  top operators by bytes: " + ", ".join(
+        f"{k} x{v['count']} {v['bytes'] / 1e9:.3f} GB" for k, v in top[:6]),
+        flush=True)
+
+
+def train_step_check(torch, mesh):
+    """danube/2's one-rank train step at phase 14's settings (2 x 4096, bf16
+    compute, remat, a (1, 1) mesh), counted two ways: ``dryrun.measure``'s
+    fake count on ``meta`` and a real step on the card under
+    ``OpAnalysis``.  FLOPs and bytes within 1% (the operators that
+    dispatch differently listed), the allocator's peak over the step
+    within [0.80, 1.25] x (arguments + temp bytes), and neither bound
+    (FLOPs at 989 TFLOP/s, bytes at 3.35 TB/s) above the step's wall."""
+    from repro_torch.launch import dryrun
+    spec = dryrun.cell_spec(
+        "h2o-danube-3-4b", "train_4k", "single",
+        overrides={"n_layers": DANUBE_LAYERS},
+        shape_dims=("train", DANUBE_SEQ, DANUBE_BATCH),
+        mesh_dims=((1, 1), ("data", "model")))
+    t0 = time.perf_counter()
+    fake = dryrun.measure(spec, mesh, fake=True)
+    fake_s = time.perf_counter() - t0
+    _free(torch)
+    held = torch.cuda.memory_allocated()
+    real = dryrun.measure(spec, mesh, fake=False, device="cuda")
+    _free(torch)
+    diff = _op_diff(real["ops_by_name"], fake["ops_by_name"])
+    for k, (r, f) in diff.items():
+        print(f"  card {r} / meta {f}: {k}", flush=True)
+    fl, fb = real["flops_per_device"], real["hbm_bytes_per_device"]
+    ml, mb = fake["flops_per_device"], fake["hbm_bytes_per_device"]
+    check(abs(fl - ml) <= 0.01 * ml and abs(fb - mb) <= 0.01 * mb,
+          f"danube/2 step: card {fl} FLOP / {fb} B, meta {ml} / {mb}")
+    mem, dev = fake["memory"], real["memory"]["device"]
+    ratio = dev["max_allocated"] / mem["peak_bytes"]
+    check(0.80 <= ratio <= 1.25, f"danube/2 step: the card's peak "
+          f"{dev['max_allocated']} B is {ratio:.3f} x the predicted "
+          f"{mem['peak_bytes']} B")
+    wall = real["wall_s"]
+    check(fl / BF16_FLOPS <= wall and fb / HBM_BYTES_PER_S <= wall,
+          f"a bound above the wall {wall} s: {fl / BF16_FLOPS} s (FLOP), "
+          f"{fb / HBM_BYTES_PER_S} s (bytes)")
+    print(f"danube/2 train step, 2 x 4096: FLOP card {fl} / meta {ml} "
+          f"({'equal' if fl == ml else f'{fl / ml - 1:+.2e}'}), bytes card "
+          f"{fb / 1e9:.3f} GB / meta {mb / 1e9:.3f} GB "
+          f"({'equal' if fb == mb else f'{fb / mb - 1:+.2e}'}), "
+          f"{len(diff)} operator(s) dispatched differently; arguments "
+          f"{mem['argument_bytes'] / 1e9:.3f} GB, temp (meta) "
+          f"{mem['temp_bytes'] / 1e9:.3f} GB, temp (card count) "
+          f"{real['memory']['temp_bytes'] / 1e9:.3f} GB; allocated before "
+          f"the run {held / 1e9:.3f} GB, at the "
+          f"step's start {dev['allocated_at_start'] / 1e9:.3f} GB, peak "
+          f"{dev['max_allocated'] / 1e9:.3f} GB = {ratio:.3f} x predicted "
+          f"{mem['peak_bytes'] / 1e9:.3f} GB; wall {wall * 1e3:.1f} ms "
+          f"(first step, under the analysis) against "
+          f"{fl / BF16_FLOPS * 1e3:.2f} ms (FLOP at 989 TFLOP/s) and "
+          f"{fb / HBM_BYTES_PER_S * 1e3:.2f} ms (bytes at 3.35 TB/s); the "
+          f"meta count took {fake_s:.1f} s", flush=True)
+
+
+def analysis_phase(torch, bp, x_np):
+    """Phase 19: the dispatched-op analysis and the cost model against the
+    card: (a) the fused write program, card and ``meta``; (b) danube/2's
+    train step in a NCCL world of one rank on a (1, 1) mesh, card and the
+    dry run's fake count."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    fused_program_check(torch, bp, x_np)
+    print(f"(a) the fused write program: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    mesh = make_host_mesh(1, 1, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        train_step_check(torch, mesh)
+        print(f"(b) danube/2's train step: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2922,6 +3146,7 @@ def main(argv) -> int:
     # phase 8 runs shuffle_encode and loc_decode at its own piece sizes
     print_timings(kernel_timings(
         torch, specs, max(piece_sizes((PIPE_CHUNK,), PIPE_LEVELS))))
+    registration_cost(torch, bp)
     done(t0, "phase 2")
 
     t0 = phase("3 main path at full size")
@@ -3006,6 +3231,11 @@ def main(argv) -> int:
                "jamba card tests")
     jamba_phase(torch)
     done(t0, "phase 18")
+
+    t0 = phase("19 analysis: the fused write program and danube/2's train "
+               "step counted on the card and on meta")
+    analysis_phase(torch, bp, x_np)
+    done(t0, "phase 19")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []

@@ -116,10 +116,13 @@ def _exp2_table(device: torch.device) -> torch.Tensor:
 
 
 def exp2_int(k: torch.Tensor) -> torch.Tensor:
-    """The reference's float32 ``exp2(k)`` for an integer tensor ``k``."""
+    """The reference's float32 ``exp2(k)`` for an integer tensor ``k``.
+    The lookup is a gather: indexing by a 0-d tensor would read it to the
+    host (``.item()``), a sync on the card and an error on ``meta``."""
     k = k.to(torch.int64)
     table = _exp2_table(k.device)
-    val = table[(k - _EXP2_K0).clamp(0, len(_EXP2_BITS) - 1)]
+    i = (k - _EXP2_K0).clamp(0, len(_EXP2_BITS) - 1)
+    val = table.index_select(0, i.reshape(-1)).reshape(i.shape)
     val = torch.where(k > 127, torch.full_like(val, float("inf")), val)
     return torch.where(k < _EXP2_K0, torch.zeros_like(val), val)
 

@@ -100,6 +100,19 @@ def _detail_mask(full_shape: Tuple[int, ...], device: torch.device
     return mask
 
 
+@functools.lru_cache(maxsize=64)
+def _detail_index(full_shape: Tuple[int, ...], device: torch.device
+                  ) -> torch.Tensor:
+    """Flat indices (int32, on ``device``) of every entry outside the
+    coarse corner, in row-major order: the reference's ``np.nonzero`` of
+    its mask.  A gather by them needs no data-dependent size (a
+    ``masked_select`` would), so it also runs on ``meta`` tensors."""
+    mask = np.ones(full_shape, dtype=bool)
+    mask[_corner(_coarse_shape(full_shape))] = False
+    idx = np.flatnonzero(mask).astype(np.int32)
+    return torch.from_numpy(idx).to(device)
+
+
 def decompose(x: torch.Tensor, levels: int) -> List[torch.Tensor]:
     """x -> [corner, detail_L, detail_{L-1}, ..., detail_1], each flattened.
 
@@ -115,7 +128,8 @@ def decompose(x: torch.Tensor, levels: int) -> List[torch.Tensor]:
                 cur = _split_axis(cur, ax)
         cs = _coarse_shape(shape)
         corner = cur[_corner(cs)]
-        detail = torch.masked_select(cur, _detail_mask(shape, cur.device))
+        detail = cur.reshape(-1).index_select(
+            0, _detail_index(shape, cur.device))
         pieces_rev.append(detail)
         cur = corner
     # the corner is copied from x, never computed, so the reference keeps

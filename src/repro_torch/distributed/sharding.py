@@ -51,6 +51,7 @@ import contextlib
 import dataclasses
 import itertools
 import math
+import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -302,8 +303,29 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _count(kind: str, nbytes: int) -> None:
+# called as fn(kind, wire_bytes, payload_bytes, group_size) on every count
+# (``launch.op_analysis`` keeps one record a call)
+WIRE_LISTENERS: list = []
+# ``depth`` > 0 while this thread is inside a call to the backend: a backend
+# that builds a collective from tensor operators (gloo's reduce-scatter) runs
+# them there, and ``launch.op_analysis`` counts the collective by ``WIRE``,
+# not by those operators
+IN_BACKEND = threading.local()
+
+
+@contextlib.contextmanager
+def _backend():
+    IN_BACKEND.depth = getattr(IN_BACKEND, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        IN_BACKEND.depth -= 1
+
+
+def _count(kind: str, nbytes: int, payload: int = 0, n: int = 1) -> None:
     WIRE.add(**{kind: 1, f"{kind}_bytes": nbytes})
+    for fn in tuple(WIRE_LISTENERS):
+        fn(kind, nbytes, payload, n)
 
 
 def _alone(mesh: Mesh, axes: Axes, kind: str) -> bool:
@@ -324,8 +346,9 @@ def _all_reduce(x: torch.Tensor, axes: Axes, op, mesh: Optional[Mesh],
         return x
     n = mesh.size(axes)
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=mesh.group(axes))
-    _count(kind, 2 * _nbytes(out) * (n - 1) // n)
+    with _backend():
+        dist.all_reduce(out, op=op, group=mesh.group(axes))
+    _count(kind, 2 * _nbytes(out) * (n - 1) // n, _nbytes(out), n)
     return out
 
 
@@ -356,8 +379,9 @@ def psum_scatter(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
     if not mesh.axes(axes):
         return x[0].clone()
     out = x.new_empty(x.shape[1:])
-    _reduce_scatter(out.view(-1), x.view(-1), group=mesh.group(axes))
-    _count(kind, _nbytes(out) * (n - 1))
+    with _backend():
+        _reduce_scatter(out.view(-1), x.view(-1), group=mesh.group(axes))
+    _count(kind, _nbytes(out) * (n - 1), _nbytes(out), n)
     return out
 
 
@@ -371,8 +395,9 @@ def all_gather(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
     n = mesh.size(axes)
     x = x.contiguous()
     out = x.new_empty((n,) + tuple(x.shape))
-    _all_gather(out.view(-1), x.view(-1), group=mesh.group(axes))
-    _count(kind, _nbytes(out) * (n - 1) // n)
+    with _backend():
+        _all_gather(out.view(-1), x.view(-1), group=mesh.group(axes))
+    _count(kind, _nbytes(out) * (n - 1) // n, _nbytes(out), n)
     return out
 
 
@@ -390,9 +415,10 @@ def all_to_all(x: torch.Tensor, axes: Axes, send: Sequence[int],
     n = mesh.size(axes)
     x = x.contiguous()
     out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
-    dist.all_to_all_single(out, x, list(recv), list(send),
-                           group=mesh.group(axes))
-    _count(kind, _nbytes(out) * (n - 1) // n)
+    with _backend():
+        dist.all_to_all_single(out, x, list(recv), list(send),
+                               group=mesh.group(axes))
+    _count(kind, _nbytes(out) * (n - 1) // n, _nbytes(out), n)
     return out
 
 

@@ -12,15 +12,26 @@ a hash of the source, so an edited source is rebuilt.  Nothing is compiled
 or loaded when this module is imported: the CPU tests import it on a
 machine with no ``nvcc`` and no card.
 
-Each wrapper checks device, dtype, shape and contiguity, raises on what the
-kernel does not take, allocates the output with ``torch.empty``, launches on
-the current stream, raises if ``cudaGetLastError()`` is not 0, and adds one
-to its ``launches`` counter.  There is no fallback: a kernel that does not
-build or launch raises.
+Each kernel is an operator of the dispatcher, ``torch.ops.repro_torch.<name>``
+(a ``torch.library.custom_op``): its CUDA implementation allocates the
+output with ``torch.empty``, launches on the current stream, raises if
+``cudaGetLastError()`` is not 0 and adds one to its wrapper's ``launches``
+counter; its fake (``register_fake``) gives the output's shape and dtype, so
+that the operator also runs on ``meta`` tensors, launching nothing.  A
+dispatch mode (``launch.op_analysis.OpAnalysis``) thus sees each launch as
+one operator, at its operand and result bytes, on the card and on ``meta``
+alike.  A CUDA call that no dispatch mode observes launches directly,
+without the dispatcher's Python round trips; an observed one goes through
+the operator below the autograd layers (the operands are integer bit
+patterns, which carry no gradient).  Each wrapper checks device (CUDA or
+``meta``), dtype, shape and contiguity and raises on what the kernel does
+not take.  There is no fallback: a kernel that does not build or launch
+raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +43,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.kernels.ref import TILE, TILE_LANE
 
@@ -111,7 +123,7 @@ def load() -> ctypes.CDLL:
 
 
 def _check_common(t: torch.Tensor, ndim: int, what: str) -> None:
-    if t.device.type != "cuda":
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in (torch.int32, torch.uint32):
         raise TypeError(f"{what}: expected int32/uint32 storage, got {t.dtype}")
@@ -128,16 +140,22 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def _encode(wrapper, symbol: str, mags: torch.Tensor,
-            num_planes: int) -> torch.Tensor:
-    """(B, N) magnitudes -> (B, num_planes, W) through ``symbol``, one launch
-    for the whole batch; ``wrapper.launches`` counts it.  An empty input
-    launches nothing and counts nothing."""
-    _check_common(mags, 2, symbol)
-    if not 1 <= num_planes <= 32:
-        raise ValueError(f"num_planes must be in [1, 32], got {num_planes}")
+def _words(n: int) -> int:
+    return (n + (-n) % TILE) // 32
+
+
+def _count(symbol: str) -> None:
+    with _count_lock:
+        _WRAPPER_OF[symbol].launches += 1
+
+
+def _launch_encode(symbol: str, mags: torch.Tensor,
+                   num_planes: int) -> torch.Tensor:
+    """The CUDA implementation of an encode operator: one launch for the
+    whole batch, counted.  An empty input launches nothing and counts
+    nothing."""
     b, n = mags.shape
-    words = (n + (-n) % TILE) // 32
+    words = _words(n)
     out = torch.empty((b, num_planes, words), dtype=torch.int32,
                       device=mags.device)
     if b == 0 or words == 0:
@@ -148,16 +166,91 @@ def _encode(wrapper, symbol: str, mags: torch.Tensor,
         err = fn(mags.data_ptr(), out.data_ptr(), n, n, b, num_planes, words,
                  stream)
     _raise_on(err, symbol)
-    with _count_lock:
-        wrapper.launches += 1
+    _count(symbol)
     return out
 
 
-def _decode(wrapper, symbol: str, planes: torch.Tensor,
-            num_planes_total: int, n: int) -> torch.Tensor:
-    """(B, P', W) plane prefixes -> (B, n) through ``symbol``, one launch
-    for the whole batch; ``wrapper.launches`` counts it.  An empty output
-    launches nothing and counts nothing."""
+def _launch_decode(symbol: str, planes: torch.Tensor, num_planes_total: int,
+                   n: int) -> torch.Tensor:
+    """The CUDA implementation of a decode operator: one launch for the
+    whole batch, counted.  An empty output launches nothing and counts
+    nothing."""
+    b, rows, words = planes.shape
+    out = torch.empty((b, n), dtype=torch.int32, device=planes.device)
+    if b == 0 or n == 0:
+        return out
+    fn = getattr(load(), symbol)
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = fn(planes.data_ptr(), out.data_ptr(), n, b, rows,
+                 num_planes_total, words, stream)
+    _raise_on(err, symbol)
+    _count(symbol)
+    return out
+
+
+def _define(symbol: str, encode: bool):
+    """Register ``repro_torch::<symbol>`` (its CUDA implementation and its
+    fake) and return its ``OpOverload``."""
+    name = f"repro_torch::{symbol}"
+    if encode:
+        @torch.library.custom_op(name, mutates_args=(), device_types="cuda")
+        def op(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
+            return _launch_encode(symbol, mags, num_planes)
+
+        @op.register_fake
+        def _(mags, num_planes):
+            b, n = mags.shape
+            return mags.new_empty((b, num_planes, _words(n)),
+                                  dtype=torch.int32)
+    else:
+        @torch.library.custom_op(name, mutates_args=(), device_types="cuda")
+        def op(planes: torch.Tensor, num_planes_total: int,
+               n: int) -> torch.Tensor:
+            return _launch_decode(symbol, planes, num_planes_total, n)
+
+        @op.register_fake
+        def _(planes, num_planes_total, n):
+            return planes.new_empty((planes.shape[0], n), dtype=torch.int32)
+    return getattr(torch.ops.repro_torch, symbol).default
+
+
+_OPS = {**{s: _define(s, True) for s in ENCODE_SYMBOLS},
+        **{s: _define(s, False) for s in DECODE_SYMBOLS}}
+
+
+_LAUNCH = {**{s: functools.partial(_launch_encode, s) for s in ENCODE_SYMBOLS},
+           **{s: functools.partial(_launch_decode, s) for s in DECODE_SYMBOLS}}
+
+
+def _call(symbol: str, *args):
+    """Through the operator wherever something observes the dispatcher (a
+    dispatch mode, such as ``launch.op_analysis.OpAnalysis``, or a ``meta``
+    tensor); a CUDA tensor that nothing observes launches directly, since
+    the dispatcher's Python round trips would cost the call about 20 us
+    on the host and do nothing for it."""
+    if args[0].device.type == "cuda" and _get_current_dispatch_mode() is None:
+        return _LAUNCH[symbol](*args)
+    # below the autograd layers: integer bit patterns carry no gradient,
+    # and each of those layers would cost the call a Python round trip
+    with torch._C._AutoDispatchBelowADInplaceOrView():
+        return _OPS[symbol](*args)
+
+
+def _encode(symbol: str, mags: torch.Tensor,
+            num_planes: int) -> torch.Tensor:
+    """(B, N) magnitudes -> (B, num_planes, W) through the operator
+    ``symbol``."""
+    _check_common(mags, 2, symbol)
+    if not 1 <= num_planes <= 32:
+        raise ValueError(f"num_planes must be in [1, 32], got {num_planes}")
+    return _call(symbol, mags, num_planes)
+
+
+def _decode(symbol: str, planes: torch.Tensor, num_planes_total: int,
+            n: int) -> torch.Tensor:
+    """(B, P', W) plane prefixes -> (B, n) through the operator
+    ``symbol``."""
     _check_common(planes, 3, symbol)
     b, rows, words = planes.shape
     if not 1 <= num_planes_total <= 32:
@@ -171,32 +264,21 @@ def _decode(wrapper, symbol: str, planes: torch.Tensor,
                          f"{TILE_LANE}")
     if not 0 <= n <= 32 * words:
         raise ValueError(f"n={n} does not fit {words} words per plane")
-    out = torch.empty((b, n), dtype=torch.int32, device=planes.device)
-    if b == 0 or n == 0:
-        return out
-    fn = getattr(load(), symbol)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = fn(planes.data_ptr(), out.data_ptr(), n, b, rows,
-                 num_planes_total, words, stream)
-    _raise_on(err, symbol)
-    with _count_lock:
-        wrapper.launches += 1
-    return out
+    return _call(symbol, planes, num_planes_total, n)
 
 
 def encode_register_block_cuda(mags: torch.Tensor,
                                num_planes: int) -> torch.Tensor:
     """(B, N) uint32 magnitudes (int32 storage) -> (B, num_planes, W) plane
     words in the ``register_block`` format, W = ceil(N / 4096) * 128."""
-    return _encode(encode_register_block_cuda, "rb_encode", mags, num_planes)
+    return _encode("rb_encode", mags, num_planes)
 
 
 def decode_register_block_cuda(planes: torch.Tensor, num_planes_total: int,
                                n: int) -> torch.Tensor:
     """(B, P', W) ``register_block`` plane prefixes -> (B, n) magnitudes
     with plane j at bit ``num_planes_total - 1 - j``."""
-    return _decode(decode_register_block_cuda, "rb_decode", planes, num_planes_total, n)
+    return _decode("rb_decode", planes, num_planes_total, n)
 
 
 def encode_locality_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
@@ -204,7 +286,7 @@ def encode_locality_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
     words (the ``locality`` format): a thread per word, which reads its 32
     elements from a per-warp shared tile and transposes their bits in
     registers (or gathers each plane's bits directly, for few planes)."""
-    return _encode(encode_locality_cuda, "loc_encode", mags, num_planes)
+    return _encode("loc_encode", mags, num_planes)
 
 
 def encode_shuffle_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
@@ -212,18 +294,20 @@ def encode_shuffle_cuda(mags: torch.Tensor, num_planes: int) -> torch.Tensor:
     lanes (the ``shuffle`` design): a 32x32 bit-matrix butterfly of five
     ``__shfl_xor_sync`` per word for all planes.  The same output as
     ``encode_locality_cuda``."""
-    return _encode(encode_shuffle_cuda, "shuffle_encode", mags, num_planes)
+    return _encode("shuffle_encode", mags, num_planes)
 
 
 def decode_locality_cuda(planes: torch.Tensor, num_planes_total: int,
                          n: int) -> torch.Tensor:
     """(B, P', W) ``locality``/``shuffle`` plane prefixes -> (B, n)
     magnitudes with plane j at bit ``num_planes_total - 1 - j``."""
-    return _decode(decode_locality_cuda, "loc_decode", planes, num_planes_total, n)
+    return _decode("loc_decode", planes, num_planes_total, n)
 
 
 WRAPPERS = (encode_register_block_cuda, decode_register_block_cuda,
             encode_locality_cuda, encode_shuffle_cuda, decode_locality_cuda)
+_WRAPPER_OF = dict(zip(("rb_encode", "rb_decode", "loc_encode",
+                        "shuffle_encode", "loc_decode"), WRAPPERS))
 
 
 def reset_launches() -> None:

@@ -2,8 +2,10 @@
 
 Backend selection:
   'auto'   -> the CUDA kernel for CUDA tensors, the plain torch version for
-              CPU tensors
-  'cuda'   -> always the CUDA kernel (raises on a CPU tensor)
+              CPU and ``meta`` tensors
+  'cuda'   -> always the CUDA kernel (raises on a CPU tensor; on a ``meta``
+              tensor the kernel's operator runs its fake: the output's
+              shape, no launch, which is how a cost model counts a kernel)
   'torch'  -> the plain torch version (``kernels.ref``), an explicit choice
 
 Every design has its CUDA kernels (``kernels.bitplane``): on a CUDA tensor
@@ -54,6 +56,8 @@ def _use_kernel(t: torch.Tensor, backend: str, design: str) -> bool:
     if backend == "torch":
         return False
     if t.device.type == "cuda":
+        return True
+    if backend == "cuda" and t.device.type == "meta":
         return True
     if backend == "cuda":
         raise ValueError(f"backend='cuda' needs a CUDA tensor, got "

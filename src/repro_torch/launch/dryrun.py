@@ -19,20 +19,27 @@ cell:
 
   * the bytes of the rank's arguments: its blocks of the parameters, the
     AdamW state, the batch and the decode cache;
-  * the FLOPs the rank runs (``torch.utils.flop_counter.FlopCounterMode``:
-    the matmuls, convolutions and attention products, the remat
-    recompute included);
+  * what the step dispatches, counted by ``launch.op_analysis.OpAnalysis``
+    (the counterpart of the reference's ``HloAnalysis``): the FLOPs the
+    rank runs (the matmuls, convolutions and attention products, the remat
+    recompute included; ``FlopCounterMode``'s count), by operator; the HBM
+    bytes its operators read and write (``hbm_bytes_per_device``: eager,
+    unfused); the peak of the storages it holds above its arguments
+    (``memory.temp_bytes``: activations, saved tensors, gradients, new
+    state) and so ``memory.peak_bytes`` (arguments + temp), the bytes
+    that must fit a card; its operators' counts and bytes;
   * the bytes the rank puts on the wire, by kind (``sharding.WIRE``, the
-    ring model);
+    ring model), and its largest calls (``collectives.top``);
   * the wall seconds of the run.
 
-There is no temp-bytes figure and no HLO: nothing is compiled or
-allocated.  A decode cell runs one step at the cache's last position (a
-full cache).  Each cell runs in a process of its own, under a wall limit
-(``--cell-timeout``): past it the cell is recorded as ``timeout``, apart
-from failures.  Results go to ``out/dryrun_torch/torch__<arch>__<shape>__
-<mesh>[__<opts>].json`` (not the reference's ``out/dryrun``, whose mere
-existence turns on the reference's artifact tests).
+Nothing is compiled and, on ``meta``, nothing is allocated: the peak is
+the count of the storages the step creates and frees.  A decode cell runs
+one step at the cache's last position (a full cache).  Each cell runs in
+a process of its own, under a wall limit (``--cell-timeout``): past it
+the cell is recorded as ``timeout``, apart from failures.  Results go
+to ``out/dryrun_torch/torch__<arch>__<shape>__<mesh>[__<opts>].json``
+(not the reference's ``out/dryrun``, whose mere existence turns on the
+reference's artifact tests).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
@@ -46,6 +53,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -102,18 +110,20 @@ def _config(spec):
     return cfg
 
 
-def _materialize(tree, fake: bool, gen: Optional[torch.Generator]):
+def _materialize(tree, fake: bool, gen: Optional[torch.Generator],
+                 device="cpu"):
     """A tree of ``meta`` tensors as tensors of the same shapes and dtypes:
     empty (on ``meta``: no storage) or, for a real run, drawn
-    from ``gen`` (token ids below 2, floats normal)."""
+    from ``gen`` (token ids below 2, floats normal) and put on ``device``."""
     def one(t):
         if fake or gen is None:
-            return torch.zeros(t.shape, dtype=t.dtype)
+            return torch.zeros(t.shape, dtype=t.dtype, device=device)
         if t.dtype.is_floating_point:
-            return torch.randn(t.shape, generator=gen).to(t.dtype)
-        return torch.randint(0, 2, t.shape, generator=gen, dtype=t.dtype)
+            return torch.randn(t.shape, generator=gen).to(device, t.dtype)
+        return torch.randint(0, 2, t.shape, generator=gen,
+                             dtype=t.dtype).to(device)
     if isinstance(tree, dict):
-        return {k: _materialize(v, fake, gen) for k, v in tree.items()}
+        return {k: _materialize(v, fake, gen, device) for k, v in tree.items()}
     return one(tree)
 
 
@@ -124,16 +134,20 @@ def _local(batch, policy, mesh):
             for k, v in batch.items()}
 
 
-def measure(spec: Dict, mesh, fake: bool = True) -> Dict:
+def measure(spec: Dict, mesh, fake: bool = True, device="cpu",
+            analysis: bool = True) -> Dict:
     """Run the cell's step once as this rank of ``mesh``'s world: on
     ``meta`` tensors with ``fake``, else on real tensors (the model's
-    own weights, seed 0, and a batch drawn from seed 1) on the CPU.
-    Returns the policy, the rank's argument bytes, its FLOPs by operator,
-    ``WIRE`` by kind and the run's wall."""
-    from torch.utils.flop_counter import FlopCounterMode
+    own weights, seed 0, and a batch drawn from seed 1) on ``device``.
+    Returns the policy, the rank's argument bytes, what ``OpAnalysis``
+    counted (FLOPs by operator, HBM bytes, temp and peak bytes, operators),
+    ``WIRE`` by kind with the largest calls, and the run's wall.  Without
+    ``analysis`` the step runs under no mode and only the wall and the
+    argument bytes are recorded (the analysis's own cost, by difference)."""
     from repro_torch.configs.base import ShapeConfig, input_specs
     from repro_torch.distributed import fsdp
     from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.op_analysis import OpAnalysis
     from repro_torch.launch.policy import cell_policy
     from repro_torch.models.model import Model, model_abstract
     from repro_torch.models.params import tree_map, tree_shape_structs
@@ -150,6 +164,7 @@ def measure(spec: Dict, mesh, fake: bool = True) -> Dict:
         cfg = dataclasses.replace(cfg, seq_shard_decode=policy.seq_shard)
     drop_fsdp = "tp_only_params" in spec["opts"]
     gen = None if fake else torch.Generator().manual_seed(1)
+    dev = "meta" if fake else device
     with torch.device("meta") if fake else contextlib.nullcontext():
         if fake:
             whole = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
@@ -157,14 +172,17 @@ def measure(spec: Dict, mesh, fake: bool = True) -> Dict:
                                                 cfg.param_dtype))
             model = Model(cfg, whole, device="meta")
         else:
-            model = Model(cfg, device="cpu", seed=0)
+            model = Model(cfg, device=device, seed=0)
             whole = model.params
-        batch = _materialize(input_specs(cfg, shape), fake, gen)
+        batch = _materialize(input_specs(cfg, shape), fake, gen, dev)
         args = {}
         if kind == "train":
             opt_cfg = adamw.AdamWConfig(state_dtype=policy.opt_state_dtype)
             named = st.train_shardings(model, policy, mesh, opt_cfg)
             blocks = shd.shard_tree(whole, named[0])
+            # the whole tree is freed: the rank holds its blocks alone
+            model = Model(cfg, blocks, device=dev)
+            del whole
             opt = adamw.init(blocks, opt_cfg)
             args.update(params=blocks, opt_state=opt,
                         batch=_local(batch, policy, mesh))
@@ -175,6 +193,8 @@ def measure(spec: Dict, mesh, fake: bool = True) -> Dict:
         else:
             named = st.param_shardings(model, mesh, drop_fsdp)
             blocks = shd.shard_tree(whole, named)
+            model = Model(cfg, blocks, device=dev)
+            del whole
             local = _local(batch, policy, mesh)
             args.update(params=blocks, batch=local)
             if kind == "prefill":
@@ -184,7 +204,7 @@ def measure(spec: Dict, mesh, fake: bool = True) -> Dict:
                     return fn(blocks, local)
             else:
                 cache = _materialize(model.init_cache_structs(
-                    batch_size, policy.cache_len), True, None)
+                    batch_size, policy.cache_len), True, None, dev)
                 cache = shd.shard_tree(cache, st.cache_shardings(
                     cache, policy, mesh))
                 args["cache"] = cache
@@ -192,36 +212,58 @@ def measure(spec: Dict, mesh, fake: bool = True) -> Dict:
 
                 def run():
                     return fn(blocks, cache, policy.cache_len - 1, local)
-        del whole
-        shd.WIRE.reset()
+        arg_bytes = {k: fsdp.stored_bytes(v) for k, v in args.items()}
+        del args
+        # garbage in a reference cycle waits for the collector: collect it,
+        # so that the step starts with its arguments alone
+        gc.collect()
+        ana = OpAnalysis() if analysis else contextlib.nullcontext()
+        card = torch.device(dev).type == "cuda"
+        if card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            allocated = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         with shd.use_mesh(mesh), shd.use_batch_axes(policy.batch_axes), \
-                torch.inference_mode(kind != "train"), \
-                FlopCounterMode(display=False) as flops:
+                torch.inference_mode(kind != "train"), ana:
             run()
+        if card:
+            torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    wire = shd.WIRE.snapshot()
-    by_kind = {k: {"count": wire[k], "wire_bytes": wire[f"{k}_bytes"]}
-               for k in wire if not k.endswith("_bytes") and wire[k]}
-    by_op = {str(op): n for op, n in flops.get_flop_counts()
-             .get("Global", {}).items()}
-    arg_bytes = {k: fsdp.stored_bytes(v) for k, v in args.items()}
+    argument_bytes = sum(arg_bytes.values())
+    # on the card: what the allocator held when the step started and at
+    # its peak (the prediction to hold them against: argument + temp bytes)
+    measured = ({"allocated_at_start": allocated,
+                 "max_allocated": torch.cuda.max_memory_allocated(dev)}
+                if card else None)
+    if not analysis:
+        return {"memory": {"argument_bytes": argument_bytes,
+                           "by_argument": arg_bytes}, "wall_s": wall}
+    rec = ana.summary()
     return {
         "policy": {"batch_axes": list(policy.batch_axes),
                    "n_micro": policy.n_micro,
                    "opt_state_dtype": policy.opt_state_dtype,
                    "cache_len": policy.cache_len,
                    "seq_shard": policy.seq_shard, "notes": policy.notes},
-        "memory": {"argument_bytes": sum(arg_bytes.values()),
+        "memory": {"argument_bytes": argument_bytes,
                    "by_argument": arg_bytes,
-                   "temp_bytes": None,
-                   "note": "argument bytes from the block specs; no temp "
-                           "bytes and no HLO: the port runs eagerly and "
-                           "compiles nothing"},
-        "flops_per_device": flops.get_total_flops(),
-        "flops_by_op": by_op,
-        "collectives": {"wire_bytes_per_device": sum(
-            v["wire_bytes"] for v in by_kind.values()), "by_kind": by_kind},
+                   "temp_bytes": rec["temp_bytes"],
+                   "peak_bytes": argument_bytes + rec["temp_bytes"],
+                   "device": measured,
+                   "note": "argument bytes from the block specs; temp bytes "
+                           "the peak of the storages the step's operators "
+                           "create over those it starts with "
+                           "(launch.op_analysis); no HLO: the port runs "
+                           "eagerly and compiles nothing"},
+        "flops_per_device": rec["flops_per_device"],
+        "flops_by_op": rec["flops_by_op"],
+        "hbm_bytes_per_device": rec["hbm_bytes_per_device"],
+        "ops_by_name": rec["ops_by_name"],
+        "collectives": {"wire_bytes_per_device":
+                        rec["collective_wire_bytes_per_device"],
+                        "by_kind": rec["collectives_by_kind"],
+                        "top": rec["top_collectives"]},
         "wall_s": wall,
     }
 
@@ -243,7 +285,8 @@ def _cell_main(spec_json: str) -> None:
                                         device="cpu")
         else:
             mesh = Mesh(dims, axes, "cpu")
-        rec = measure(spec, mesh, fake=True)
+        rec = measure(spec, mesh, fake=True,
+                      analysis=spec.get("analysis", True))
     finally:
         dist.destroy_process_group()
     print(RESULT + json.dumps(rec), flush=True)

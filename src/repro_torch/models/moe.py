@@ -88,7 +88,10 @@ def _routing(p, xs: torch.Tensor, m: MoEConfig):
     probs = _router_probs(p, xs)
     top_w, top_e = _normalized_top_k(probs, m.top_k)
     e = m.n_experts
-    one_hot = torch.nn.functional.one_hot(top_e, e).float()
+    # a comparison, not ``F.one_hot``: that reads the indices' range back
+    # to the host on a real device (a sync) and takes another path on meta
+    one_hot = (top_e.unsqueeze(-1)
+               == torch.arange(e, device=top_e.device)).float()
     frac_assign = one_hot.sum(dim=1).mean(dim=0) / m.top_k
     frac_prob = probs.mean(dim=0)
     aux = e * torch.sum(frac_assign * frac_prob) * m.aux_loss_weight

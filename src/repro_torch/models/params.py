@@ -119,15 +119,18 @@ def tree_init(tree, generator: torch.Generator, default_dtype: str,
     return tree_unflatten(tree, [init(ps) for ps in tree_leaves(tree)])
 
 
-def tree_unflatten(like, leaves):
-    """``like``'s nesting with ``leaves`` (in ``tree_leaves`` order)."""
-    it = iter(leaves)
+def _rebuild(t, it):
+    if isinstance(t, dict):
+        return {k: _rebuild(t[k], it) for k in sorted(t)}
+    return next(it)
 
-    def rebuild(t):
-        if isinstance(t, dict):
-            return {k: rebuild(t[k]) for k in sorted(t)}
-        return next(it)
-    return rebuild(like)
+
+def tree_unflatten(like, leaves):
+    """``like``'s nesting with ``leaves`` (in ``tree_leaves`` order).  The
+    recursion is a module-level function: a nested one refers to itself
+    through its closure, and that cycle would keep the leaves alive until
+    the garbage collector runs."""
+    return _rebuild(like, iter(leaves))
 
 
 def tree_param_count(tree) -> int:

@@ -18,7 +18,7 @@ This module stays import-light (torch only inside methods that need it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -77,6 +77,12 @@ class RefactorConfig:
 
     def replace(self, **kw: Any) -> "RefactorConfig":
         return dataclasses.replace(self, **kw)
+
+    def program_key(self) -> Tuple:
+        """The knobs that change the fused program (the reference's key;
+        ``tune.cost.CostModel`` caches one analysis per key)."""
+        return (self.design, self.tiles_per_block, self.unroll,
+                self.mag_bits, self.group_size, self.backend)
 
     # ---------------------------------------------------------------- json --
     def to_json(self) -> Dict[str, Any]:

@@ -1,4 +1,4 @@
-"""Autotuner: measured probe runs over the write path's program knobs.
+"""Autotuner: cost-model-guided search with measured probe runs.
 
 A port of ``repro.tune.search``.  ``tune(shape, ...)`` finds the write-path
 config for one problem class (shape, dtype, levels, backend, n_devices) on
@@ -7,24 +7,29 @@ one device:
   1. consult the on-disk cache (``tune.cache``): a warm cache returns the
      winner with NO search and NO probe;
   2. on a miss, enumerate the candidate space (bitplane design x lossless
-     group size: 9 programs) and run a measured probe write of EVERY
-     candidate through the real fused ``refactor_array`` path, the default
-     first.  The reference ranks its candidates with an XLA HLO roofline
-     model (``repro.tune.cost``) and probes the best few; that model lowers
-     to XLA and has no torch counterpart, so here measurement alone ranks;
-  3. probe-search the pure-scheduling knobs: ``dispatch_ahead`` through the
-     real chunked pipelined WRITE and the read-side ``depth`` through the
-     real chunked pipelined READ of the winner's own blobs;
-  4. cache the measured winner keyed by backend fingerprint.
+     group size: 9 programs) and score every candidate's fused program with
+     the roofline model (``tune.cost``: the program's operators counted on
+     a ``meta`` tensor, nothing executed);
+  3. run measured probe writes of the default config (always) and the
+     ``probes`` best-scored candidates (a stable sort: ties in candidate
+     order) through the real fused ``refactor_array`` path; the winner is
+     the best MEASURED probe, and the default's probe calibrates the
+     model's scale;
+  4. probe-search the pure-scheduling knobs the program cannot show:
+     ``dispatch_ahead`` through the real chunked pipelined WRITE and the
+     read-side ``depth`` through the real chunked pipelined READ of the
+     winner's own blobs;
+  5. cache the measured winner keyed by backend fingerprint.
 
-The default config is always a probe and the winner is the best MEASURED
+The default config is always a probe and the winner is the best measured
 probe, so a tuned config can only tie or beat the default on the probe
 workload, on the machine that tuned it.
 
-A probe that raises is skipped, as in the reference, but never silently: it
-counts in ``STATS.probes_failed`` and its message goes into the cache
-entry's ``meta["failures"]`` (and ``TuneResult.failures``).  On the card a
-failed probe means a kernel that did not build or launch.
+A candidate that fails to score, or a probe that raises, is skipped, as in
+the reference, but never silently: it counts in ``STATS.scores_failed`` or
+``STATS.probes_failed`` and its message goes into the cache entry's
+``meta["failures"]`` (and ``TuneResult.failures``).  On the card a failed
+probe means a kernel that did not build or launch.
 
 Quality knobs (``mag_bits``) are never searched: tuning changes how bytes
 are produced, not which bytes the user asked to keep.
@@ -43,6 +48,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.metrics import StatCounters
 from repro_torch.tune import cache as tcache
 from repro_torch.tune.config import DEFAULT_CONFIG, RefactorConfig
+from repro_torch.tune.cost import CostModel
 
 DESIGNS = ("register_block", "locality", "shuffle")
 GROUP_SIZES = (2, 4, 8)
@@ -56,10 +62,12 @@ Timed = List[Tuple[RefactorConfig, float]]
 class SearchStats(StatCounters):
     """Process-global tuner counters (thread-safe).  ``searches`` counts
     actual searches (a cache hit must NOT increment it);
-    ``candidates_scored`` the program candidates measured; ``probes_failed``
-    the probes that raised and were skipped."""
+    ``candidates_scored`` the program candidates the model scored,
+    ``scores_failed`` those it could not; ``probes_failed`` the probes that
+    raised and were skipped."""
     searches: int = 0
     candidates_scored: int = 0
+    scores_failed: int = 0
     probes_run: int = 0
     probes_failed: int = 0
 
@@ -73,8 +81,8 @@ class TuneResult:
     cache_hit: bool
     fingerprint: str
     problem: str
-    # (config, measured_seconds) for every measured program candidate,
-    # fastest first; empty on cache hit
+    # (config, model_seconds) for every scored candidate, best first;
+    # empty on cache hit
     scores: Tuple[Tuple[RefactorConfig, float], ...] = ()
     # (config, measured_seconds) for every program probe in probe order
     # (the default first); empty on cache hit
@@ -83,8 +91,10 @@ class TuneResult:
     # (config, seconds) of the dispatch_ahead and depth probes
     dispatch_probes: Tuple[Tuple[RefactorConfig, float], ...] = ()
     depth_probes: Tuple[Tuple[RefactorConfig, float], ...] = ()
-    # "what: error" of every probe that raised; empty on cache hit
+    # "what: error" of every score and probe that raised; empty on cache hit
     failures: Tuple[str, ...] = ()
+    # the model's scale after calibration on the default's probe
+    model_scale: float = 1.0
 
 
 def candidate_space(base: RefactorConfig) -> List[RefactorConfig]:
@@ -193,8 +203,9 @@ def _probe_blobs(best: RefactorConfig, n: int, levels: Optional[int],
     return x, blobs
 
 
-def _failed(failures: List[str], what: str, exc: Exception) -> None:
-    STATS.add(probes_failed=1)
+def _failed(failures: List[str], what: str, exc: Exception,
+            counter: str = "probes_failed") -> None:
+    STATS.add(**{counter: 1})
     failures.append(f"{what}: {exc!r}")
 
 
@@ -293,10 +304,8 @@ def tune(shape: Sequence[int], dtype: str = "float32",
 
     Returns a ``TuneResult``; ``result.config`` is what ``DatasetWriter``
     records in the manifest.  ``force=True`` ignores a cached winner (but
-    still stores the fresh one).  ``probes`` is the reference's count of
-    model-ranked candidates to measure; without a cost model every
-    candidate is measured, so it changes nothing here."""
-    del probes  # every candidate is probed (see the module docstring)
+    still stores the fresh one).  ``probes`` is the count of best-scored
+    candidates measured besides the default."""
     t0 = time.perf_counter()
     shape = tuple(int(d) for d in shape)
     fp = tcache.backend_fingerprint(backend, n_devices, device)
@@ -312,27 +321,45 @@ def tune(shape: Sequence[int], dtype: str = "float32",
     base = (base if base is not None else DEFAULT_CONFIG).replace(
         backend=backend, mesh_devices=(n_devices if n_devices > 1 else None))
     cands = candidate_space(base)
-    # the default heads the probe set, so it wins every tie
-    probe_set = [base] + [c for c in cands if c != base]
+
+    failures: List[str] = []
+    model = CostModel(shape, levels, dtype, device=device)
+    scored: Timed = []
+    for c in cands:
+        try:
+            scored.append((c, model.score(c)))
+        except Exception as exc:  # noqa: BLE001 - counted, not eligible
+            _failed(failures, f"score {_label(c)}", exc, "scores_failed")
+    STATS.add(candidates_scored=len(scored))
+    scored.sort(key=lambda cs: cs[1])
+
+    # measured probes: the default, then the model's best ``probes``
+    # programs; the winner is the best MEASURED probe, so tuned >= default
+    # on this machine
+    probe_set: List[RefactorConfig] = [base]
+    for c, _ in scored:
+        if len(probe_set) >= max(probes, 1) + 1:
+            break
+        if c not in probe_set:
+            probe_set.append(c)
 
     x = _probe_chunk(shape, dtype)
-    failures: List[str] = []
     measured: Timed = []
     for c in probe_set:
         try:
             measured.append((c, _measure_write(x, c, levels, device=device)))
         except Exception as exc:  # noqa: BLE001 - a failed probe is skipped
             _failed(failures, _label(c), exc)
-    STATS.add(candidates_scored=len(measured))
-    scored = sorted(measured, key=lambda cs: cs[1])
+    if measured and measured[0][0] == base:
+        model.calibrate(base, measured[0][1])
     if not measured:            # pathological: keep the default, cache it
         measured = [(base, float("inf"))]
     best_prog = min(measured, key=lambda cs: cs[1])[0]
 
     # pipeline knob branch: dispatch_ahead and depth change scheduling, not
-    # the program, so each is probed through its real pipeline.  If every
-    # program probe failed the machine cannot be trusted to probe more:
-    # keep the default window.
+    # the program, so the model cannot rank them and each is probed through
+    # its real pipeline.  If every program probe failed the machine cannot
+    # be trusted to probe more: keep the default window.
     if np.isfinite(min(s for _, s in measured)):
         best, da_probes = _tune_dispatch_ahead(
             best_prog, shape, dtype, levels, device=device,
@@ -352,6 +379,7 @@ def tune(shape: Sequence[int], dtype: str = "float32",
                                   for c, s in da_probes],
               "depth_probes": [[c.depth, s] for c, s in depth_probes],
               "failures": failures,
+              "model_scale": model.scale,
               "n_candidates": len(cands)},
         root=cache_root)
     return TuneResult(config=best, cache_hit=False, fingerprint=fp,
@@ -360,4 +388,4 @@ def tune(shape: Sequence[int], dtype: str = "float32",
                       tune_s=time.perf_counter() - t0,
                       dispatch_probes=tuple(da_probes),
                       depth_probes=tuple(depth_probes),
-                      failures=tuple(failures))
+                      failures=tuple(failures), model_scale=model.scale)

@@ -950,11 +950,14 @@ def tp_recut(mesh, w, cot):
 def dryrun_real(mesh, spec):
     """``launch.dryrun.measure`` of the cell ``spec`` on this rank of a real
     world (the model's weights, real tensors), the counterpart of the dry
-    run's fake world: argument bytes, FLOPs and ``WIRE`` by kind."""
+    run's fake world: argument bytes, temp bytes, FLOPs, HBM bytes and
+    ``WIRE`` by kind with the largest calls."""
     from repro_torch.launch import dryrun
     rec = dryrun.measure(spec, mesh, fake=False)
     return {k: rec[k] for k in ("memory", "flops_per_device", "flops_by_op",
-                                "collectives", "policy")}
+                                "hbm_bytes_per_device", "ops_by_name",
+                                "collectives",
+                                "policy")}
 
 
 def danube_serve(mesh, layers, batch, prompt, n_new, compute_dtype=None,

@@ -464,7 +464,9 @@ def test_tune_on_the_card_then_cache_hit(cuda, tmp_path):
     r1 = ts.tune((1 << 16,), levels=2, cache_root=tmp_path)
     assert not r1.cache_hit and not r1.failures
     assert ts.STATS.snapshot()["probes_failed"] == 0
-    assert len(r1.probes) == 9
+    assert ts.STATS.snapshot()["scores_failed"] == 0
+    assert len(r1.scores) == 9 and all(s > 0 for _, s in r1.scores)
+    assert len(r1.probes) == 4 and r1.model_scale > 0
     assert min(s for _, s in r1.probes) <= r1.probes[0][1]
     r2 = ts.tune((1 << 16,), levels=2, cache_root=tmp_path)
     assert r2.cache_hit and r2.config == r1.config

@@ -6,15 +6,18 @@ What is held:
 * the counterpart of the reference's ``test_mini_dryrun_all_step_kinds``
   (``tests/test_distributed.py``): jamba's and deepseek-v2-236b's smoke
   configs on a fake (2, 2, 2) ('pod', 'data', 'model') world, the train,
-  prefill and decode steps all ``ok``, with argument bytes, FLOPs and
-  wire bytes;
+  prefill and decode steps all ``ok``, with argument bytes, FLOPs, HBM
+  bytes, temp bytes and wire bytes with the largest calls;
+* the analysis's own cost: no mini cell's wall more than doubles against
+  the same cell run under no mode (``analysis=False``);
 * the dry run against a real run: jamba's smoke (its batch of 5, which
   ``cell_policy`` cannot cut over 'model', so that the steps compute over
   'model' on the blocks) on a fake (1, 2) world and on a real 2-rank gloo
   world running the same step on real tensors (``measure(fake=False)``
   through ``tests/_torch_dist_worker.py``): the argument bytes, ``WIRE``
-  by kind and the FLOPs (``FlopCounterMode``, by operator) equal, for
-  each step kind;
+  by kind, the FLOPs (by operator), the HBM bytes, the temp bytes and the
+  largest collectives (``launch.op_analysis``) equal, for each step
+  kind;
 * the records: a skipped cell is written as the reference writes it, a
   cell past its wall limit is ``timeout``, a cell that raises is ``fail``
   with its error.
@@ -56,6 +59,9 @@ def cells(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dryrun")
     specs = {("mini", a, k): _mini_spec(a, k, b, s)
              for a in MINI for k, b, s in KINDS}
+    specs.update({("bare", a, k): dict(_mini_spec(a, k, b, s),
+                                       analysis=False)
+                  for a in MINI for k, b, s in KINDS})
     specs.update({("pair", k): _real_spec(k, b, s) for k, b, s in REAL[1]})
     with ThreadPoolExecutor(4) as ex:
         futs = {key: ex.submit(dryrun.run_spec, spec, 600)
@@ -73,18 +79,38 @@ def cells(tmp_path_factory):
 def test_mini_dryrun_all_step_kinds(cells, arch, kind):
     rec = cells[("mini", arch, kind)]
     assert rec["status"] == "ok", rec.get("traceback", rec)
-    assert rec["memory"]["argument_bytes"] > 0
-    assert rec["memory"]["temp_bytes"] is None
+    mem = rec["memory"]
+    assert mem["argument_bytes"] > 0
+    assert mem["temp_bytes"] > 0
+    assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
     assert rec["flops_per_device"] > 0
+    assert rec["hbm_bytes_per_device"] > 0
     assert rec["collectives"]["wire_bytes_per_device"] > 0
+    top = rec["collectives"]["top"]
+    assert 0 < len(top) <= 12 and top[0]["wire_bytes"] > 0
+    assert [c["wire_bytes"] for c in top] == sorted(
+        (c["wire_bytes"] for c in top), reverse=True)
     assert rec["policy"]["batch_axes"]
+
+
+@pytest.mark.parametrize("kind", [k[0] for k in KINDS])
+@pytest.mark.parametrize("arch", MINI)
+def test_the_analysis_at_most_doubles_a_mini_cell_s_wall(cells, arch, kind):
+    rec, bare = cells[("mini", arch, kind)], cells[("bare", arch, kind)]
+    assert bare["status"] == "ok", bare.get("traceback", bare)
+    assert "flops_per_device" not in bare
+    assert bare["memory"]["argument_bytes"] == \
+        rec["memory"]["argument_bytes"]
+    assert rec["wall_s"] <= 2 * bare["wall_s"], (rec["wall_s"],
+                                                 bare["wall_s"])
 
 
 @pytest.mark.parametrize("kind", [k[0] for k in REAL[1]])
 def test_fake_world_predicts_the_real_run(cells, kind):
     """Each rank of the real 2-rank world against the fake world's rank 0:
     the same argument bytes (each argument), ``WIRE`` (calls and bytes of
-    each kind) and FLOPs (each operator's)."""
+    each kind), FLOPs (each operator's), HBM bytes, temp bytes and the
+    largest collectives."""
     fake = cells[("pair", kind)]
     assert fake["status"] == "ok", fake.get("traceback", fake)
     assert fake["policy"]["batch_axes"] == ["data"]    # 'model' computes
@@ -97,6 +123,11 @@ def test_fake_world_predicts_the_real_run(cells, kind):
             fake["collectives"]["by_kind"]
         assert real["flops_by_op"] == fake["flops_by_op"]
         assert real["flops_per_device"] == fake["flops_per_device"]
+        assert real["hbm_bytes_per_device"] == fake["hbm_bytes_per_device"]
+        assert real["memory"]["temp_bytes"] == fake["memory"]["temp_bytes"]
+        assert real["collectives"]["top"] == fake["collectives"]["top"]
+    assert fake["memory"]["temp_bytes"] > 0
+    assert fake["collectives"]["top"]
     assert any(k.startswith("tp_") for k in fake["collectives"]["by_kind"])
 
 

@@ -2,16 +2,19 @@
 the CPU (ports of tests/test_tune.py's ``tune()`` tests).
 
 The measures are monkeypatched as the reference's tests do, so the search
-logic runs without probe writes: the measured best wins, then the cache
-hits with no search; ``force=True`` searches again; the default heads the
-probes and wins ties; failed probes give the default and are counted;
-``dispatch_ahead`` and ``depth`` are probed through the pipelines.  The
-oracle test gives both packages the same fake times (the reference with a
-constant-score stand-in for its ``CostModel`` and ``probes=9``, so that it
-too measures all 9 candidates) and requires the same winner and the same
-cached JSON.  One test runs the real probes on a small shape.  Every test
-uses a temporary cache root.  Tolerance: none (equal configs and JSON).
+logic runs without probe writes: the model's best probed candidate wins
+when it measures fastest, then the cache hits with no search;
+``force=True`` searches again; the default heads the probes and wins ties;
+failed probes give the default and are counted, as are candidates that
+fail to score; ``dispatch_ahead`` and ``depth`` are probed through the
+pipelines.  The oracle test gives both packages the same constant-score
+stand-in for ``CostModel`` and the same fake times, with ``probes`` 3 and
+9, and requires the same probes in the same order, the same winner and
+the same cached JSON.  One test runs the real model and probes on a small
+shape.  Every test uses a temporary cache root.  Tolerance: none (equal
+configs and JSON).
 """
+import math
 import json
 
 import numpy as np
@@ -86,10 +89,27 @@ def test_probe_data_is_the_reference_s():
                               jsearch._probe_chunk(shape, "float32"))
 
 
-def test_no_cost_model():
-    with pytest.raises(AttributeError, match="XLA HLO"):
-        tn.CostModel  # noqa: B018
-    assert "CostModel" not in tn.__all__
+def test_the_cost_model_is_the_port_s():
+    from repro_torch.tune import cost
+    assert tn.CostModel is cost.CostModel is tsearch.CostModel
+    assert "CostModel" in tn.__all__
+
+
+class _RankedModel:
+    """A stand-in ``CostModel`` that scores shuffle/8 best, locality/2
+    second, and every other candidate alike."""
+
+    def __init__(self, shape, levels=None, dtype="float32", peaks=None,
+                 device=None):
+        self.scale = 1.0
+
+    def score(self, cfg):
+        return {("shuffle", 8): 0.1, ("locality", 2): 0.2}.get(
+            (cfg.design, cfg.group_size), 1.0) * self.scale
+
+    def calibrate(self, cfg, measured_s):
+        self.scale = measured_s / self.score(cfg)
+        return self.scale
 
 
 def test_tune_measured_best_wins_then_cache_hit(tmp_path, monkeypatch):
@@ -100,16 +120,25 @@ def test_tune_measured_best_wins_then_cache_hit(tmp_path, monkeypatch):
             else 1.0
 
     _patch(monkeypatch, tsearch, measure)
+    monkeypatch.setattr(tsearch, "CostModel", _RankedModel)
     r1 = tn.tune((1024,), levels=2, probes=2, device="cpu")
     assert not r1.cache_hit
     assert r1.config.design == "shuffle" and r1.config.group_size == 8
     assert r1.config.dispatch_ahead in tsearch.DISPATCH_AHEAD
-    # without a model every candidate is probed, whatever ``probes`` says
-    assert len(r1.probes) == 9 and min(s for _, s in r1.probes) == 0.25
-    assert [s for _, s in r1.scores] == sorted(s for _, s in r1.probes)
+    # the default, then the model's best two
+    assert [(c.design, c.group_size) for c, _ in r1.probes] == [
+        ("register_block", 4), ("shuffle", 8), ("locality", 2)]
+    assert min(s for _, s in r1.probes) == 0.25
+    # the scores are the model's, best first, taken before calibration
+    assert len(r1.scores) == 9 and [s for _, s in r1.scores][:2] == [0.1,
+                                                                     0.2]
+    assert r1.model_scale == 1.0       # the default measured its score
     s1 = tsearch.STATS.snapshot()
     assert s1["searches"] == 1 and s1["candidates_scored"] == 9
     assert s1["probes_failed"] == 0 and r1.failures == ()
+    meta = _cached_meta((1024,), 2)["meta"]
+    assert meta["model_scale"] == r1.model_scale
+    assert meta["n_candidates"] == 9
 
     # second call: cached winner replayed, NO search, NO probe
     r2 = tn.tune((1024,), levels=2, probes=2, device="cpu")
@@ -135,7 +164,7 @@ def test_tune_winner_never_loses_to_default(tmp_path, monkeypatch):
     _patch(monkeypatch, tsearch, measure)
     r = tn.tune((512,), levels=1, probes=3, device="cpu")
     assert probed[0] == DEFAULT_CONFIG
-    assert len(probed) == 9 and len(set(probed)) == 9
+    assert len(probed) == 4 and len(set(probed)) == 4
     assert r.config == DEFAULT_CONFIG
 
 
@@ -150,8 +179,9 @@ def test_tune_counts_probe_failures(tmp_path, monkeypatch):
     _patch(monkeypatch, tsearch, measure)
     r = tn.tune((512,), levels=1, probes=2, device="cpu")
     assert r.config == DEFAULT_CONFIG    # pathological: default, cached
-    assert tsearch.STATS.snapshot()["probes_failed"] == 9
-    assert len(r.failures) == 9 and "probe exploded" in r.failures[0]
+    assert tsearch.STATS.snapshot()["probes_failed"] == 3
+    assert len(r.failures) == 3 and "probe exploded" in r.failures[0]
+    assert r.model_scale == 1.0          # nothing to calibrate from
     assert r.failures[0].startswith("register_block/group_size=4")
     assert _cached_meta((512,), 1)["meta"]["failures"] == list(r.failures)
     assert tn.tune((512,), levels=1, device="cpu").cache_hit
@@ -216,11 +246,37 @@ def test_tune_probes_read_depth_through_pipeline(tmp_path, monkeypatch):
     assert [d for d, _ in meta["depth_probes"]] == list(tsearch.DEPTHS)
 
 
+def test_tune_counts_candidates_that_fail_to_score(tmp_path, monkeypatch):
+    """A candidate the model cannot score is not eligible for a probe, as
+    in the reference, but it is counted in ``scores_failed`` and named."""
+    _isolate(tmp_path, monkeypatch)
+    real_score = tsearch.CostModel.score
+
+    def score(self, cfg):
+        if cfg.design == "locality":
+            raise RuntimeError("no fake for this operator")
+        return real_score(self, cfg)
+
+    monkeypatch.setattr(tsearch.CostModel, "score", score)
+    _patch(monkeypatch, tsearch, lambda x, cfg, levels, repeats=2, **kw: 1.0)
+    r = tn.tune((1024,), levels=2, probes=8, device="cpu")
+    st = tsearch.STATS.snapshot()
+    assert st["scores_failed"] == 3 and st["candidates_scored"] == 6
+    assert st["probes_failed"] == 0
+    assert [f.split(":")[0] for f in r.failures] == [
+        f"score locality/group_size={g}" for g in tsearch.GROUP_SIZES]
+    assert "no fake" in r.failures[0]
+    assert len(r.scores) == 6 and len(r.probes) == 6
+    assert all(c.design != "locality" for c, _ in r.probes)
+    assert _cached_meta((1024,), 2)["meta"]["failures"] == list(r.failures)
+
+
 class _ConstantModel:
     """The reference's ``CostModel`` with every candidate scored alike, so
-    that its probe order is the candidate order, as the port's is."""
+    that both packages probe in candidate order."""
 
-    def __init__(self, shape, levels=None, dtype="float32", peaks=None):
+    def __init__(self, shape, levels=None, dtype="float32", peaks=None,
+                 device=None):
         self.scale = 1.0
 
     def score(self, cfg):
@@ -231,12 +287,14 @@ class _ConstantModel:
         return self.scale
 
 
+@pytest.mark.parametrize("probes", [3, 9])
 @pytest.mark.parametrize("fastest", [None, ("locality", 2), ("shuffle", 8)])
 def test_tune_matches_reference_on_equal_times(tmp_path, monkeypatch,
-                                               fastest):
-    """Both packages measure all 9 programs in the same order with the same
-    fake times, then the same window and depth probes: the same winner,
-    and the same JSON in each package's cache."""
+                                               fastest, probes):
+    """With the same constant-score model, both packages probe the same
+    programs in the same order (the default and ``probes`` more: 4, or all
+    9) with the same fake times, then the same window and depth probes:
+    the same winner, and the same JSON in each package's cache."""
     _isolate(tmp_path, monkeypatch)
     probed = {"port": [], "ref": []}
 
@@ -256,9 +314,11 @@ def test_tune_matches_reference_on_equal_times(tmp_path, monkeypatch,
     _patch(monkeypatch, jsearch, measure_for("ref"), pmeasure, rmeasure,
            default=jtn.DEFAULT_CONFIG)
     monkeypatch.setattr(jsearch, "CostModel", _ConstantModel)
-    got = tn.tune((2048,), levels=2, probes=9, device="cpu")
-    want = jtn.tune((2048,), levels=2, probes=9)
-    assert probed["port"] == probed["ref"] and len(probed["port"]) == 9
+    monkeypatch.setattr(tsearch, "CostModel", _ConstantModel)
+    got = tn.tune((2048,), levels=2, probes=probes, device="cpu")
+    want = jtn.tune((2048,), levels=2, probes=probes)
+    assert probed["port"] == probed["ref"]
+    assert len(probed["port"]) == min(probes + 1, 9)
     assert got.config.to_json() == want.config.to_json()
     assert [(c.to_json(), s) for c, s in got.probes] == [
         (c.to_json(), s) for c, s in want.probes]
@@ -268,23 +328,29 @@ def test_tune_matches_reference_on_equal_times(tmp_path, monkeypatch,
                             jcache.problem_key((2048,), "float32", 2))
     ref_entry = json.loads(ref_path.read_text())
     assert port_entry["config"] == ref_entry["config"]
-    for key in ("probes", "dispatch_probes", "depth_probes"):
+    for key in ("scores", "probes", "dispatch_probes", "depth_probes",
+                "model_scale", "n_candidates"):
         assert port_entry["meta"][key] == ref_entry["meta"][key]
 
 
 def test_tune_runs_its_real_probes(tmp_path, monkeypatch):
-    """No fakes: every probe writes and reads through the port on the CPU,
-    none fails, the winner's probe time is at most the default's, and a
+    """No fakes: the model scores every candidate on ``meta`` (9 finite,
+    positive scores), every probe writes and reads through the port on the
+    CPU, none fails, the default heads 4 program probes, the winner's probe
+    time is at most the default's, the model's scale is calibrated, and a
     pipeline with the cache on picks the winner up."""
     from repro_torch.core import pipeline as pl
 
     _isolate(tmp_path, monkeypatch)
     r = tn.tune((2048,), levels=1, device="cpu")
     assert tsearch.STATS.snapshot()["probes_failed"] == 0 and not r.failures
-    assert len(r.probes) == 9 and r.probes[0][0] == DEFAULT_CONFIG
+    assert len(r.scores) == 9 and all(
+        math.isfinite(s) and s > 0 for _, s in r.scores)
+    assert math.isfinite(r.model_scale) and r.model_scale > 0
+    assert len(r.probes) == 4 and r.probes[0][0] == DEFAULT_CONFIG
     assert min(s for _, s in r.probes) <= r.probes[0][1]
     assert len(r.dispatch_probes) == 3 and len(r.depth_probes) == 3
-    assert tsearch.STATS.snapshot()["probes_run"] == 15
+    assert tsearch.STATS.snapshot()["probes_run"] == 10
     assert tn.tune((2048,), levels=1, device="cpu").cache_hit
     pipe = pl.ChunkedRefactorPipeline(chunk_elems=2048, levels=1,
                                       device="cpu")
