@@ -174,7 +174,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ``tp_all_gather`` 1 a step.  With two or more cards it runs the ``tp``
    card tests (h2o-danube-3-4b at 24 layers trained and served on a (1, 4)
    mesh of four cards);
-18. Mamba on its 'model' blocks and the scans' chunked remat: (a) a NCCL
+18. Mamba on its 'model' blocks and the scan layers: (a) a NCCL
    world of one rank and a (1, 1) mesh, jamba-v0.1-52b at its published
    widths cut to one 8-layer period (7 Mamba layers, 1 GQA, 4 MoE layers
    of 16 experts, vocabulary 65,536; bf16 weights held, the stacked leaves
@@ -183,10 +183,13 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    tokens): greedy tokens equal and logits bit-identical to the plain
    decode, ``WIRE``'s tp counts the layer plan's (``jamba_serve_plan``);
    (b) one Mamba layer at jamba's widths and one RWKV6 time mix at
-   rwkv6-3b's, 1 x 4096 tokens, forward and backward with and without the
-   chunks (``ssm.REMAT_CHUNK``): gradients bit-identical, each pass's peak
-   device memory.  With two or more cards it runs the ``jamba and cards``
-   card tests (one period on a (1, 4) mesh, served and trained);
+   rwkv6-3b's, 1 x 4096 tokens, forward and backward through the scan
+   kernels (the card's path) and through the loop (the dispatch patched
+   for the comparison): the kernels' peak at or under the loop's
+   recorded figures, both walls, and in float32 the gradients within
+   1e-4 of their largest.  With two or more cards it runs the ``jamba
+   and cards`` card tests (one period on a (1, 4) mesh, served and
+   trained);
 19. the dispatched-op analysis (``launch/op_analysis.py``) and the cost
    model (``tune/cost.py``) against the card: (a) the fused write program
    of Isabel's chunk at the default config run under ``OpAnalysis`` on the
@@ -198,18 +201,32 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ``meta`` and run on the card under ``OpAnalysis``: FLOPs and bytes
    within 1% (operators that dispatch differently listed), the allocator's
    peak within [0.80, 1.25] x the predicted arguments + temp bytes, and
-   neither the FLOP bound (989 TFLOP/s) nor the byte bound above the wall.
+   neither the FLOP bound (989 TFLOP/s) nor the byte bound above the wall;
+20. the SSM scan kernels (``kernels/csrc/scan.cu``): (a) each of
+   ``wkv6_fwd``, ``wkv6_bwd``, ``mamba_scan_fwd`` and ``mamba_scan_bwd``
+   against its plain version at rwkv6-3b's widths (40 heads of 64) and
+   jamba's (d_inner 8192, d_state 16), 1 x 4096 and 2 x 1, 63, 64, 200
+   steps: final and kept states bit-identical (at most 2 ulp), outputs
+   within 1e-5 of max|out|, gradients within 1e-4 of their largest; each
+   timed at 1 x 4096 (wrapper, replayed graph, plain loop, bound);
+   (b) their main paths, counters zeroed before each: rwkv6-3b cut to 4
+   layers and jamba's period without its MoE, 3 ``make_train_step``
+   steps of 1 x 4096 each (losses finite and falling), and jamba's period
+   prefilling 1 x 4096 (finite logits); launches = scanning layers x
+   steps x passes.
 
-Phases 7-12, 14 and 15 zero the launch counters before their runs and
+Phases 7-12, 14, 15 and 20 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
-``launches`` is phase 3's count for the ``register_block`` pair (phases 9's
-and 15's are printed on lines of their own).  Each phase's wall and peak device
+``launches`` is phase 3's count for the ``register_block`` pair and phase
+20 (b)'s for the scan kernels (phases 9's and 15's are printed on lines
+of their own).  Each phase's wall and peak device
 memory are printed at its end.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -486,11 +503,7 @@ def print_timings(timings) -> None:
 def read_launches(bp, required, what: str):
     """Every kernel's launch count since the last reset; the ``required``
     ones must be > 0."""
-    launches = {"rb_encode": bp.encode_register_block_cuda.launches,
-                "rb_decode": bp.decode_register_block_cuda.launches,
-                "loc_encode": bp.encode_locality_cuda.launches,
-                "shuffle_encode": bp.encode_shuffle_cuda.launches,
-                "loc_decode": bp.decode_locality_cuda.launches}
+    launches = bp.launches()
     print(f"{what}: {launches}", flush=True)
     for k in required:
         check(launches[k] > 0, f"kernel {k} was not launched ({what})")
@@ -1732,8 +1745,8 @@ def deepseek_cut(torch):
 
 
 def rwkv_full(torch):
-    """rwkv6-3b at its published widths and full depth; the scan's share
-    of prefill from the ``ssm.scan`` spans."""
+    """rwkv6-3b at its published widths and full depth; the ``ssm.scan``
+    spans' host share of prefill."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Model, count_params
     from repro_torch.obs import trace as obs_trace
@@ -1750,9 +1763,10 @@ def rwkv_full(torch):
     scan = [s for s in tr.spans() if s.name == "ssm.scan"]
     pre = [s for s in scan if s.attrs.get("steps") == SERVE_PROMPT]
     scan_s = sum(s.duration_s for s in pre[-cfg.n_layers:])
-    print(f"rwkv6-3b prefill: the ssm.scan loops (host wall, "
-          f"{cfg.n_layers} x {SERVE_PROMPT} steps) {scan_s:.4f} s of "
-          f"{res.prefill_s:.4f} s, {scan_s / res.prefill_s:.3f}", flush=True)
+    print(f"rwkv6-3b prefill: the ssm.scan spans ({cfg.n_layers} wkv6_fwd "
+          f"launches of {SERVE_PROMPT} steps; host wall, the kernels run "
+          f"asynchronously) {scan_s:.4f} s of {res.prefill_s:.4f} s, "
+          f"{scan_s / res.prefill_s:.3f}", flush=True)
     print(f"rwkv6-3b peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
 
@@ -2855,81 +2869,130 @@ def jamba_serve_check(torch, mesh):
     _free(torch)
 
 
-def remat_check(torch):
+# the loop's figures for phase 18 (b) before the scans were kernels: a
+# layer's peak over its parameters and inputs with the chunks, and the wall
+# of its forward and backward, 1 x 4096 (chip_smoke.py, NVIDIA H100 80GB
+# HBM3, 700.00 W)
+LOOP_PEAK_GIB = {"Mamba": 1.447, "RWKV6": 0.997}
+LOOP_WALL_S = {"Mamba": 6.37, "RWKV6": 5.21}
+SCAN_GRAD_TOL = 1e-4        # of a gradient's largest |value|
+
+
+class _LoopScans:
+    """Within it the SSM layers run their scans as the CPU's loop
+    (``ssm._scan``, chunked) on the card too: the yardstick the kernels'
+    layer path is held against here, by patching the layers' dispatch."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+        self.ssm, self.was = ssm, ssm._on_operators
+        ssm._on_operators = lambda t: False
+
+    def __exit__(self, *exc):
+        self.ssm._on_operators = self.was
+
+
+def _max_rel(torch, a, b) -> float:
+    return float((a.double() - b.double()).abs().max()
+                 / max(float(b.double().abs().max()), 1e-30))
+
+
+def scan_layers_check(torch):
     """One Mamba layer at jamba-v0.1-52b's widths and one RWKV6 time mix at
-    rwkv6-3b's, their config's parameter and compute dtypes, 1 x 4096
-    tokens: the loss ``sum(out * cot)`` and its gradients (x and every
-    leaf), with the scans' chunked remat (``REMAT_CHUNK`` = 64) and
-    without (0): bit-identical; the peak device memory of each pass over
-    what was allocated before it, and its wall (after a warm-up of both
-    paths at 128 tokens)."""
+    rwkv6-3b's, 1 x 4096 tokens, the loss ``sum(out * cot)`` and its
+    gradients (x and every leaf), forward and backward through the scan
+    kernels (the card's path) and through the loop (``_LoopScans``):
+    at the config's dtypes the kernels' peak over what was allocated
+    before (held at or below the loop's figures, ``LOOP_PEAK_GIB``) and
+    wall beside the loop's, and the gradients' largest difference (bf16
+    compute: reported, a float32 difference in the scan may move a bf16
+    rounding by one ulp); in float32 compute and parameters every gradient
+    within ``SCAN_GRAD_TOL`` of its largest |value| (after a warm-up of
+    both paths at 128 tokens)."""
+    import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import compute_dtype
     from repro_torch.models.params import tree_init, tree_leaves
     from repro_torch.train.step import value_and_grad
-    layers = (("Mamba, jamba-v0.1-52b", "jamba-v0.1-52b", SSM.mamba_abstract,
+    layers = (("Mamba", "jamba-v0.1-52b", SSM.mamba_abstract,
                SSM.mamba_apply),
-              ("RWKV6 time mix, rwkv6-3b", "rwkv6-3b",
-               SSM.rwkv_time_mix_abstract, SSM.rwkv_time_mix_apply))
-    chunk = SSM.REMAT_CHUNK
-    try:
-        for what, arch, abstract, apply in layers:
+              ("RWKV6", "rwkv6-3b", SSM.rwkv_time_mix_abstract,
+               SSM.rwkv_time_mix_apply))
+    for what, arch, abstract, apply in layers:
+        for f32 in (False, True):
             cfg = get_config(arch)
+            if f32:
+                cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                          param_dtype="float32")
             gen = torch.Generator(device="cuda").manual_seed(0)
             params = tree_init(abstract(cfg), gen, cfg.param_dtype, "cuda")
             x, cot = (torch.randn((1, REMAT_SEQ, cfg.d_model), generator=gen,
                                   device="cuda").to(compute_dtype(cfg))
                       for _ in range(2))
-            runs = {}
 
             def grads(t):
                 return value_and_grad(lambda q: torch.sum(
                     apply(q["p"], q["x"], cfg)[0].float() * q["c"].float()),
                     {"p": params, "x": t, "c": cot[:, :t.shape[1]]})[1]
-            for c in (chunk, 0):          # warm-up: both paths at 128 tokens
-                SSM.REMAT_CHUNK = c
-                grads(x[:, :2 * max(chunk, 64)])
-            for c in (chunk, 0):
-                SSM.REMAT_CHUNK = c
+            paths = {"kernels": contextlib.nullcontext(),
+                     "loop": _LoopScans()}
+            for ctx in paths.values():         # warm-up at 128 tokens
+                with ctx:
+                    grads(x[:, :128])
+            runs = {}
+            for path, ctx in paths.items():
                 _free(torch)
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                g = grads(x)
-                torch.cuda.synchronize()
-                runs[c] = (tree_leaves(g), time.perf_counter() - t0,
-                           torch.cuda.max_memory_allocated() - base)
+                with ctx:
+                    t0 = time.perf_counter()
+                    g = grads(x)
+                    torch.cuda.synchronize()
+                runs[path] = (tree_leaves(g), time.perf_counter() - t0,
+                              (torch.cuda.max_memory_allocated() - base)
+                              / 2 ** 30)
                 del g
-            same = all(torch.equal(a, b) for a, b in zip(runs[chunk][0],
-                                                         runs[0][0]))
-            check(same, f"{what}: gradients with the scans' chunked remat "
-                  f"differ from those without")
-            print(f"{what}, 1 x {REMAT_SEQ} tokens, forward and backward: "
-                  f"gradients bit-identical with and without the chunks; "
-                  f"peak over the parameters and inputs "
-                  f"{runs[chunk][2] / 2 ** 30:.3f} GiB with chunks of "
-                  f"{chunk}, {runs[0][2] / 2 ** 30:.3f} GiB without; walls "
-                  f"{runs[chunk][1]:.2f} s and {runs[0][1]:.2f} s", flush=True)
+            errs = [_max_rel(torch, a, b) for a, b in
+                    zip(runs["kernels"][0], runs["loop"][0])]
+            dtypes = (f"{cfg.compute_dtype} compute, {cfg.param_dtype} "
+                      f"parameters")
+            if f32:
+                check(max(errs) <= SCAN_GRAD_TOL,
+                      f"{what} ({dtypes}): kernel gradients differ from the "
+                      f"loop's by up to {max(errs):.3g} of their largest")
+            else:
+                check(runs["kernels"][2] <= LOOP_PEAK_GIB[what],
+                      f"{what}: the kernels' peak {runs['kernels'][2]:.3f} "
+                      f"GiB over the loop's {LOOP_PEAK_GIB[what]} GiB")
+            print(f"{what} ({arch}, {dtypes}), 1 x {REMAT_SEQ} tokens, "
+                  f"forward and backward: kernels {runs['kernels'][1]:.3f} "
+                  f"s, peak {runs['kernels'][2]:.3f} GiB over the parameters "
+                  f"and inputs; loop {runs['loop'][1]:.3f} s, "
+                  f"{runs['loop'][2]:.3f} GiB (recorded "
+                  f"{LOOP_WALL_S[what]} s, {LOOP_PEAK_GIB[what]} GiB); "
+                  f"gradients (x and {len(errs) - 1} leaves) within "
+                  f"{max(errs):.3g} of their largest |value| of the loop's"
+                  + (f" (held at {SCAN_GRAD_TOL:g})" if f32 else
+                     " (reported)"), flush=True)
             del params, x, cot, runs
             _free(torch)
-    finally:
-        SSM.REMAT_CHUNK = chunk
 
 
 def jamba_phase(torch):
     """Phase 18: jamba's period served from TP blocks in a NCCL world of one
-    rank on a (1, 1) mesh, the scans' chunked remat at full width; then,
-    with more cards, the ``jamba and cards`` card tests."""
+    rank on a (1, 1) mesh, the scan layers at full width through the
+    kernels against the loop; then, with more cards, the ``jamba and
+    cards`` card tests."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh(1, 1, device="cuda")
     try:
         for what, fn in (("(a) jamba's period served tensor-parallel",
                           lambda: jamba_serve_check(torch, mesh)),
-                         ("(b) the scans' chunked remat",
-                          lambda: remat_check(torch))):
+                         ("(b) the scan layers: kernels against the loop",
+                          lambda: scan_layers_check(torch))):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             fn()
@@ -3098,6 +3161,300 @@ def analysis_phase(torch, bp, x_np):
     _free(torch)
 
 
+# --------------------------------------------------------------- phase 20 --
+
+SCAN_SEQ = 4096                # SHAPES["train_4k"]'s sequence
+SCAN_EDGES = (1, 63, 64, 200)  # either side of a chunk, a ragged last one
+RWKV_HEADS = 40                # rwkv6-3b: d_model 2560 in heads of 64
+MAMBA_D, MAMBA_N = 8192, 16    # jamba-v0.1-52b: expand 2 x 4096, d_state 16
+F32_FLOP_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
+EXP_PER_S = 4.18e12            # 132 SMs x 16 SFU lanes x 1.98 GHz boost
+SCAN_OUT_TOL = 1e-5            # of max|out|: sums over k or s in another order
+SCAN_STEPS = 3
+SCAN_TPU = "src/repro/models/ssm.py"
+# flops of each (b, t, h, k, v) of a wkv and each (b, t, d, s) of a scan
+# (a multiply-add counts two), and the scans' expf
+WKV_FWD_OPS, WKV_BWD_OPS = 7, 20     # fwd: k v, u kv, + S, r *, + y, w S, +
+MAMBA_FWD_OPS, MAMBA_BWD_OPS = 6, 19  # bwd: the recompute and the gradients
+
+
+def _scan_inputs(torch, kind, b, s, gen):
+    """A scan's inputs in their models' ranges, float32 on the card: RWKV's
+    decay exp(-exp(.)) over the clamp's [-8, 4]; Mamba's A in [-16, -1],
+    dt a softplus."""
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+    if kind == "wkv6":
+        h = RWKV_HEADS
+        return (n(b, s, h, 64), n(b, s, h, 64), n(b, s, h, 64),
+                torch.exp(-torch.exp(uni(-8.0, 4.0, b, s, h, 64))),
+                n(h, 64), n(b, h, 64, 64))
+    d, m = MAMBA_D, MAMBA_N
+    return (n(b, s, d), torch.nn.functional.softplus(n(b, s, d) - 3.0),
+            n(b, s, m), n(b, s, m), -torch.exp(uni(0.0, math.log(16.0), d, m)),
+            n(b, d, m))
+
+
+def _ulps(torch, a, b) -> int:
+    """The largest distance in float32 ulps between ``a`` and ``b``."""
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    # map the sign-magnitude bits onto a line
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def _scan_bound(kind, args, keep, backward):
+    """(bound ms, bound_by, bytes, flops, expf) of one call: each input
+    read once and each output written once over 3.35 TB/s, against the
+    flops over the float32 rate and the expf over the SFUs'."""
+    nbytes = sum(t.numel() * 4 for t in args)
+    b, s = args[0].shape[:2]
+    states = -(-s // 64) * args[5][0].numel() * b
+    if kind == "wkv6":
+        elems = args[0].numel() * 64
+        flops = (WKV_BWD_OPS if backward else WKV_FWD_OPS) * elems
+        exps = 0
+    else:
+        elems = args[0].numel() * args[4].shape[1]
+        flops = (MAMBA_BWD_OPS if backward else MAMBA_FWD_OPS) * elems
+        exps = elems
+    if backward:         # + the states and both upstream gradients in, one
+        nbytes += 4 * states + 4 * (args[0].numel() + args[5].numel())
+    else:                # gradient out an input; out, the final state
+        nbytes += 4 * (args[0].numel() + args[5].numel()) + (
+            4 * states if keep else 0)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": max(flops / F32_FLOP_PER_S, exps / EXP_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by, nbytes, flops, exps
+
+
+def scan_kernels_check(torch, sc):
+    """Phase 20 (a): each scan kernel against its plain version on the card
+    at rwkv6-3b's and jamba's widths, 1 x 4096 and 2 x each edge length:
+    the final and kept states bit-identical (else at most 2 ulp, named),
+    the outputs within ``SCAN_OUT_TOL`` of max|out|, every gradient within
+    ``SCAN_GRAD_TOL`` of its largest |value|; then each kernel's time at 1
+    x 4096 (through its wrapper back to back, and a replayed CUDA graph:
+    the working sets exceed the L2), the plain loop's, and the bound.
+    Returns the rows by kernel name."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    fwd = {"wkv6": sc.wkv6_fwd, "mamba": sc.mamba_scan_fwd}
+    bwd = {"wkv6": sc.wkv6_bwd, "mamba": sc.mamba_scan_bwd}
+    names = {"wkv6": ("wkv6_fwd", "wkv6_bwd"),
+             "mamba": ("mamba_scan_fwd", "mamba_scan_bwd")}
+    chunk = 64
+    rows = {}
+    for kind in ("wkv6", "mamba"):
+        pf, pb = sc.PLAIN[names[kind][0]], sc.PLAIN[names[kind][1]]
+        for b, s in ((1, SCAN_SEQ),) + tuple((2, e) for e in SCAN_EDGES):
+            args = _scan_inputs(torch, kind, b, s, gen)
+            got, want = fwd[kind](*args, chunk, True), pf(*args, chunk, True)
+            torch.cuda.synchronize()
+            ulps = max(_ulps(torch, got[i], want[i]) for i in (1, 2))
+            check(ulps <= 2, f"{names[kind][0]} B={b} S={s}: states "
+                  f"{ulps} ulp from the plain loop's")
+            out_err = _max_rel(torch, got[0], want[0])
+            check(out_err <= SCAN_OUT_TOL, f"{names[kind][0]} B={b} S={s}: "
+                  f"out within {out_err:.3g} of max|out|")
+            cot = (torch.randn(got[0].shape, generator=gen, device="cuda"),
+                   torch.randn(got[1].shape, generator=gen, device="cuda"))
+            gk = bwd[kind](*args[:5], want[2], *cot, chunk)
+            gp = pb(*args[:5], want[2], *cot, chunk)
+            errs = [_max_rel(torch, x, y) for x, y in zip(gk, gp)]
+            check(max(errs) <= SCAN_GRAD_TOL, f"{names[kind][1]} B={b} "
+                  f"S={s}: gradients within {[f'{e:.3g}' for e in errs]} "
+                  f"of their largest |value|")
+            print(f"{kind} B={b} S={s}: states "
+                  + ("bit-identical" if ulps == 0 else f"within {ulps} ulp")
+                  + f" to the loop's, out within {out_err:.3g} of max|out|, "
+                  f"gradients within {max(errs):.3g}", flush=True)
+            if s != SCAN_SEQ:
+                continue
+            # the times at 1 x 4096, the training path's calls (keep)
+            for name, call, plain, back in (
+                    (names[kind][0], lambda: fwd[kind](*args, chunk, True),
+                     lambda: pf(*args, chunk, True), False),
+                    (names[kind][1],
+                     lambda: bwd[kind](*args[:5], want[2], *cot, chunk),
+                     lambda: pb(*args[:5], want[2], *cot, chunk), True)):
+                bound, by, nbytes, flops, exps = _scan_bound(kind, args, True,
+                                                             back)
+                err = (max(float((x - y).abs().max()) for x, y in
+                           zip(gk, gp)) if back else
+                       float((got[0] - want[0]).abs().max()))
+                rows[name] = dict(
+                    ms=time_ms(call, reps=5, inner=3, warmup=2),
+                    device_ms=time_ms(call, reps=5, inner=3, warmup=2,
+                                      graph=True),
+                    plain_ms=time_ms(plain, reps=1, inner=1, warmup=1),
+                    bound_ms=bound, bound_by=by, max_abs_err=err,
+                    bytes=nbytes, flops=flops, exps=exps,
+                    shape=tuple(args[0].shape))
+            del args, got, want, gk, gp, cot
+    for name, r in rows.items():
+        print(f"{name} at {r['shape']}: wrapper {r['ms']:.3f} ms back to "
+              f"back, device {r['device_ms']:.3f} ms (graph replay), plain "
+              f"loop {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB, "
+              f"{r['flops'] / 1e9:.2f} GFLOP, {r['exps'] / 1e6:.0f}M expf), "
+              f"device / bound {r['device_ms'] / r['bound_ms']:.1f}, max abs "
+              f"err {r['max_abs_err']:.3g}", flush=True)
+    return rows
+
+
+def _scan_layers(cfg) -> int:
+    """The layers of ``cfg`` that scan: every RWKV layer's time mix, each
+    Mamba layer of a hybrid's plan."""
+    from repro_torch.models.transformer import stack_plan
+    if cfg.ssm.kind == "rwkv6":
+        return cfg.n_layers
+    return sum(g.repeats * sum(k.startswith("mamba") for k in g.kinds)
+               for g in stack_plan(cfg))
+
+
+def _scan_train(torch, bp, arch, layers, unstacked, **overrides):
+    """``arch`` at its published widths cut to ``layers`` layers, its
+    config's ``overrides`` replaced (its stacked leaves rescaled by
+    ``unstack_fan_in`` with ``unstacked``):
+    ``SCAN_STEPS`` ``make_train_step`` steps of 1 x ``SCAN_SEQ`` on one
+    batch, AdamW; the launches of the scan kernels (counters zeroed just
+    before), the losses, the step walls, the ``ssm.scan`` span's host
+    seconds and the peak."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.policy import CellPolicy
+    from repro_torch.models.model import Model, count_params
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              **overrides)
+    model = Model(cfg, device="cuda", seed=0)
+    if unstacked:
+        unstack_fan_in(model.params)
+    policy = CellPolicy(batch_axes=(), n_micro=1, opt_state_dtype="float32",
+                        cache_len=0)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=SCAN_STEPS)
+    fn = make_train_step(model, opt_cfg, policy)
+    batch = loop.synthetic_data(cfg, 1, SCAN_SEQ, seed=1, device="cuda")(0)
+    params, opt = model.params, adamw.init(model.params, opt_cfg)
+    losses, walls = [], []
+    _free(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bp.reset_launches()
+    with obs_trace.tracing() as tr:
+        for _ in range(SCAN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, m = fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+    launches = bp.launches()
+    span = tr.summary()["spans"].get("ssm.scan", {}).get("total_s", 0.0)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"{arch}/{layers}: losses {losses} not finite and falling")
+    print(f"{arch} cut to {layers} layers"
+          f"{''.join(f', {k}={v}' for k, v in overrides.items())} "
+          f"({count_params(cfg):,} params, remat {cfg.remat}), {SCAN_STEPS} "
+          f"make_train_step steps of 1 x "
+          f"{SCAN_SEQ}: losses {[round(v, 4) for v in losses]}, step walls "
+          f"{[round(w, 3) for w in walls]} s, ssm.scan span {span:.3f} s of "
+          f"host time ({span / sum(walls):.3f} of the steps' wall), peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del model, params, opt, m
+    _free(torch)
+    return cfg, launches
+
+
+def scan_main_path(torch, bp):
+    """Phase 20 (b): the scan kernels on the models' main paths, each run
+    with the counters zeroed just before and read just after: rwkv6-3b
+    cut to 4 layers and jamba-v0.1-52b's 8-layer period without its MoE
+    (seven Mamba layers and dense MLPs: the period with its experts and
+    AdamW's state do not fit one card) each trained ``SCAN_STEPS`` steps
+    of 1 x 4096, and jamba's period with its MoE prefilling 1 x 4096
+    through ``make_prefill_step`` (bf16 weights, ``unstack_fan_in``): the
+    loss finite and falling, the logits finite, each kernel's launches
+    scanning layers x steps x passes (a forward, its remat recompute, a
+    backward).  Returns the launches by kernel."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.train.step import make_prefill_step
+    total = {}
+    for arch, layers, unstacked, over, fwd, bwd in (
+            ("rwkv6-3b", 4, False, {}, "wkv6_fwd", "wkv6_bwd"),
+            ("jamba-v0.1-52b", JAMBA_PERIOD, True, {"moe": None},
+             "mamba_scan_fwd", "mamba_scan_bwd")):
+        cfg, got = _scan_train(torch, bp, arch, layers, unstacked, **over)
+        passes = 2 if cfg.remat else 1
+        n = _scan_layers(cfg)
+        want = {fwd: n * SCAN_STEPS * passes, bwd: n * SCAN_STEPS}
+        check({k: got[k] for k in want} == want
+              and not any(v for k, v in got.items() if k not in want),
+              f"{arch}/{layers} training launches {got}, expected {want}")
+        print(f"{arch}/{layers} training launches: {want} ({n} scanning "
+              f"layers x {SCAN_STEPS} steps x passes)", flush=True)
+        total.update(want)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_PERIOD)
+    mamba = _scan_layers(cfg)
+    model = Model(cfg, device="cuda", seed=0)
+    unstack_fan_in(model.params)
+    held = model.compute_params()
+    tokens = torch.randint(0, cfg.vocab_size, (1, SCAN_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    step = make_prefill_step(model)
+    with torch.inference_mode():         # a warm-up at 256 tokens
+        step(held, {"tokens": tokens[:, :256]})
+    _free(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bp.reset_launches()
+    with torch.inference_mode(), obs_trace.tracing() as tr:
+        t0 = time.perf_counter()
+        logits, _ = step(held, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = bp.launches()
+    span = tr.summary()["spans"].get("ssm.scan", {}).get("total_s", 0.0)
+    check(got["mamba_scan_fwd"] == mamba and not any(
+        v for k, v in got.items() if k != "mamba_scan_fwd"),
+        f"jamba's period prefill launches {got}, expected {mamba} "
+        f"mamba_scan_fwd")
+    check(bool(torch.isfinite(logits).all())
+          and float(logits.float().std()) > 0,
+          "jamba's period prefill: logits not finite or all equal")
+    print(f"jamba-v0.1-52b, one period ({JAMBA_PERIOD} layers, {mamba} "
+          f"Mamba), bf16 weights held, prefill of 1 x {SCAN_SEQ} through "
+          f"make_prefill_step: {wall:.3f} s, ssm.scan span {span:.3f} s of "
+          f"host time, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB, mamba_scan_fwd launches {got['mamba_scan_fwd']} (layers x "
+          f"1 pass), logits finite", flush=True)
+    total["mamba_scan_fwd"] += got["mamba_scan_fwd"]
+    del model, held, logits
+    _free(torch)
+    return total
+
+
+def scan_phase(torch, bp):
+    from repro_torch.kernels import scan as sc
+    rows = scan_kernels_check(torch, sc)
+    _free(torch)
+    return rows, scan_main_path(torch, bp)
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3120,12 +3477,16 @@ def main(argv) -> int:
     t_all = time.perf_counter()
     t0 = phase("1 build and device")
     bp.load()
-    info = bp.BUILD_INFO
-    print(f"kernel build: {info['seconds']:.2f} s "
-          f"({'built' if info['built'] else 'reused'} {info['path']})")
-    for line in info["log"].splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")):
-            print("  ptxas:", line.strip())
+    print(f"kernel build: {bp.BUILD_INFO['seconds']:.2f} s, "
+          f"{len(bp.SOURCES)} sources at once")
+    for src in bp.SOURCES:
+        info = bp.BUILD_INFO[src.stem]
+        print(f"  {src.name}: {info['seconds']:.2f} s "
+              f"({'built' if info['built'] else 'reused'} {info['path']})")
+        for line in info["log"].splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
+                print("  ptxas:", line.strip())
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     done(t0, "phase 1")
@@ -3227,8 +3588,8 @@ def main(argv) -> int:
     done(t0, "phase 17")
 
     t0 = phase("18 Mamba on its 'model' blocks (jamba's period served, NCCL, "
-               "a (1, 1) mesh) and the scans' chunked remat; more cards: the "
-               "jamba card tests")
+               "a (1, 1) mesh) and the scan layers, kernels vs loop; more "
+               "cards: the jamba card tests")
     jamba_phase(torch)
     done(t0, "phase 18")
 
@@ -3236,6 +3597,13 @@ def main(argv) -> int:
                "step counted on the card and on meta")
     analysis_phase(torch, bp, x_np)
     done(t0, "phase 19")
+
+    t0 = phase("20 the SSM scan kernels: against the plain loop at "
+               "published widths; rwkv6-3b/4 and jamba's period without MoE "
+               "trained, the period prefilled")
+    scan_rows, scan_launches = scan_phase(torch, bp)
+    print(f"phase-20 (b) launches: {scan_launches}", flush=True)
+    done(t0, "phase 20")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []
@@ -3252,6 +3620,16 @@ def main(argv) -> int:
                             "plain_ms": r["plain_ms"],
                             "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": None})
+    for name, r in scan_rows.items():
+        entries.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/scan.cu",
+                        "replaces": f"{SCAN_TPU}:"
+                        + ("99" if name.startswith("wkv6") else "223"),
+                        "launches": scan_launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "device_ms": r["device_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     print(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card_line())

@@ -5,12 +5,14 @@ kernels they replace, what bounds them and what the design does about it):
 ``rb_encode``/``rb_decode`` for ``register_block``, ``loc_encode`` and
 ``shuffle_encode`` for the ``locality`` and ``shuffle`` designs, and
 ``loc_decode`` for the format those two share.
-They are compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface at first use, into ``build/repro_torch_kernels/`` at the
-root of the checkout, and loaded with ``ctypes``.  The library name carries
-a hash of the source, so an edited source is rebuilt.  Nothing is compiled
-or loaded when this module is imported: the CPU tests import it on a
-machine with no ``nvcc`` and no card.
+Every source of ``SOURCES`` (these and ``csrc/scan.cu``, the SSM scans of
+``kernels/scan.py``) is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface at first use, all at once (one ``nvcc``
+each), into ``build/repro_torch_kernels/`` at the root of the checkout,
+and loaded with ``ctypes``.  A library's name carries a hash of its
+source, so an edited source is rebuilt.  Nothing is compiled or loaded
+when this module is imported: the CPU tests import it on a machine with
+no ``nvcc`` and no card.
 
 Each kernel is an operator of the dispatcher, ``torch.ops.repro_torch.<name>``
 (a ``torch.library.custom_op``): its CUDA implementation allocates the
@@ -39,8 +41,9 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Tuple
 
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
@@ -48,7 +51,7 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode
 from repro_torch.kernels.ref import TILE, TILE_LANE
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "bitplane.cu",)
+SOURCES = (_CSRC / "bitplane.cu", _CSRC / "scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,8 +64,10 @@ _lock = threading.Lock()
 # launches counters are read-modify-written by any thread that decodes
 # (concurrent sessions of a store service)
 _count_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-BUILD_INFO: dict = {}     # path, seconds, built (False: reused), ptxas log
+_libs: Dict[str, ctypes.CDLL] = {}
+# per source stem: path, seconds, built (False: reused), ptxas log; and
+# "seconds": the wall of the whole build
+BUILD_INFO: dict = {}
 
 
 def _nvcc() -> str:
@@ -76,7 +81,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _build(src: Path) -> Path:
+def _build(src: Path) -> Tuple[Path, dict]:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
@@ -98,17 +103,21 @@ def _build(src: Path) -> Path:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         built = True
-    BUILD_INFO.update(path=str(lib), seconds=time.perf_counter() - t0,
-                      built=built, log=log)
-    return lib
+    return lib, dict(path=str(lib), seconds=time.perf_counter() - t0,
+                     built=built, log=log)
 
 
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    global _lib
+    """Build (if needed) and load every kernel library, the sources
+    compiled at once; returns the bitplane library.  Raises on failure."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_build(SOURCES[0])))
+        if not _libs:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(SOURCES)) as ex:
+                built = list(ex.map(_build, SOURCES))
+            libs = {src.stem: ctypes.CDLL(str(path))
+                    for src, (path, _) in zip(SOURCES, built)}
+            lib = libs["bitplane"]
             vp, ll_, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             for name in ENCODE_SYMBOLS:
                 fn = getattr(lib, name)
@@ -118,8 +127,18 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [vp, vp, ll_, i, i, i, ll_, vp]
                 fn.restype = i
-            _lib = lib
-    return _lib
+            BUILD_INFO.update({src.stem: info
+                               for src, (_, info) in zip(SOURCES, built)})
+            BUILD_INFO["seconds"] = time.perf_counter() - t0
+            _libs.update(libs)
+    return _libs["bitplane"]
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of the source ``csrc/<stem>.cu`` (built and
+    loaded with the others at first use)."""
+    load()
+    return _libs[stem]
 
 
 def _check_common(t: torch.Tensor, ndim: int, what: str) -> None:
@@ -146,7 +165,7 @@ def _words(n: int) -> int:
 
 def _count(symbol: str) -> None:
     with _count_lock:
-        _WRAPPER_OF[symbol].launches += 1
+        _COUNTED[symbol].launches += 1
 
 
 def _launch_encode(symbol: str, mags: torch.Tensor,
@@ -306,13 +325,31 @@ def decode_locality_cuda(planes: torch.Tensor, num_planes_total: int,
 
 WRAPPERS = (encode_register_block_cuda, decode_register_block_cuda,
             encode_locality_cuda, encode_shuffle_cuda, decode_locality_cuda)
-_WRAPPER_OF = dict(zip(("rb_encode", "rb_decode", "loc_encode",
-                        "shuffle_encode", "loc_decode"), WRAPPERS))
+# every kernel's wrapper by its symbol, the SSM scans' too (kernels/scan.py
+# adds them): one record of launches
+_COUNTED = dict(zip(("rb_encode", "rb_decode", "loc_encode",
+                     "shuffle_encode", "loc_decode"), WRAPPERS))
+
+
+def add_counters(wrappers) -> None:
+    """Keep the launches of ``wrappers`` ({symbol: wrapper}) in this
+    module's record (``launches()``, ``reset_launches()``)."""
+    with _count_lock:
+        for symbol, fn in wrappers.items():
+            fn.launches = 0
+            _COUNTED[symbol] = fn
+
+
+def launches() -> Dict[str, int]:
+    """Every kernel's launches since the last reset, by symbol."""
+    with _count_lock:
+        return {s: fn.launches for s, fn in _COUNTED.items()}
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
+    with _count_lock:
+        for fn in _COUNTED.values():
+            fn.launches = 0
 
 
 reset_launches()

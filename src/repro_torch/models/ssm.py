@@ -1,16 +1,21 @@
 """Attention-free sequence mixers: RWKV6 (Finch) and Mamba (selective SSM).
 
-A port of ``repro.models.ssm``.  Prefill runs the recurrence as a Python
-loop over tokens (the reference's ``lax.scan``), and decode is the same
+A port of ``repro.models.ssm``.  On the card and on ``meta`` each scan (the
+reference's compiled ``lax.scan``) is one operator of ``kernels.scan``,
+at every length (a decode step is one launch): ``wkv6`` for RWKV6,
+``mamba_scan`` for Mamba, hand-written CUDA kernels whose forward keeps
+the state entering every ``REMAT_CHUNK`` (64) steps under autograd and
+whose backward recomputes each chunk from it (the reference's
+``jax.checkpoint`` around its inner scan).  Nothing sends a card run to
+the loop.  On the CPU the scan is a Python loop over tokens (``_scan``),
+held bit-identical to the reference by the tests, and decode is the same
 step applied once to the carried state.  When autograd records and the
-sequence is a multiple of ``REMAT_CHUNK`` (64) steps longer than one, the
-loop runs as chunks of 64 steps, each under ``torch.utils.checkpoint``
-(the reference's ``jax.checkpoint`` around its inner scan): the backward
-keeps only the states at chunk boundaries and recomputes a chunk's steps
-(64x fewer states; the gradients are the same bits, since the recomputed
-graph is the recorded one).  The loop runs inside an ``ssm.scan`` span
-(host wall; the loop is launch-bound on the card, so that is its share of
-a prefill).
+sequence is a multiple of ``REMAT_CHUNK`` steps longer than one, the loop
+runs as chunks of 64 steps, each under ``torch.utils.checkpoint``: the
+backward keeps only the states at chunk boundaries and recomputes a
+chunk's steps (64x fewer states; the gradients are the same bits, since
+the recomputed graph is the recorded one).  Either runs inside an
+``ssm.scan`` span (host wall).
 
 RWKV6 has the data-dependent decay ``w_t = exp(-exp(w0 + lora(x_t)))``
 and Finch's ddlerp token-shift mixers (arXiv:2404.05892).  Mamba is the
@@ -41,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tp as TP
+from repro_torch.kernels import scan as scan_ops
 from repro_torch.models.layers import compute_dtype, einsum, sigmoid, silu
 from repro_torch.models.params import PSpec
 from repro_torch.obs import trace as obs_trace
@@ -49,6 +55,13 @@ RWKV_HEAD_DIM = 64
 DDLERP_RANK = 32
 DECAY_RANK = 64
 REMAT_CHUNK = 64        # steps a rematerialized chunk of a scan; 0: none
+                        # (the loop's; the operators take 1 to 64)
+
+
+def _on_operators(t: torch.Tensor) -> bool:
+    """A scan over ``t`` runs as an operator of ``kernels.scan``: on the
+    card and on ``meta``; the CPU runs the loop."""
+    return t.device.type != "cpu"
 
 
 def _steps(step, carry, *xs):
@@ -153,11 +166,14 @@ def rwkv_time_mix_apply(p, x: torch.Tensor, cfg: ModelConfig,
     kh = k.reshape(b, s, h, hd).float()
     vh = v.reshape(b, s, h, hd).float()
     wh = w.reshape(b, s, h, hd)
-    u = p["u"].float().reshape(h, hd)[None, :, :, None]
+    u = p["u"].float().reshape(h, hd)
 
     with obs_trace.span("ssm.scan", kind="rwkv6", steps=s):
-        S, out = _scan(functools.partial(_rwkv_step, u), S, rh, kh, vh,
-                       wh)                                    # (B,S,H,V)
+        if _on_operators(x):
+            out, S = scan_ops.wkv6(rh, kh, vh, wh, u, S, REMAT_CHUNK)
+        else:
+            S, out = _scan(functools.partial(_rwkv_step, u[None, :, :, None]),
+                           S, rh, kh, vh, wh)                 # (B,S,H,V)
 
     # per-head groupnorm
     mean = torch.mean(out, dim=-1, keepdim=True)
@@ -264,7 +280,8 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
     dt = TP.summed(einsum("bte,er->btr", xc, p["w_dt_down"].to(cdt)), tp)
     dt = einsum("btr,rf->btf", dt, p["w_dt_up"].to(cdt)) + p["dt_bias"].to(cdt)
     dt = dt.float()
-    dt = torch.logaddexp(dt, torch.zeros_like(dt))             # softplus
+    # softplus; a 0-d zero, which its backward keeps, not a (B,S,din) one
+    dt = torch.logaddexp(dt, dt.new_zeros(()))
     Bm = TP.summed(einsum("bte,es->bts", xc, p["w_b"].to(cdt)), tp).float()
     Cm = TP.summed(einsum("bte,es->bts", xc, p["w_c"].to(cdt)), tp).float()
     A = -torch.exp(p["a_log"].float())                         # (din, ds)
@@ -273,8 +290,11 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
          else torch.zeros((b, din, ssm.d_state), device=x.device))
     xc32 = xc.float()
     with obs_trace.span("ssm.scan", kind="mamba", steps=s):
-        h, ys = _scan(functools.partial(_mamba_step, A), h, xc32, dt, Bm,
-                      Cm)
+        if _on_operators(x):
+            ys, h = scan_ops.mamba_scan(xc32, dt, Bm, Cm, A, h, REMAT_CHUNK)
+        else:
+            h, ys = _scan(functools.partial(_mamba_step, A), h, xc32, dt,
+                          Bm, Cm)
     y = ys + xc32 * p["d_skip"].float()
     y = y.to(cdt) * silu(z)
     out = TP.leave(einsum("bte,ed->btd", y, p["out_proj"].to(cdt)), tp)

@@ -1205,3 +1205,104 @@ def test_tp_jamba_training_on_four_cards(cuda, tmp_path):
                         for k in wire if not k.endswith("_bytes") and wire[k]}
             assert measured == pred["collectives"]["by_kind"], (measured,
                                                                 pred)
+
+
+# ------------------------------------------------------------- SSM scans --
+
+SCAN_WIDTH = {"wkv6": 40, "mamba": 8192}   # rwkv6-3b's heads, jamba's d_inner
+
+
+def _scan_args(kind, b, s, seed=0):
+    """A scan's float32 inputs on the card in their models' ranges."""
+    from repro_torch.kernels import scan as sc   # noqa: F401 (registers)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    w = SCAN_WIDTH[kind]
+    if kind == "wkv6":
+        return (n(b, s, w, 64), n(b, s, w, 64), n(b, s, w, 64),
+                torch.exp(-torch.exp(12 * torch.rand(
+                    (b, s, w, 64), generator=g, device="cuda") - 8)),
+                n(w, 64), n(b, w, 64, 64))
+    return (n(b, s, w), torch.nn.functional.softplus(n(b, s, w) - 3),
+            n(b, s, 16), n(b, s, 16),
+            -torch.exp(torch.rand((w, 16), generator=g, device="cuda")
+                       * math.log(16)), n(b, w, 16))
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("b,s", [(1, 4096), (2, 1), (2, 63), (2, 64),
+                                 (2, 200)])
+@pytest.mark.parametrize("kind", ["wkv6", "mamba"])
+def test_scan_kernels_match_plain(cuda, kind, b, s):
+    """Each scan kernel at rwkv6-3b's and jamba's widths against its plain
+    version on the card: the final and kept states bit for bit, the
+    outputs within 1e-5 of max|out|, every gradient within 1e-4 of its
+    largest |value|; one launch a call."""
+    from repro_torch.kernels import scan as sc
+    args = _scan_args(kind, b, s)
+    names = (("wkv6_fwd", "wkv6_bwd") if kind == "wkv6"
+             else ("mamba_scan_fwd", "mamba_scan_bwd"))
+    fwd, bwd = (getattr(sc, n) for n in names)
+    before = bp.launches()
+    got = fwd(*args, 64, True)
+    want = sc.PLAIN[names[0]](*args, 64, True)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert _rel(got[0], want[0]) <= 1e-5
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cot = [torch.randn(t.shape, generator=g, device="cuda")
+           for t in got[:2]]
+    gk = bwd(*args[:5], want[2], *cot, 64)
+    gp = sc.PLAIN[names[1]](*args[:5], want[2], *cot, 64)
+    for x, y in zip(gk, gp):
+        assert x.shape == y.shape and _rel(x, y) <= 1e-4
+    after = bp.launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in names) for k in after}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["wkv6", "mamba"])
+def test_scan_autograd_on_the_card_matches_the_plain_loop(cuda, kind):
+    """The differentiable scan (the kernels under autograd, keeping the
+    chunk states) against autograd through the loop on the card, 2 x 200
+    steps: outputs within 1e-5, every input's gradient within 1e-4."""
+    import functools
+    from repro_torch.kernels import scan as sc
+    from repro_torch.models import ssm
+    args = _scan_args(kind, 2, 200, seed=3)
+    a = [t.clone().requires_grad_() for t in args]
+    b_ = [t.clone().requires_grad_() for t in args]
+    if kind == "wkv6":
+        out, fin = sc.wkv6(*a, 64)
+        fin_l, out_l = ssm._steps(functools.partial(
+            ssm._rwkv_step, b_[4][None, :, :, None]), b_[5], *b_[:4])
+    else:
+        out, fin = sc.mamba_scan(*a, 64)
+        fin_l, out_l = ssm._steps(functools.partial(ssm._mamba_step, b_[4]),
+                                  b_[5], *b_[:4])
+    assert torch.equal(fin, fin_l) and _rel(out, out_l) <= 1e-5
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cot = [torch.randn(t.shape, generator=g, device="cuda")
+           for t in (out, fin)]
+    ga = torch.autograd.grad((out * cot[0]).sum() + (fin * cot[1]).sum(), a)
+    gb = torch.autograd.grad((out_l * cot[0]).sum()
+                             + (fin_l * cot[1]).sum(), b_)
+    for x, y in zip(ga, gb):
+        assert _rel(x, y) <= 1e-4
+
+
+def test_scan_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels import scan as sc
+    args = _scan_args("wkv6", 1, 8)
+    with pytest.raises(TypeError):
+        sc.wkv6_fwd(*[t.double() for t in args], 64, False)
+    with pytest.raises(ValueError, match="chunk"):
+        sc.wkv6_fwd(*args, 65, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.wkv6_fwd(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                    *args[1:], 64, False)
