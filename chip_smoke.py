@@ -185,9 +185,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    (b) one Mamba layer at jamba's widths and one RWKV6 time mix at
    rwkv6-3b's, 1 x 4096 tokens, forward and backward through the scan
    kernels (the card's path) and through the loop (the dispatch patched
-   for the comparison): the kernels' peak at or under the loop's
-   recorded figures, both walls, and in float32 the gradients within
-   1e-4 of their largest.  With two or more cards it runs the ``jamba
+   for the comparison): the kernels' peak of requested bytes at or under
+   the loop's recorded figures, both walls, and in float32 the gradients
+   within 1e-4 of their largest.  With two or more cards it runs the ``jamba
    and cards`` card tests (one period on a (1, 4) mesh, served and
    trained);
 19. the dispatched-op analysis (``launch/op_analysis.py``) and the cost
@@ -206,14 +206,19 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ``wkv6_fwd``, ``wkv6_bwd``, ``mamba_scan_fwd`` and ``mamba_scan_bwd``
    against its plain version at rwkv6-3b's widths (40 heads of 64) and
    jamba's (d_inner 8192, d_state 16), 1 x 4096 and 2 x 1, 63, 64, 200
-   steps: final and kept states bit-identical (at most 2 ulp), outputs
-   within 1e-5 of max|out|, gradients within 1e-4 of their largest; each
-   timed at 1 x 4096 (wrapper, replayed graph, plain loop, bound);
-   (b) their main paths, counters zeroed before each: rwkv6-3b cut to 4
-   layers and jamba's period without its MoE, 3 ``make_train_step``
-   steps of 1 x 4096 each (losses finite and falling), and jamba's period
-   prefilling 1 x 4096 (finite logits); launches = scanning layers x
-   steps x passes.
+   steps, Mamba's also at 1 x 4096 on jamba's (1, 4) block of 2048
+   channels: final and kept states bit-identical (wkv6's at most 2 ulp),
+   outputs within 1e-5 of max|out|, gradients within 1e-4 of their
+   largest, two ``mamba_scan_bwd`` calls the same bits; each timed at
+   1 x 4096 (wrapper, replayed graph, plain loop, bound), Mamba's at both
+   widths; (b) their main paths, counters zeroed before each: rwkv6-3b
+   cut to 4 layers and jamba's period without its MoE, 3
+   ``make_train_step`` steps of 1 x 4096 each (losses finite and
+   falling), and jamba's period prefilling 1 x 4096 (finite logits);
+   launches = scanning layers x steps x passes; the event time of the scan
+   calls in each step and in the prefill (CUDA events around each wrapper
+   call: an upper bound on the kernels' device time) and its share of the
+   wall.
 
 Phases 7-12, 14, 15 and 20 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
@@ -2892,6 +2897,13 @@ class _LoopScans:
         self.ssm._on_operators = self.was
 
 
+def _requested(torch, which: str) -> int:
+    """The caching allocator's bytes requested by tensors (``current`` or
+    ``peak``): the program's own demand, without the rounding of the
+    blocks that serve it."""
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+
 def _max_rel(torch, a, b) -> float:
     return float((a.double() - b.double()).abs().max()
                  / max(float(b.double().abs().max()), 1e-30))
@@ -2903,7 +2915,10 @@ def scan_layers_check(torch):
     gradients (x and every leaf), forward and backward through the scan
     kernels (the card's path) and through the loop (``_LoopScans``):
     at the config's dtypes the kernels' peak over what was allocated
-    before (held at or below the loop's figures, ``LOOP_PEAK_GIB``) and
+    before, in bytes requested (held at or below the loop's figures,
+    ``LOOP_PEAK_GIB``; the allocated peak, which moves by the caching
+    allocator's rounding with the blocks earlier phases leave live, and
+    the loop's in this run are printed beside it) and
     wall beside the loop's, and the gradients' largest difference (bf16
     compute: reported, a float32 difference in the scan may move a bf16
     rounding by one ulp); in float32 compute and parameters every gradient
@@ -2944,14 +2959,16 @@ def scan_layers_check(torch):
             for path, ctx in paths.items():
                 _free(torch)
                 torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
+                base = (torch.cuda.memory_allocated(),
+                        _requested(torch, "current"))
                 torch.cuda.reset_peak_memory_stats()
                 with ctx:
                     t0 = time.perf_counter()
                     g = grads(x)
                     torch.cuda.synchronize()
                 runs[path] = (tree_leaves(g), time.perf_counter() - t0,
-                              (torch.cuda.max_memory_allocated() - base)
+                              (_requested(torch, "peak") - base[1]) / 2 ** 30,
+                              (torch.cuda.max_memory_allocated() - base[0])
                               / 2 ** 30)
                 del g
             errs = [_max_rel(torch, a, b) for a, b in
@@ -2964,14 +2981,17 @@ def scan_layers_check(torch):
                       f"loop's by up to {max(errs):.3g} of their largest")
             else:
                 check(runs["kernels"][2] <= LOOP_PEAK_GIB[what],
-                      f"{what}: the kernels' peak {runs['kernels'][2]:.3f} "
-                      f"GiB over the loop's {LOOP_PEAK_GIB[what]} GiB")
+                      f"{what}: the kernels' peak {runs['kernels'][2]:.4f} "
+                      f"GiB requested over the loop's {LOOP_PEAK_GIB[what]} "
+                      f"GiB")
             print(f"{what} ({arch}, {dtypes}), 1 x {REMAT_SEQ} tokens, "
                   f"forward and backward: kernels {runs['kernels'][1]:.3f} "
-                  f"s, peak {runs['kernels'][2]:.3f} GiB over the parameters "
+                  f"s, peak {runs['kernels'][2]:.4f} GiB requested "
+                  f"({runs['kernels'][3]:.4f} allocated) over the parameters "
                   f"and inputs; loop {runs['loop'][1]:.3f} s, "
-                  f"{runs['loop'][2]:.3f} GiB (recorded "
-                  f"{LOOP_WALL_S[what]} s, {LOOP_PEAK_GIB[what]} GiB); "
+                  f"{runs['loop'][2]:.4f} GiB ({runs['loop'][3]:.4f}; "
+                  f"recorded {LOOP_WALL_S[what]} s, {LOOP_PEAK_GIB[what]} "
+                  f"GiB allocated); "
                   f"gradients (x and {len(errs) - 1} leaves) within "
                   f"{max(errs):.3g} of their largest |value| of the loop's"
                   + (f" (held at {SCAN_GRAD_TOL:g})" if f32 else
@@ -3167,6 +3187,7 @@ SCAN_SEQ = 4096                # SHAPES["train_4k"]'s sequence
 SCAN_EDGES = (1, 63, 64, 200)  # either side of a chunk, a ragged last one
 RWKV_HEADS = 40                # rwkv6-3b: d_model 2560 in heads of 64
 MAMBA_D, MAMBA_N = 8192, 16    # jamba-v0.1-52b: expand 2 x 4096, d_state 16
+MAMBA_BLOCK_D = MAMBA_D // 4   # its 'model' block of channels on (1, 4)
 F32_FLOP_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 EXP_PER_S = 4.18e12            # 132 SMs x 16 SFU lanes x 1.98 GHz boost
 SCAN_OUT_TOL = 1e-5            # of max|out|: sums over k or s in another order
@@ -3178,10 +3199,10 @@ WKV_FWD_OPS, WKV_BWD_OPS = 7, 20     # fwd: k v, u kv, + S, r *, + y, w S, +
 MAMBA_FWD_OPS, MAMBA_BWD_OPS = 6, 19  # bwd: the recompute and the gradients
 
 
-def _scan_inputs(torch, kind, b, s, gen):
+def _scan_inputs(torch, kind, b, s, gen, d=MAMBA_D, m=MAMBA_N):
     """A scan's inputs in their models' ranges, float32 on the card: RWKV's
     decay exp(-exp(.)) over the clamp's [-8, 4]; Mamba's A in [-16, -1],
-    dt a softplus."""
+    dt a softplus (``d`` channels, ``m`` states)."""
     def n(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
@@ -3193,7 +3214,6 @@ def _scan_inputs(torch, kind, b, s, gen):
         return (n(b, s, h, 64), n(b, s, h, 64), n(b, s, h, 64),
                 torch.exp(-torch.exp(uni(-8.0, 4.0, b, s, h, 64))),
                 n(h, 64), n(b, h, 64, 64))
-    d, m = MAMBA_D, MAMBA_N
     return (n(b, s, d), torch.nn.functional.softplus(n(b, s, d) - 3.0),
             n(b, s, m), n(b, s, m), -torch.exp(uni(0.0, math.log(16.0), d, m)),
             n(b, d, m))
@@ -3235,78 +3255,147 @@ def _scan_bound(kind, args, keep, backward):
     return times[by] * 1e3, by, nbytes, flops, exps
 
 
+def _scan_case(torch, sc, kind, args, gen, chunk=64):
+    """One scan kernel pair against its plain versions on ``args``: the
+    states' ulps (Mamba's must be 0, wkv6's at most 2), the output's and
+    the gradients' errors, checked; for Mamba a second backward call must
+    give the same bits.  Returns what the timings need."""
+    names = ("wkv6_fwd", "wkv6_bwd") if kind == "wkv6" else (
+        "mamba_scan_fwd", "mamba_scan_bwd")
+    fwd, bwd = getattr(sc, names[0]), getattr(sc, names[1])
+    pf, pb = sc.PLAIN[names[0]], sc.PLAIN[names[1]]
+    what = f"{names[0]} {tuple(args[0].shape)}"
+    got, want = fwd(*args, chunk, True), pf(*args, chunk, True)
+    torch.cuda.synchronize()
+    ulps = max(_ulps(torch, got[i], want[i]) for i in (1, 2))
+    check(ulps <= (2 if kind == "wkv6" else 0),
+          f"{what}: states {ulps} ulp from the plain loop's")
+    out_err = _max_rel(torch, got[0], want[0])
+    check(out_err <= SCAN_OUT_TOL, f"{what}: out within {out_err:.3g} of "
+          f"max|out|")
+    cot = (torch.randn(got[0].shape, generator=gen, device="cuda"),
+           torch.randn(got[1].shape, generator=gen, device="cuda"))
+    gk = bwd(*args[:5], want[2], *cot, chunk)
+    gp = pb(*args[:5], want[2], *cot, chunk)
+    errs = [_max_rel(torch, x, y) for x, y in zip(gk, gp)]
+    check(max(errs) <= SCAN_GRAD_TOL, f"{names[1]} {tuple(args[0].shape)}: "
+          f"gradients within {[f'{e:.3g}' for e in errs]} of their largest "
+          f"|value|")
+    same = ""
+    if kind == "mamba":
+        again = bwd(*args[:5], want[2], *cot, chunk)
+        check(all(torch.equal(x, y) for x, y in zip(gk, again)),
+              f"{names[1]} {tuple(args[0].shape)}: two calls differ")
+        same = ", two backward calls bit-identical"
+    print(f"{kind} {tuple(args[0].shape)}: states "
+          + ("bit-identical" if ulps == 0 else f"within {ulps} ulp")
+          + f" to the loop's, out within {out_err:.3g} of max|out|, "
+          f"gradients within {max(errs):.3g}{same}", flush=True)
+    return names, got, want, cot, gk, gp
+
+
+def _scan_times(torch, sc, kind, args, case, chunk=64):
+    """The kernels' times at ``args`` (the training path's calls, keep):
+    through the wrapper back to back, a replayed CUDA graph (the working
+    sets exceed the L2), the plain versions', and the bound."""
+    names, got, want, cot, gk, gp = case
+    fwd, bwd = getattr(sc, names[0]), getattr(sc, names[1])
+    pf, pb = sc.PLAIN[names[0]], sc.PLAIN[names[1]]
+    rows = {}
+    for name, call, plain, back in (
+            (names[0], lambda: fwd(*args, chunk, True),
+             lambda: pf(*args, chunk, True), False),
+            (names[1], lambda: bwd(*args[:5], want[2], *cot, chunk),
+             lambda: pb(*args[:5], want[2], *cot, chunk), True)):
+        bound, by, nbytes, flops, exps = _scan_bound(kind, args, True, back)
+        err = (max(float((x - y).abs().max()) for x, y in zip(gk, gp))
+               if back else float((got[0] - want[0]).abs().max()))
+        rows[name] = dict(
+            ms=time_ms(call, reps=5, inner=3, warmup=2),
+            device_ms=time_ms(call, reps=5, inner=3, warmup=2, graph=True),
+            plain_ms=time_ms(plain, reps=1, inner=1, warmup=1),
+            bound_ms=bound, bound_by=by, max_abs_err=err, bytes=nbytes,
+            flops=flops, exps=exps, shape=tuple(args[0].shape))
+    return rows
+
+
+def _print_scan_row(name, r):
+    print(f"{name} at {r['shape']}: wrapper {r['ms']:.3f} ms back to "
+          f"back, device {r['device_ms']:.3f} ms (graph replay), plain "
+          f"loop {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB, "
+          f"{r['flops'] / 1e9:.2f} GFLOP, {r['exps'] / 1e6:.0f}M expf), "
+          f"device / bound {r['device_ms'] / r['bound_ms']:.1f}, max abs "
+          f"err {r['max_abs_err']:.3g}", flush=True)
+
+
 def scan_kernels_check(torch, sc):
     """Phase 20 (a): each scan kernel against its plain version on the card
-    at rwkv6-3b's and jamba's widths, 1 x 4096 and 2 x each edge length:
-    the final and kept states bit-identical (else at most 2 ulp, named),
-    the outputs within ``SCAN_OUT_TOL`` of max|out|, every gradient within
-    ``SCAN_GRAD_TOL`` of its largest |value|; then each kernel's time at 1
-    x 4096 (through its wrapper back to back, and a replayed CUDA graph:
-    the working sets exceed the L2), the plain loop's, and the bound.
-    Returns the rows by kernel name."""
+    at rwkv6-3b's and jamba's widths, 1 x 4096 and 2 x each edge length,
+    and Mamba's also at 1 x 4096 on a (1, 4) block of jamba's channels
+    (``MAMBA_BLOCK_D``): the final and kept states bit-identical (wkv6's
+    else at most 2 ulp, named), the outputs within ``SCAN_OUT_TOL`` of
+    max|out|, every gradient within ``SCAN_GRAD_TOL`` of its largest
+    |value|, Mamba's backward the same bits on a second call; then each
+    kernel's time at 1 x 4096 (``_scan_times``), Mamba's at both widths.
+    Returns the rows by kernel name (the block's under ``"block"``)."""
     gen = torch.Generator(device="cuda").manual_seed(20)
-    fwd = {"wkv6": sc.wkv6_fwd, "mamba": sc.mamba_scan_fwd}
-    bwd = {"wkv6": sc.wkv6_bwd, "mamba": sc.mamba_scan_bwd}
-    names = {"wkv6": ("wkv6_fwd", "wkv6_bwd"),
-             "mamba": ("mamba_scan_fwd", "mamba_scan_bwd")}
-    chunk = 64
     rows = {}
     for kind in ("wkv6", "mamba"):
-        pf, pb = sc.PLAIN[names[kind][0]], sc.PLAIN[names[kind][1]]
         for b, s in ((1, SCAN_SEQ),) + tuple((2, e) for e in SCAN_EDGES):
             args = _scan_inputs(torch, kind, b, s, gen)
-            got, want = fwd[kind](*args, chunk, True), pf(*args, chunk, True)
-            torch.cuda.synchronize()
-            ulps = max(_ulps(torch, got[i], want[i]) for i in (1, 2))
-            check(ulps <= 2, f"{names[kind][0]} B={b} S={s}: states "
-                  f"{ulps} ulp from the plain loop's")
-            out_err = _max_rel(torch, got[0], want[0])
-            check(out_err <= SCAN_OUT_TOL, f"{names[kind][0]} B={b} S={s}: "
-                  f"out within {out_err:.3g} of max|out|")
-            cot = (torch.randn(got[0].shape, generator=gen, device="cuda"),
-                   torch.randn(got[1].shape, generator=gen, device="cuda"))
-            gk = bwd[kind](*args[:5], want[2], *cot, chunk)
-            gp = pb(*args[:5], want[2], *cot, chunk)
-            errs = [_max_rel(torch, x, y) for x, y in zip(gk, gp)]
-            check(max(errs) <= SCAN_GRAD_TOL, f"{names[kind][1]} B={b} "
-                  f"S={s}: gradients within {[f'{e:.3g}' for e in errs]} "
-                  f"of their largest |value|")
-            print(f"{kind} B={b} S={s}: states "
-                  + ("bit-identical" if ulps == 0 else f"within {ulps} ulp")
-                  + f" to the loop's, out within {out_err:.3g} of max|out|, "
-                  f"gradients within {max(errs):.3g}", flush=True)
-            if s != SCAN_SEQ:
-                continue
-            # the times at 1 x 4096, the training path's calls (keep)
-            for name, call, plain, back in (
-                    (names[kind][0], lambda: fwd[kind](*args, chunk, True),
-                     lambda: pf(*args, chunk, True), False),
-                    (names[kind][1],
-                     lambda: bwd[kind](*args[:5], want[2], *cot, chunk),
-                     lambda: pb(*args[:5], want[2], *cot, chunk), True)):
-                bound, by, nbytes, flops, exps = _scan_bound(kind, args, True,
-                                                             back)
-                err = (max(float((x - y).abs().max()) for x, y in
-                           zip(gk, gp)) if back else
-                       float((got[0] - want[0]).abs().max()))
-                rows[name] = dict(
-                    ms=time_ms(call, reps=5, inner=3, warmup=2),
-                    device_ms=time_ms(call, reps=5, inner=3, warmup=2,
-                                      graph=True),
-                    plain_ms=time_ms(plain, reps=1, inner=1, warmup=1),
-                    bound_ms=bound, bound_by=by, max_abs_err=err,
-                    bytes=nbytes, flops=flops, exps=exps,
-                    shape=tuple(args[0].shape))
-            del args, got, want, gk, gp, cot
+            case = _scan_case(torch, sc, kind, args, gen)
+            if s == SCAN_SEQ:
+                rows.update(_scan_times(torch, sc, kind, args, case))
+            del args, case
+    args = _scan_inputs(torch, "mamba", 1, SCAN_SEQ, gen, d=MAMBA_BLOCK_D)
+    block = _scan_times(torch, sc, "mamba", args,
+                        _scan_case(torch, sc, "mamba", args, gen))
+    del args
     for name, r in rows.items():
-        print(f"{name} at {r['shape']}: wrapper {r['ms']:.3f} ms back to "
-              f"back, device {r['device_ms']:.3f} ms (graph replay), plain "
-              f"loop {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB, "
-              f"{r['flops'] / 1e9:.2f} GFLOP, {r['exps'] / 1e6:.0f}M expf), "
-              f"device / bound {r['device_ms'] / r['bound_ms']:.1f}, max abs "
-              f"err {r['max_abs_err']:.3g}", flush=True)
+        _print_scan_row(name, r)
+        if name in block:
+            r["block"] = block[name]
+            _print_scan_row(name, block[name])
     return rows
+
+
+class _ScanClock:
+    """CUDA events around every call of the scan wrappers (the models reach
+    them through ``sc.wkv6`` and ``sc.mamba_scan``, which look them up at
+    each call): the milliseconds between each call's two events, summed.
+    The events bracket the wrapper's host work as well as its kernels, so
+    where the stream is idle when a call starts, that host work counts too:
+    an upper bound on the kernels' device time.  The wrappers' launch
+    counts are theirs alone."""
+
+    def __init__(self, torch, sc):
+        self.torch, self.sc, self.events = torch, sc, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.sc, n) for n in self.sc.SYMBOLS}
+        for name, fn in self.saved.items():
+            def timed(*args, _fn=fn):
+                start = self.torch.cuda.Event(enable_timing=True)
+                end = self.torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args)
+                end.record()
+                self.events.append((start, end))
+                return out
+            setattr(self.sc, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.sc, name, fn)
+
+    def take_ms(self) -> float:
+        """The summed milliseconds of the calls since the last take."""
+        self.torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        self.events = []
+        return ms
 
 
 def _scan_layers(cfg) -> int:
@@ -3319,14 +3408,15 @@ def _scan_layers(cfg) -> int:
                for g in stack_plan(cfg))
 
 
-def _scan_train(torch, bp, arch, layers, unstacked, **overrides):
+def _scan_train(torch, bp, sc, arch, layers, unstacked, **overrides):
     """``arch`` at its published widths cut to ``layers`` layers, its
     config's ``overrides`` replaced (its stacked leaves rescaled by
     ``unstack_fan_in`` with ``unstacked``):
     ``SCAN_STEPS`` ``make_train_step`` steps of 1 x ``SCAN_SEQ`` on one
     batch, AdamW; the launches of the scan kernels (counters zeroed just
-    before), the losses, the step walls, the ``ssm.scan`` span's host
-    seconds and the peak."""
+    before), the losses, the step walls, the scan calls' event time a
+    step (``_ScanClock``), the ``ssm.scan`` span's host seconds and the
+    peak."""
     import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.launch.policy import CellPolicy
@@ -3351,13 +3441,15 @@ def _scan_train(torch, bp, arch, layers, unstacked, **overrides):
     _free(torch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    scan_ms = []
     bp.reset_launches()
-    with obs_trace.tracing() as tr:
+    with obs_trace.tracing() as tr, _ScanClock(torch, sc) as clock:
         for _ in range(SCAN_STEPS):
             t0 = time.perf_counter()
             params, opt, m = fn(params, opt, batch)
             losses.append(float(m["loss"]))
             walls.append(time.perf_counter() - t0)
+            scan_ms.append(clock.take_ms())
     launches = bp.launches()
     span = tr.summary()["spans"].get("ssm.scan", {}).get("total_s", 0.0)
     check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
@@ -3367,15 +3459,18 @@ def _scan_train(torch, bp, arch, layers, unstacked, **overrides):
           f"({count_params(cfg):,} params, remat {cfg.remat}), {SCAN_STEPS} "
           f"make_train_step steps of 1 x "
           f"{SCAN_SEQ}: losses {[round(v, 4) for v in losses]}, step walls "
-          f"{[round(w, 3) for w in walls]} s, ssm.scan span {span:.3f} s of "
-          f"host time ({span / sum(walls):.3f} of the steps' wall), peak "
+          f"{[round(w, 3) for w in walls]} s, the scan calls' event time "
+          f"{[round(v, 2) for v in scan_ms]} ms a step (CUDA events around "
+          f"each wrapper call, an upper bound on the kernels' device time; "
+          f"{[round(v / 1e3 / w, 3) for v, w in zip(scan_ms, walls)]} of "
+          f"the wall), ssm.scan span {span:.3f} s of host time, peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     del model, params, opt, m
     _free(torch)
     return cfg, launches
 
 
-def scan_main_path(torch, bp):
+def scan_main_path(torch, bp, sc):
     """Phase 20 (b): the scan kernels on the models' main paths, each run
     with the counters zeroed just before and read just after: rwkv6-3b
     cut to 4 layers and jamba-v0.1-52b's 8-layer period without its MoE
@@ -3396,7 +3491,8 @@ def scan_main_path(torch, bp):
             ("rwkv6-3b", 4, False, {}, "wkv6_fwd", "wkv6_bwd"),
             ("jamba-v0.1-52b", JAMBA_PERIOD, True, {"moe": None},
              "mamba_scan_fwd", "mamba_scan_bwd")):
-        cfg, got = _scan_train(torch, bp, arch, layers, unstacked, **over)
+        cfg, got = _scan_train(torch, bp, sc, arch, layers, unstacked,
+                               **over)
         passes = 2 if cfg.remat else 1
         n = _scan_layers(cfg)
         want = {fwd: n * SCAN_STEPS * passes, bwd: n * SCAN_STEPS}
@@ -3422,11 +3518,13 @@ def scan_main_path(torch, bp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bp.reset_launches()
-    with torch.inference_mode(), obs_trace.tracing() as tr:
+    with torch.inference_mode(), obs_trace.tracing() as tr, \
+            _ScanClock(torch, sc) as clock:
         t0 = time.perf_counter()
         logits, _ = step(held, {"tokens": tokens})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        scan_ms = clock.take_ms()
     got = bp.launches()
     span = tr.summary()["spans"].get("ssm.scan", {}).get("total_s", 0.0)
     check(got["mamba_scan_fwd"] == mamba and not any(
@@ -3438,9 +3536,12 @@ def scan_main_path(torch, bp):
           "jamba's period prefill: logits not finite or all equal")
     print(f"jamba-v0.1-52b, one period ({JAMBA_PERIOD} layers, {mamba} "
           f"Mamba), bf16 weights held, prefill of 1 x {SCAN_SEQ} through "
-          f"make_prefill_step: {wall:.3f} s, ssm.scan span {span:.3f} s of "
-          f"host time, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
-          f" GiB, mamba_scan_fwd launches {got['mamba_scan_fwd']} (layers x "
+          f"make_prefill_step: {wall:.3f} s, the scan calls' event time "
+          f"{scan_ms:.2f} ms (CUDA events around each wrapper call, an upper "
+          f"bound on the kernels' device time; {scan_ms / 1e3 / wall:.3f} of "
+          f"the wall), ssm.scan span {span:.3f} s of host time, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+          f"mamba_scan_fwd launches {got['mamba_scan_fwd']} (layers x "
           f"1 pass), logits finite", flush=True)
     total["mamba_scan_fwd"] += got["mamba_scan_fwd"]
     del model, held, logits
@@ -3452,7 +3553,7 @@ def scan_phase(torch, bp):
     from repro_torch.kernels import scan as sc
     rows = scan_kernels_check(torch, sc)
     _free(torch)
-    return rows, scan_main_path(torch, bp)
+    return rows, scan_main_path(torch, bp, sc)
 
 
 def main(argv) -> int:

@@ -72,11 +72,11 @@ def _lib() -> ctypes.CDLL:
             for name, n_ptrs, n_ints in (("wkv6_fwd", 9, 5),
                                          ("wkv6_bwd", 16, 4),
                                          ("mamba_scan_fwd", 9, 6),
-                                         ("mamba_scan_bwd", 18, 5)):
+                                         ("mamba_scan_bwd", 17, 5)):
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * n_ptrs + [i] * n_ints + [vp]
                 fn.restype = i
-            lib.mamba_scan_tiles.argtypes = [i, i, i]
+            lib.mamba_scan_tiles.argtypes = [i, i]
             lib.mamba_scan_tiles.restype = i
             _ready = True
     return lib
@@ -228,14 +228,13 @@ def _launch_mamba_bwd(x, dt, bm, cm, a, states, dy, dh_final, chunk):
     dx, ddt, db, dc, da, dh0 = _mamba_bwd_empty(x, bm, a, dh_final)
     b, s, d = x.shape
     n = a.shape[1]
-    tiles = _lib().mamba_scan_tiles(b, d, n)
-    part_db = x.new_empty((tiles, MAX_CHUNK, n))
-    part_dc = x.new_empty((tiles, MAX_CHUNK, n))
+    # dB / dC partials of every step, one set a cluster of blocks
+    tiles = _lib().mamba_scan_tiles(d, n)
+    part_db = x.new_empty((b, tiles, s, n))
+    part_dc = x.new_empty((b, tiles, s, n))
     part_da = x.new_empty((b, d, n))
-    barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
     _run("mamba_scan_bwd", x, x, dt, bm, cm, a, states, dy, dh_final, dx,
-         ddt, part_db, part_dc, part_da, db, dc, da, dh0, barrier, b, s, d,
-         n, chunk)
+         ddt, part_db, part_dc, part_da, db, dc, da, dh0, b, s, d, n, chunk)
     return dx, ddt, db, dc, da, dh0
 
 

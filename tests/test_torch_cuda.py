@@ -1212,23 +1212,24 @@ def test_tp_jamba_training_on_four_cards(cuda, tmp_path):
 SCAN_WIDTH = {"wkv6": 40, "mamba": 8192}   # rwkv6-3b's heads, jamba's d_inner
 
 
-def _scan_args(kind, b, s, seed=0):
-    """A scan's float32 inputs on the card in their models' ranges."""
+def _scan_args(kind, b, s, seed=0, d=None, n=16):
+    """A scan's float32 inputs on the card in their models' ranges (Mamba's
+    at ``d`` channels, jamba's by default, and ``n`` states)."""
     from repro_torch.kernels import scan as sc   # noqa: F401 (registers)
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def n(*shape):
+    def n_(*shape):
         return torch.randn(shape, generator=g, device="cuda")
-    w = SCAN_WIDTH[kind]
+    w = d or SCAN_WIDTH[kind]
     if kind == "wkv6":
-        return (n(b, s, w, 64), n(b, s, w, 64), n(b, s, w, 64),
+        return (n_(b, s, w, 64), n_(b, s, w, 64), n_(b, s, w, 64),
                 torch.exp(-torch.exp(12 * torch.rand(
                     (b, s, w, 64), generator=g, device="cuda") - 8)),
-                n(w, 64), n(b, w, 64, 64))
-    return (n(b, s, w), torch.nn.functional.softplus(n(b, s, w) - 3),
-            n(b, s, 16), n(b, s, 16),
-            -torch.exp(torch.rand((w, 16), generator=g, device="cuda")
-                       * math.log(16)), n(b, w, 16))
+                n_(w, 64), n_(b, w, 64, 64))
+    return (n_(b, s, w), torch.nn.functional.softplus(n_(b, s, w) - 3),
+            n_(b, s, n), n_(b, s, n),
+            -torch.exp(torch.rand((w, n), generator=g, device="cuda")
+                       * math.log(16)), n_(b, w, n))
 
 
 def _rel(a, b):
@@ -1264,6 +1265,148 @@ def test_scan_kernels_match_plain(cuda, kind, b, s):
     assert {k: after[k] - before[k] for k in after} == {
         k: int(k in names) for k in after}
     torch.cuda.synchronize()
+
+
+def _mamba_case(args, keep):
+    """``mamba_scan_fwd`` (keeping the chunk states or not) and
+    ``mamba_scan_bwd`` on ``args`` against their plain versions: states
+    and final state bit for bit, ``y`` within 1e-5 of max|y|, every
+    gradient within 1e-4 of its largest |value|, one launch a call.
+    Returns the backward's inputs."""
+    from repro_torch.kernels import scan as sc
+    before = bp.launches()
+    got = sc.mamba_scan_fwd(*args, 64, keep)
+    want = sc.mamba_scan_fwd_ref(*args, 64, keep)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[2].shape == want[2].shape
+    assert _rel(got[0], want[0]) <= 1e-5
+    states = want[2] if keep else sc.mamba_scan_fwd_ref(*args, 64, True)[2]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cot = [torch.randn(t.shape, generator=g, device="cuda")
+           for t in got[:2]]
+    bwd_args = (*args[:5], states, *cot, 64)
+    gk = sc.mamba_scan_bwd(*bwd_args)
+    gp = sc.mamba_scan_bwd_ref(*bwd_args)
+    for x, y in zip(gk, gp):
+        assert x.shape == y.shape and _rel(x, y) <= 1e-4
+    after = bp.launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in ("mamba_scan_fwd", "mamba_scan_bwd")) for k in after}
+    torch.cuda.synchronize()
+    return bwd_args
+
+
+@pytest.mark.parametrize("d,n,b,s,keep", [
+    (2048, 16, 1, 4096, True),     # jamba's 'model' block on (1, 4)
+    (2048, 16, 2, 200, False),
+    (8192, 16, 2, 63, False),
+    (2048, 8, 1, 4096, True),
+    (2048, 8, 2, 200, True),
+    (2048, 8, 2, 64, False),
+    (2048, 32, 1, 4096, True),
+    (2048, 32, 2, 200, True),
+    (2048, 32, 2, 1, False),
+    (8192, 32, 2, 64, True),
+    (100, 16, 2, 200, True),       # a ragged block of channels
+    (6, 5, 2, 200, True),          # rows too narrow for 16-byte copies
+])
+def test_mamba_scan_kernels_at_other_widths(cuda, d, n, b, s, keep):
+    """The selective scan's kernels at jamba's (1, 4) block of channels,
+    at 8 and 32 states (the other lane groups), without kept states, and at
+    ragged and unaligned widths, against the plain versions."""
+    _mamba_case(_scan_args("mamba", b, s, seed=5, d=d, n=n), keep)
+
+
+@pytest.mark.parametrize("d", [8192, 512])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_mamba_scan_fwd_both_splits(cuda, d, n):
+    """The forward at two states a thread (8192 channels at B = 2, every
+    lane group) and at one (512 channels), against the plain loop."""
+    _mamba_case(_scan_args("mamba", 2, 200, seed=6, d=d, n=n), True)
+
+
+GUARD = 4096   # floats of a known value either side of every buffer
+
+
+def _guarded(shape, like=None, shift=0):
+    """A (buffer, view) pair: a contiguous ``shape`` view at ``shift``
+    floats past a guard of ``GUARD`` NaNs (inputs, holding ``like``) or of
+    -7.25 (outputs and scratch, the view filled too), with a guard after
+    it."""
+    numel = math.prod(shape)
+    fill = float("nan") if like is not None else -7.25
+    buf = torch.full((numel + 2 * GUARD + shift,), fill, device="cuda")
+    view = buf[GUARD + shift:GUARD + shift + numel].view(shape)
+    if like is not None:
+        view.copy_(like)
+    return buf, view
+
+
+def _guards_hold(buf, numel, shift):
+    for g in (buf[:GUARD + shift], buf[GUARD + shift + numel:]):
+        if not torch.equal(g, torch.full_like(g, -7.25)):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,s,d,n", [
+    (1, 4096, 8192, 16),    # jamba's widths, split 2
+    (2, 200, 2048, 16),     # split 1, a ragged last chunk
+    (2, 64, 8192, 8),
+    (2, 63, 100, 32),       # a ragged block of channels
+    (2, 200, 6, 5),         # rows too narrow for 16-byte copies
+])
+def test_mamba_scan_kernels_stay_in_bounds(cuda, b, s, d, n, shift):
+    """Each buffer of both Mamba kernels inside guards: NaNs around the
+    inputs (a read past one reaches the outputs), a known value around the
+    outputs and scratch (a write past one changes it), every pointer
+    16-byte aligned (shift 0) or not (shift 1, the per-float copies).  The
+    guards hold, and three launches give the wrappers' bits."""
+    from repro_torch.kernels import scan as sc
+    args = _scan_args("mamba", b, s, seed=8, d=d, n=n)
+    y_w, hf_w, st_w = sc.mamba_scan_fwd(*args, 64, True)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dy, dhf = (torch.randn(t.shape, generator=g, device="cuda")
+               for t in (y_w, hf_w))
+    want = sc.mamba_scan_bwd(*args[:5], st_w, dy, dhf, 64)
+    ins = [_guarded(t.shape, t, shift) for t in (*args, st_w, dy, dhf)]
+    x, dt, bm, cm, a, h0, st_in, dy_in, dhf_in = (v for _, v in ins)
+    tiles = sc._lib().mamba_scan_tiles(d, n)
+    fwd_outs = [_guarded(t.shape, shift=shift) for t in (y_w, hf_w, st_w)]
+    bwd_outs = [_guarded(shape, shift=shift) for shape in (
+        (b, s, d), (b, s, d), (b, s, n), (b, s, n), (d, n), (b, d, n),
+        (b, tiles, s, n), (b, tiles, s, n), (b, d, n))]
+    dx, ddt, db, dc, da, dh0, part_db, part_dc, part_da = (
+        v for _, v in bwd_outs)
+    for _ in range(3):
+        sc._run("mamba_scan_fwd", x, x, dt, bm, cm, a, h0,
+                *(v for _, v in fwd_outs), b, s, d, n, 64, 1)
+        sc._run("mamba_scan_bwd", x, x, dt, bm, cm, a, st_in, dy_in, dhf_in,
+                dx, ddt, part_db, part_dc, part_da, db, dc, da, dh0, b, s, d,
+                n, 64)
+        torch.cuda.synchronize()
+        for (_, v), w in zip(fwd_outs, (y_w, hf_w, st_w)):
+            assert torch.equal(v, w)
+        for v, w in zip((dx, ddt, db, dc, da, dh0), want):
+            assert torch.equal(v, w)
+    for buf, v in fwd_outs + bwd_outs:
+        assert _guards_hold(buf, v.numel(), shift)
+    for buf, v in ins:
+        assert buf[:GUARD + shift].isnan().all()
+        assert buf[GUARD + shift + v.numel():].isnan().all()
+
+
+@pytest.mark.parametrize("d", [8192, 2048])
+def test_mamba_scan_bwd_is_deterministic(cuda, d):
+    """Two calls of ``mamba_scan_bwd`` on the same inputs give the same
+    bits: every sum over channels, blocks and clusters has a fixed
+    order."""
+    from repro_torch.kernels import scan as sc
+    bwd_args = _mamba_case(_scan_args("mamba", 1, 4096, seed=7, d=d), True)
+    first = sc.mamba_scan_bwd(*bwd_args)
+    second = sc.mamba_scan_bwd(*bwd_args)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.parametrize("kind", ["wkv6", "mamba"])
