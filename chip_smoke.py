@@ -202,6 +202,11 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    within 1% (operators that dispatch differently listed), the allocator's
    peak within [0.80, 1.25] x the predicted arguments + temp bytes, and
    neither the FLOP bound (989 TFLOP/s) nor the byte bound above the wall;
+   (c) one ``wkv6_bwd`` call at rwkv6-3b's widths and one
+   ``mamba_scan_bwd`` call at jamba's, 1 x 4096: the allocator's peak
+   rise over the call, in bytes requested, equal to ``OpAnalysis``'s
+   temp bytes on ``meta`` (the outputs and the declared workspace), and
+   in bytes allocated within 512 bytes an allocation of it;
 20. the SSM scan kernels (``kernels/csrc/scan.cu``): (a) each of
    ``wkv6_fwd``, ``wkv6_bwd``, ``mamba_scan_fwd`` and ``mamba_scan_bwd``
    against its plain version at rwkv6-3b's widths (40 heads of 64) and
@@ -211,14 +216,17 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    outputs within 1e-5 of max|out|, gradients within 1e-4 of their
    largest, two ``mamba_scan_bwd`` calls the same bits; each timed at
    1 x 4096 (wrapper, replayed graph, plain loop, bound), Mamba's at both
-   widths; (b) their main paths, counters zeroed before each: rwkv6-3b
+   widths, and ``mamba_scan_fwd`` at B x 4096, B = 2 and 4, at one and
+   two states a thread (the same states at both); (b) their main paths,
+   counters zeroed before each: rwkv6-3b
    cut to 4 layers and jamba's period without its MoE, 3
    ``make_train_step`` steps of 1 x 4096 each (losses finite and
    falling), and jamba's period prefilling 1 x 4096 (finite logits);
    launches = scanning layers x steps x passes; the event time of the scan
    calls in each step and in the prefill (CUDA events around each wrapper
    call: an upper bound on the kernels' device time) and its share of the
-   wall.
+   wall; then one more warm training step of each under ``torch.profiler``:
+   the scan kernels' own device time beside the events' bound.
 
 Phases 7-12, 14, 15 and 20 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
@@ -236,6 +244,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3159,11 +3168,64 @@ def train_step_check(torch, mesh):
           f"meta count took {fake_s:.1f} s", flush=True)
 
 
+def scan_workspace_check(torch):
+    """One ``wkv6_bwd`` call at rwkv6-3b's widths and one ``mamba_scan_bwd``
+    call at jamba's, 1 x 4096 (the training path's chunk of 64), counted
+    by ``OpAnalysis`` on ``meta`` (its outputs and its declared workspace,
+    ``bitplane.WORKSPACE``) and run on the card: the caching allocator's
+    peak rise over the call in bytes requested equals the ``meta`` temp,
+    and in bytes allocated exceeds it by no more than the allocator's
+    rounding (512 bytes an allocation)."""
+    from repro_torch.kernels import bitplane as bp
+    from repro_torch.kernels import scan as sc
+    from repro_torch.launch.op_analysis import OpAnalysis
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for kind, fwd, bwd, op in (
+            ("wkv6", sc.wkv6_fwd, sc.wkv6_bwd,
+             torch.ops.repro_torch.wkv6_bwd.default),
+            ("mamba", sc.mamba_scan_fwd, sc.mamba_scan_bwd,
+             torch.ops.repro_torch.mamba_scan_bwd.default)):
+        args = _scan_inputs(torch, kind, 1, SCAN_SEQ, gen)
+        out, fin, states = fwd(*args, 64, True)
+        call = (*args[:5], states,
+                torch.randn(out.shape, generator=gen, device="cuda"),
+                torch.randn(fin.shape, generator=gen, device="cuda"))
+        del out, fin
+        meta = [t.to("meta") for t in call]
+        with OpAnalysis() as ana:
+            grads = bwd(*meta, 64)
+        temp = ana.summary()["temp_bytes"]
+        workspace = bp.WORKSPACE[op](*meta, 64)
+        n_alloc = len(grads) + len(workspace)
+        del grads
+        _free(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = (torch.cuda.memory_allocated(), _requested(torch, "current"))
+        grads = bwd(*call, 64)
+        torch.cuda.synchronize()
+        requested = _requested(torch, "peak") - base[1]
+        allocated = torch.cuda.max_memory_allocated() - base[0]
+        check(requested == temp and 0 <= allocated - temp <= 512 * n_alloc,
+              f"{kind} backward: the card's peak rise {requested} B "
+              f"requested, {allocated} B allocated, against the meta "
+              f"count's temp {temp} B")
+        print(f"{kind} backward, 1 x {SCAN_SEQ} (workspace "
+              f"{', '.join(f'{k} {tuple(v)}' for k, v in workspace.items())}"
+              f"): meta temp {temp} B (outputs and workspace) == the card's "
+              f"peak rise in bytes requested {requested} B; allocated "
+              f"{allocated} B (+{allocated - temp} B of the allocator's "
+              f"rounding, {n_alloc} allocations)", flush=True)
+        del args, states, call, meta, grads
+        _free(torch)
+
+
 def analysis_phase(torch, bp, x_np):
     """Phase 19: the dispatched-op analysis and the cost model against the
     card: (a) the fused write program, card and ``meta``; (b) danube/2's
     train step in a NCCL world of one rank on a (1, 1) mesh, card and the
-    dry run's fake count."""
+    dry run's fake count; (c) the scan backwards' workspace, card and
+    ``meta``."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     t0 = time.perf_counter()
@@ -3179,6 +3241,10 @@ def analysis_phase(torch, bp, x_np):
     finally:
         dist.destroy_process_group()
     _free(torch)
+    t0 = time.perf_counter()
+    scan_workspace_check(torch)
+    print(f"(c) the scan backwards' workspace: {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
 
 
 # --------------------------------------------------------------- phase 20 --
@@ -3192,6 +3258,8 @@ F32_FLOP_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 EXP_PER_S = 4.18e12            # 132 SMs x 16 SFU lanes x 1.98 GHz boost
 SCAN_OUT_TOL = 1e-5            # of max|out|: sums over k or s in another order
 SCAN_STEPS = 3
+SPLIT_BATCHES = (2, 4)         # mamba_scan_fwd's batches past B = 1
+SCAN_KERNELS = r"(wkv6|mamba|sum_middle)_\w*kernel"   # their device names
 SCAN_TPU = "src/repro/models/ssm.py"
 # flops of each (b, t, h, k, v) of a wkv and each (b, t, d, s) of a scan
 # (a multiply-add counts two), and the scans' expf
@@ -3357,7 +3425,37 @@ def scan_kernels_check(torch, sc):
         if name in block:
             r["block"] = block[name]
             _print_scan_row(name, block[name])
+    rows["mamba_scan_fwd"]["splits"] = split_times(torch, sc, gen)
     return rows
+
+
+def split_times(torch, sc, gen):
+    """``mamba_scan_fwd`` at jamba's widths, B x 4096 for B in
+    ``SPLIT_BATCHES``, at one and at two states a thread
+    (``mamba_scan_fwd_at_split``) beside the kernel's own pick: the states
+    and the final state the same bits at both splits, y within
+    ``SCAN_OUT_TOL``; each split's device time (graph replay).  Returns
+    {batch: {"pick": split, 1: ms, 2: ms}}."""
+    out = {}
+    for b in SPLIT_BATCHES:
+        args = _scan_inputs(torch, "mamba", b, SCAN_SEQ, gen)
+        got = {k: sc.mamba_scan_fwd_at_split(k, *args, 64, True)
+               for k in (1, 2)}
+        check(all(torch.equal(got[1][i], got[2][i]) for i in (1, 2))
+              and _max_rel(torch, got[2][0], got[1][0]) <= SCAN_OUT_TOL,
+              f"mamba_scan_fwd at B = {b}: splits 1 and 2 differ")
+        del got
+        ms = {k: time_ms(lambda k=k: sc.mamba_scan_fwd_at_split(
+            k, *args, 64, True), reps=5, inner=3, warmup=2, graph=True)
+            for k in (1, 2)}
+        pick = sc._lib().mamba_scan_fwd_pick(b, MAMBA_D, MAMBA_N)
+        out[b] = {"pick": pick, **ms}
+        print(f"mamba_scan_fwd at ({b}, {SCAN_SEQ}, {MAMBA_D}): split 1 "
+              f"{ms[1]:.3f} ms, split 2 {ms[2]:.3f} ms (device, graph "
+              f"replay); fwd_split picks {pick}", flush=True)
+        del args
+        _free(torch)
+    return out
 
 
 class _ScanClock:
@@ -3425,6 +3523,7 @@ def _scan_train(torch, bp, sc, arch, layers, unstacked, **overrides):
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     from repro_torch.train.step import make_train_step
+    from torch.autograd import DeviceType
     cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               **overrides)
     model = Model(cfg, device="cuda", seed=0)
@@ -3454,6 +3553,33 @@ def _scan_train(torch, bp, sc, arch, layers, unstacked, **overrides):
     span = tr.summary()["spans"].get("ssm.scan", {}).get("total_s", 0.0)
     check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
           f"{arch}/{layers}: losses {losses} not finite and falling")
+    # one more warm step under torch.profiler: the scan kernels' own device
+    # time beside the events' bound for the same step
+    with _ScanClock(torch, sc) as clock:
+        box = {}
+
+        def step():
+            box["out"] = fn(params, opt, batch)
+        prof, pwalls = _profile(torch, step)
+        event_ms = clock.take_ms()
+    params, opt, m = box.pop("out")
+    evs = prof.key_averages()
+    kern = {}
+    for e in evs:
+        name = re.search(SCAN_KERNELS, e.key)
+        if e.device_type == DeviceType.CUDA and name:
+            kern[name[0]] = kern.get(name[0], 0.0) + _dev_us(e) / 1e3
+    kernel_ms = sum(kern.values())
+    busy = _busy_ms(evs)
+    check(kernel_ms > 0, f"{arch}/{layers}: the profiler saw no scan kernel")
+    print(f"{arch}/{layers}, one more warm step under torch.profiler "
+          f"({pwalls[1]:.3f} s of host wall): the scan kernels' own device "
+          f"time {kernel_ms:.2f} ms ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(kern.items()))
+          + f"), {kernel_ms / 1e3 / pwalls[1]:.3f} of the wall and "
+          f"{kernel_ms / busy:.3f} of the device's busy {busy:.1f} ms; "
+          f"the scan calls' event time (the upper bound) {event_ms:.2f} ms",
+          flush=True)
     print(f"{arch} cut to {layers} layers"
           f"{''.join(f', {k}={v}' for k, v in overrides.items())} "
           f"({count_params(cfg):,} params, remat {cfg.remat}), {SCAN_STEPS} "
@@ -3694,8 +3820,8 @@ def main(argv) -> int:
     jamba_phase(torch)
     done(t0, "phase 18")
 
-    t0 = phase("19 analysis: the fused write program and danube/2's train "
-               "step counted on the card and on meta")
+    t0 = phase("19 analysis: the fused write program, danube/2's train "
+               "step and the scan backwards counted on the card and on meta")
     analysis_phase(torch, bp, x_np)
     done(t0, "phase 19")
 

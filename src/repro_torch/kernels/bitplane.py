@@ -340,6 +340,21 @@ def add_counters(wrappers) -> None:
             _COUNTED[symbol] = fn
 
 
+# each kernel operator's workspace, by operator (``torch.ops.repro_torch.
+# <name>.default``): a function of the operator's arguments giving
+# {name: shape} of the buffers (of its first input's dtype) its CUDA
+# implementation allocates beyond its outputs and frees when it returns
+# (``kernels/scan.py`` adds the scan backwards');
+# ``launch.op_analysis.OpAnalysis`` counts them
+WORKSPACE: Dict[object, object] = {}
+
+
+def add_workspace(table) -> None:
+    """Declare the workspace of the operators of ``table`` ({operator:
+    function of its arguments -> {name: shape}})."""
+    WORKSPACE.update(table)
+
+
 def launches() -> Dict[str, int]:
     """Every kernel's launches since the last reset, by symbol."""
     with _count_lock:

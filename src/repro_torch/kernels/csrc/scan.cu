@@ -26,32 +26,58 @@
 //   S_{t+1}[k, v] = w_t[k] S_t[k, v] + k_t[k] v_t[v]
 //   out_t[v]      = sum_k r_t[k] (S_t[k, v] + u[k] k_t[k] v_t[v])
 //
-// Each output column v of the state depends on that column alone, so
-// wkv6_fwd gives one thread one (b, h, v) column in 64 registers and lets it
-// sum over k itself, with no cross-thread reduction: a block of 64 threads
-// per (b, h); r_t, k_t, w_t (and u) are staged in shared memory each step,
-// read as broadcasts.
+// A head's 64 x 64 states split over kWkvSpan (8)-wide slices into 8
+// blocks of 128 threads: 320 blocks at B = 1 and rwkv6-3b's 40 heads, 4
+// of the forward's or the column pass's and 3 of the row pass's resident
+// an SM (shared memory).  The line the slice cuts along is the line a
+// kernel's recurrence keeps independent, and the axis it sums over sits on
+// a group of kWkvG (16) lanes, kWkvK (4) states a thread: a sum over that
+// axis is 4 terms in registers and then a reduce-scatter over the group's
+// lanes and 16 steps (15 shuffles, about one a lane a step), after which
+// lane j holds the sum of step j and stores it.  Every kernel stages its
+// steps into shared memory through a ring of kStages (2) stages of
+// cp.asyncs arriving on mbarriers, as the selective scan's kernels do,
+// the next stage's copies in flight while this one computes, and has one
+// block barrier a stage, which frees the other one: no step waits for
+// global memory or has a barrier.
+//
+// wkv6_fwd: a block holds 8 columns v (a column depends on itself alone),
+// stages r, k, w and its columns of v in pieces of kWkvPiece (32) steps
+// (25 KB a stage), sums y over k as above, and keeps the state entering
+// each chunk of `chunk` steps when asked.
 //
 // wkv6_bwd (the gradient of every input, S_0 included, from d out and d
 // S_T) splits the gradient by what each part sums over, the split of
-// RWKV-LM's public wkv6_cuda.cu, with the state in registers:
-//   * the column pass (blockIdx.y = 1, thread = column v) walks back over
-//     all T steps carrying dS[:, v]; it needs no state:
-//       dv_t[v] = d out_t[v] sum_k u r_t k_t + sum_k dS_{t+1}[k, v] k_t[k]
+// RWKV-LM's public wkv6_cuda.cu, as two kernels of one call:
+//   * the column pass (the forward's layout: 8 columns a block, 4 rows a
+//     thread) walks back over all T steps carrying dS[:, v] and needs no
+//     state:
+//       dv_t[v] = sum_k k_t[k] (dS_{t+1}[k, v] + u[k] r_t[k] d out_t[v])
 //       dS_t[k, v] = r_t[k] d out_t[v] + w_t[k] dS_{t+1}[k, v]
 //     and writes dS_0;
-//   * the row pass (blockIdx.y = 0, thread = row k) carries dS[k, :] and
-//     needs S_t[k, :] in reverse order: for each chunk, last first, it
-//     recomputes the chunk's states from the kept one into a global
-//     scratch (chunk x 64 x 64 floats a (b, h), each thread writing and
-//     reading back only its own row, coalesced over k, so no barrier
-//     guards it; B H MB at chunk 64, which the L2 holds for B H <= ~48),
-//     then walks back through it:
-//       dr_t[k] = sum_v d out_t[v] (S_t[k, v] + u[k] k_t[k] v_t[v])
-//       dk_t[k] = sum_v (u[k] r_t[k] d out_t[v] + dS_{t+1}[k, v]) v_t[v]
+//   * the row pass (8 rows a block, 4 columns a thread) carries dS[k, :]
+//     and needs S_t[k, :] in reverse order.  Chunk by chunk, last first, it
+//     stages the block's rows of r, k, w, all of v and d out and the rows
+//     of the chunk's kept state in half chunks, three slots of 21 KB (the
+//     next chunk's first half in flight while this one computes, its
+//     second half once this chunk's second half is done: 2 barriers a
+//     chunk); one pass from the kept state gives the states entering the
+//     chunk's windows of kWkvWin (16) steps, and each window, last first,
+//     is recomputed into registers (16 x 4 a thread) and walked back:
+//       dr_t[k] = sum_v d out_t[v] S_t[k, v] + u[k] k_t[k] (g . v)_t
+//       dk_t[k] = sum_v dS_{t+1}[k, v] v_t[v] + u[k] r_t[k] (g . v)_t
 //       dw_t[k] = sum_v dS_{t+1}[k, v] S_t[k, v]
-//       du[k]  += r_t[k] k_t[k] sum_v d out_t[v] v_t[v]
-//     du is written per (b, h) and summed over b by sum_middle_kernel.
+//       du[k]  += r_t[k] k_t[k] (g . v)_t
+//     where (g . v)_t = sum_v d out_t[v] v_t[v] is summed once a step by
+//     the block's warps after the stage lands.  du is written per (b, h)
+//     and summed over b by sum_middle_kernel.  No global scratch: the
+//     states of a chunk never leave the SM.
+// One kernel carrying S and dS on a thread's (k, v) tile would sum over
+// both axes every step (dv over k, dr, dk, dw over v), four reductions in
+// place of the column pass's one and the row pass's three, and would hold
+// the row pass's window of states in the column pass's registers; the
+// column pass costs ~6 instructions a (t, k, v) against the row pass's
+// ~16, so the two passes stay apart.
 //
 // --- selective scan (B batch, T steps, D channels, N <= 32 states) --------
 //
@@ -99,11 +125,19 @@
 // call's gradients are the same bits every time.  dA is written per b and
 // summed over b by sum_middle_kernel.
 //
-// What bounds them.  At B = 1, T = 4096: wkv6_fwd at rwkv6-3b's H = 40 moves
-// r, k, v, w and out (5 x 42 MB) and, under autograd, 42 MB of kept states,
-// ~75 us at 3.35 TB/s, against 4.7 GFLOP of float32 work (~70 us at 67
-// TFLOP/s); it is latency-bound as written: a step's work per thread is one
-// 64-long dependent chain, and only B H x 64 threads (2,560) run it.
+// What bounds them.  At B = 1, T = 4096 and rwkv6-3b's H = 40, wkv6_fwd
+// moves r, k, v, w and out (5 x 42 MB) and, under autograd, 42 MB of kept
+// states, ~75 us at 3.35 TB/s, against 4.7 GFLOP of float32 work (~70 us
+// at 67 TFLOP/s); its instructions bound it: ~7 a (t, k, v) (the 5
+// of the update and the sum, the shared loads, the reduce-scatter's
+// share), ~0.15 ms on 132 SMs, and 320 blocks on 132 SMs leave some SMs
+// three blocks and some two.  wkv6_bwd's two passes run ~6 and ~16
+// instructions a (t, k, v) (the row pass recomputes each state twice: once
+// to reach a window, once into registers) against 13.4 GFLOP (~0.2 ms).
+// A chunk's whole stage (40 KB, two of them) let only 2 row-pass blocks
+// sit on an SM, and at B = 1 56 of the 320 ran in a second wave; half
+// chunks in three slots (64 KB) and 168 registers (a 72-byte spill) fit
+// 3, one wave.
 // mamba_scan_fwd at jamba's D = 8192, N = 16 moves x, dt and y (3 x 134 MB,
 // ~0.12 ms) and takes 537M expf (~0.13 ms on the SFUs); staged, it runs
 // ~18 instructions a (d, s, t), the accurate expf 8 of them, and runs at
@@ -128,159 +162,21 @@ namespace {
 constexpr int kHead = 64;          // RWKV6 head size (K = V)
 constexpr int kMaxChunk = 64;      // most steps between two kept states
 constexpr int kSumThreads = 256;
-constexpr int kStages = 2;         // selective scan: chunks staged at once
+constexpr int kStages = 2;         // pieces or chunks staged at once
+constexpr int kWkvG = 16;          // wkv6: lanes a state column (row) spans
+constexpr int kWkvK = kHead / kWkvG;           // states a thread: 4
+constexpr int kWkvSpan = 8;        // columns (rows) of a head a block
+constexpr int kWkvThreads = kWkvSpan * kWkvG;  // 128
+constexpr int kWkvPiece = 32;      // steps a stage: forward, column pass
+constexpr int kWkvWin = 16;        // row pass: steps recomputed at once
+constexpr int kWkvSlots = 3;       // row pass: half chunks staged at once
 constexpr int kFwdThreads = 128;   // its forward's block
 constexpr int kFwdMinWarps = 1056; // 8 an SM: fwd_split's floor
 constexpr int kBwdThreads = 128;   // its backward's block (a thread a state)
 constexpr int kBwdBlocks = 3;      // resident a SM (<= 170 registers)
 constexpr int kCluster = 8;        // blocks whose dB / dC meet on chip
 
-// ------------------------------------------------------------------- wkv6 --
-
-__global__ void __launch_bounds__(kHead) wkv6_fwd_kernel(
-    const float* __restrict__ r, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ w,
-    const float* __restrict__ u, const float* __restrict__ s0,
-    float* __restrict__ out, float* __restrict__ s_final,
-    float* __restrict__ states, int T, int H, int chunk, int keep) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, i = threadIdx.x;
-  __shared__ float rs[kHead], ks[kHead], ws[kHead], us[kHead];
-  const int nc = (T + chunk - 1) / chunk;
-  float S[kHead];                    // S[k][v = i]
-  const float* s0p = s0 + (size_t)bh * kHead * kHead;
-#pragma unroll
-  for (int j = 0; j < kHead; ++j) S[j] = s0p[j * kHead + i];
-  us[i] = u[h * kHead + i];
-  const size_t tstride = (size_t)H * kHead;
-  const size_t base = (size_t)b * T * tstride + (size_t)h * kHead + i;
-  for (int t = 0; t < T; ++t) {
-    const size_t o = base + (size_t)t * tstride;
-    if (keep && t % chunk == 0) {
-      float* st = states + (((size_t)b * nc + t / chunk) * H + h)
-                               * kHead * kHead;
-#pragma unroll
-      for (int j = 0; j < kHead; ++j) st[j * kHead + i] = S[j];
-    }
-    __syncthreads();                 // the last step's reads are done
-    rs[i] = r[o];
-    ks[i] = k[o];
-    ws[i] = w[o];
-    __syncthreads();
-    const float vv = v[o];
-    float y = 0.f;
-#pragma unroll
-    for (int j = 0; j < kHead; ++j) {
-      const float kv = __fmul_rn(ks[j], vv);
-      y = __fadd_rn(y, __fmul_rn(rs[j],
-                                 __fadd_rn(S[j], __fmul_rn(us[j], kv))));
-      S[j] = __fadd_rn(__fmul_rn(ws[j], S[j]), kv);
-    }
-    out[o] = y;
-  }
-  float* sf = s_final + (size_t)bh * kHead * kHead;
-#pragma unroll
-  for (int j = 0; j < kHead; ++j) sf[j * kHead + i] = S[j];
-}
-
-__global__ void __launch_bounds__(kHead) wkv6_bwd_kernel(
-    const float* __restrict__ r, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ w,
-    const float* __restrict__ u, const float* __restrict__ states,
-    const float* __restrict__ dout, const float* __restrict__ ds_final,
-    float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
-    float* __restrict__ dw, float* __restrict__ du_part,
-    float* __restrict__ ds0, float* __restrict__ scratch, int T, int H,
-    int chunk) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, i = threadIdx.x;
-  const int nc = (T + chunk - 1) / chunk;
-  const size_t tstride = (size_t)H * kHead;
-  const size_t base = (size_t)b * T * tstride + (size_t)h * kHead + i;
-  const float* dsf = ds_final + (size_t)bh * kHead * kHead;
-  float dS[kHead];
-  if (blockIdx.y == 1) {
-    // ---- column pass: thread i owns dS[:, v = i]
-    __shared__ float rs[kHead], ks[kHead], ws[kHead], us[kHead];
-#pragma unroll
-    for (int j = 0; j < kHead; ++j) dS[j] = dsf[j * kHead + i];
-    us[i] = u[h * kHead + i];
-    for (int t = T - 1; t >= 0; --t) {
-      const size_t o = base + (size_t)t * tstride;
-      __syncthreads();
-      rs[i] = r[o];
-      ks[i] = k[o];
-      ws[i] = w[o];
-      __syncthreads();
-      const float gi = dout[o];
-      float ruk = 0.f, acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kHead; ++j) {
-        ruk += us[j] * rs[j] * ks[j];
-        acc += dS[j] * ks[j];
-        dS[j] = rs[j] * gi + ws[j] * dS[j];
-      }
-      dv[o] = gi * ruk + acc;
-    }
-    float* d0 = ds0 + (size_t)bh * kHead * kHead;
-#pragma unroll
-    for (int j = 0; j < kHead; ++j) d0[j * kHead + i] = dS[j];
-    return;
-  }
-  // ---- row pass: thread i owns dS[k = i, :] and recomputes S[k = i, :]
-  __shared__ float vs[kHead], gs[kHead];
-  const float ui = u[h * kHead + i];
-#pragma unroll
-  for (int j = 0; j < kHead; ++j) dS[j] = dsf[i * kHead + j];
-  float S[kHead];
-  float du = 0.f;
-  float* scr = scratch + (size_t)bh * chunk * kHead * kHead;  // [t][v][k]
-  for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * chunk, n = min(chunk, T - t0);
-    const float* st = states + (((size_t)b * nc + c) * H + h) * kHead * kHead;
-#pragma unroll
-    for (int j = 0; j < kHead; ++j) S[j] = st[i * kHead + j];
-    for (int tt = 0; tt < n; ++tt) {
-      const size_t o = base + (size_t)(t0 + tt) * tstride;
-      float* sc = scr + (size_t)tt * kHead * kHead;
-#pragma unroll
-      for (int j = 0; j < kHead; ++j) sc[j * kHead + i] = S[j];
-      __syncthreads();
-      vs[i] = v[o];
-      __syncthreads();
-      const float wi = w[o], ki = k[o];
-#pragma unroll
-      for (int j = 0; j < kHead; ++j)
-        S[j] = __fadd_rn(__fmul_rn(wi, S[j]), __fmul_rn(ki, vs[j]));
-    }
-    for (int tt = n - 1; tt >= 0; --tt) {
-      const size_t o = base + (size_t)(t0 + tt) * tstride;
-      const float* sc = scr + (size_t)tt * kHead * kHead;
-      __syncthreads();
-      vs[i] = v[o];
-      gs[i] = dout[o];
-      __syncthreads();
-      const float ri = r[o], ki = k[o], wi = w[o];
-      const float uri = ui * ri;
-      float gr = 0.f, gk = 0.f, gw = 0.f, gv = 0.f;
-#pragma unroll
-      for (int j = 0; j < kHead; ++j) {
-        const float s = sc[j * kHead + i];
-        const float g = gs[j], vj = vs[j];
-        gr += g * (s + ui * (ki * vj));
-        gv += g * vj;
-        gk += (uri * g + dS[j]) * vj;
-        gw += dS[j] * s;
-        dS[j] = ri * g + wi * dS[j];
-      }
-      dr[o] = gr;
-      dk[o] = gk;
-      dw[o] = gw;
-      du += ri * ki * gv;
-    }
-  }
-  du_part[(size_t)bh * kHead + i] = du;
-}
-
-// -------------------------------------------------------- selective scan --
+// ------------------------------------------------------ shared pieces --
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -386,19 +282,6 @@ __device__ __forceinline__ void store_rows(float* dst, size_t dst_stride,
   }
 }
 
-// K (1 or 2) consecutive floats of shared memory (8-byte aligned for 2).
-template <int K>
-__device__ __forceinline__ void load_k(float (&v)[K], const float* p) {
-  static_assert(K == 1 || K == 2, "a thread holds 1 or 2 states");
-  if constexpr (K == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
 // a where `up`, else b, as a bitwise select: a conditional operator on two
 // elements of a register array can become an indexed load from local memory.
 __device__ __forceinline__ float pick(bool up, float a, float b) {
@@ -438,6 +321,485 @@ struct ReduceScatter {
 template <int G, int R>
 __device__ __forceinline__ float reduce_scatter(float (&v)[R], int gl) {
   return ReduceScatter<R, G / 2>::run(v, gl);
+}
+
+// ------------------------------------------------------------------- wkv6 --
+
+// Four consecutive floats of shared memory (16-byte aligned).
+__device__ __forceinline__ void load4(float (&q)[kWkvK], const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  q[0] = t.x;
+  q[1] = t.y;
+  q[2] = t.z;
+  q[3] = t.w;
+}
+
+// The stage of the forward and of the column pass, in floats: r, k, w
+// ([kWkvPiece][kHead] each) and the block's columns of v or d out
+// ([kWkvPiece][kWkvSpan]).
+struct WkvColLayout {
+  static constexpr int kRows = kWkvPiece * kHead;
+  static constexpr int kStage = 3 * kRows + kWkvPiece * kWkvSpan;
+  static constexpr int kFloats = kStages * kStage;
+};
+
+// The row pass's, a slot of kWkvSlots: half a chunk (kWkvPiece steps) of
+// the block's rows of r, k, w ([kWkvPiece][kWkvSpan]), of v and d out
+// ([kWkvPiece][kHead]), and, in a slot holding a chunk's first half, the
+// chunk's kept state of the block's rows ([kWkvSpan][kHead]); after the
+// slots, g . v of each step of two chunks.
+struct WkvRowLayout {
+  static constexpr int kRows = kWkvPiece * kWkvSpan;
+  static constexpr int kCols = kWkvPiece * kHead;
+  static constexpr int kSlot = 3 * kRows + 2 * kCols + kWkvSpan * kHead;
+  static constexpr int kFloats = kWkvSlots * kSlot + 2 * kMaxChunk;
+};
+
+// A row-pass slot's arrays, from step j0 of its half chunk on.
+struct WkvRowPiece {
+  const float *rs, *ks, *ws, *vs, *gs;
+  __device__ WkvRowPiece(const float* slot, int j0)
+      : rs(slot + j0 * kWkvSpan), ks(rs + WkvRowLayout::kRows),
+        ws(ks + WkvRowLayout::kRows), vs(slot + 3 * WkvRowLayout::kRows +
+                                         j0 * kHead),
+        gs(vs + WkvRowLayout::kCols) {}
+};
+
+// kWkvG steps of the forward from step j0 of the stage (every one where
+// kFull, else those below n) on a thread's states S[k0 .. k0 + 3] of its
+// column: the state entering step keep_t is kept (at `kept`, which then
+// moves on a chunk), and lane gl stores y of step j0 + gl.
+template <bool kFull>
+__device__ __forceinline__ void wkv_fwd_group(
+    float (&S)[kWkvK], const float (&uu)[kWkvK], const float* rs,
+    const float* ks, const float* ws, const float* vs, float* out_col,
+    float*& kept, int& keep_t, size_t tstride, size_t kstride, int j0,
+    int n, int t0, int c, int gl, int chunk) {
+  const int k0 = gl * kWkvK;
+  float p[kWkvG];
+#pragma unroll
+  for (int q = 0; q < kWkvG; ++q) {
+    const int j = j0 + q;
+    p[q] = 0.f;
+    if (kFull || j < n) {
+      if (t0 + j == keep_t) {
+#pragma unroll
+        for (int i = 0; i < kWkvK; ++i) kept[(k0 + i) * kHead] = S[i];
+        kept += kstride;
+        keep_t += chunk;
+      }
+      float rq[kWkvK], kq[kWkvK], wq[kWkvK];
+      load4(rq, rs + j * kHead + k0);
+      load4(kq, ks + j * kHead + k0);
+      load4(wq, ws + j * kHead + k0);
+      const float vv = vs[j * kWkvSpan + c];
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWkvK; ++i) {
+        const float kv = __fmul_rn(kq[i], vv);
+        acc = fmaf(rq[i], fmaf(uu[i], kv, S[i]), acc);
+        S[i] = __fadd_rn(__fmul_rn(wq[i], S[i]), kv);
+      }
+      p[q] = acc;
+    }
+  }
+  const float y = reduce_scatter<kWkvG, kWkvG>(p, gl);   // y of step j0 + gl
+  if (kFull || j0 + gl < n) out_col[(size_t)(t0 + j0 + gl) * tstride] = y;
+}
+
+// Forward.  A block covers kWkvSpan state columns of one (b, h); column
+// c's 64 rows sit on a group of kWkvG lanes, kWkvK rows a thread.  Piece
+// by piece (kWkvPiece steps), the block stages r, k, w and its columns of
+// v into a ring of kStages, the next piece's copies in flight while this
+// one computes, one block barrier a piece freeing the stage; y (a sum over
+// the group's lanes) goes through a reduce-scatter over lanes and steps.
+__global__ void __launch_bounds__(kWkvThreads) wkv6_fwd_kernel(
+    const float* __restrict__ r, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ w,
+    const float* __restrict__ u, const float* __restrict__ s0,
+    float* __restrict__ out, float* __restrict__ s_final,
+    float* __restrict__ states, int T, int H, int chunk, int keep, int vec) {
+  using Y = WkvColLayout;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t full[kStages];
+  const int c = threadIdx.x / kWkvG, gl = threadIdx.x % kWkvG;
+  const int k0 = gl * kWkvK;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int v0 = blockIdx.x * kWkvSpan, col = v0 + c;
+  const size_t tstride = (size_t)H * kHead, kstride = tstride * kHead;
+  const size_t head = (size_t)bh * kHead * kHead;
+  const size_t row0 = (size_t)b * T * tstride + (size_t)h * kHead;
+  float S[kWkvK], uu[kWkvK];
+#pragma unroll
+  for (int i = 0; i < kWkvK; ++i) {
+    S[i] = s0[head + (k0 + i) * kHead + col];
+    uu[i] = u[h * kHead + k0 + i];
+  }
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kStages; ++i) mbar_init(&full[i], blockDim.x);
+  __syncthreads();
+  const int np = (T + kWkvPiece - 1) / kWkvPiece;
+  auto stage_piece = [&](int p) {
+    float* st = smem + (p % kStages) * Y::kStage;
+    const int n = min(kWkvPiece, T - p * kWkvPiece);
+    const size_t o = row0 + (size_t)p * kWkvPiece * tstride;
+    stage_rows(st, kHead, r + o, tstride, n, kHead, vec);
+    stage_rows(st + Y::kRows, kHead, k + o, tstride, n, kHead, vec);
+    stage_rows(st + 2 * Y::kRows, kHead, w + o, tstride, n, kHead, vec);
+    stage_rows(st + 3 * Y::kRows, kWkvSpan, v + o + v0, tstride, n,
+               kWkvSpan, vec);
+    mbar_arrive_copies(&full[p % kStages]);
+  };
+  stage_piece(0);
+  const int nc = (T + chunk - 1) / chunk;
+  int keep_t = keep ? 0 : -1;
+  float* kept = states + ((size_t)b * nc * H + h) * kHead * kHead + col;
+  float* out_col = out + row0 + col;
+  for (int p = 0; p < np; ++p) {
+    mbar_wait(&full[p % kStages], (p / kStages) & 1);
+    __syncthreads();   // every thread is done with piece p - 1: its stage
+    if (p + 1 < np) stage_piece(p + 1);   // is free
+    const float* rs = smem + (p % kStages) * Y::kStage;
+    const float* ks = rs + Y::kRows;
+    const float* ws = ks + Y::kRows;
+    const float* vs = ws + Y::kRows;
+    const int t0 = p * kWkvPiece, n = min(kWkvPiece, T - t0);
+    int j0 = 0;
+    for (; j0 + kWkvG <= n; j0 += kWkvG)
+      wkv_fwd_group<true>(S, uu, rs, ks, ws, vs, out_col, kept, keep_t,
+                          tstride, kstride, j0, n, t0, c, gl, chunk);
+    if (j0 < n)
+      wkv_fwd_group<false>(S, uu, rs, ks, ws, vs, out_col, kept, keep_t,
+                           tstride, kstride, j0, n, t0, c, gl, chunk);
+  }
+#pragma unroll
+  for (int i = 0; i < kWkvK; ++i)
+    s_final[head + (k0 + i) * kHead + col] = S[i];
+}
+
+// kWkvG steps of the column pass, last first, from step jb of the stage
+// (every one where kFull, else those below n) on a thread's dS[k0 ..
+// k0 + 3] of its column: lane gl stores dv of step jb + gl.
+template <bool kFull>
+__device__ __forceinline__ void wkv_col_group(
+    float (&dS)[kWkvK], const float (&uu)[kWkvK], const float* rs,
+    const float* ks, const float* ws, const float* gs, float* dv_col,
+    size_t tstride, int jb, int n, int t0, int c, int gl) {
+  const int k0 = gl * kWkvK;
+  float p[kWkvG];
+#pragma unroll
+  for (int q = kWkvG - 1; q >= 0; --q) {
+    const int j = jb + q;
+    p[q] = 0.f;
+    if (kFull || j < n) {
+      float rq[kWkvK], kq[kWkvK], wq[kWkvK];
+      load4(rq, rs + j * kHead + k0);
+      load4(kq, ks + j * kHead + k0);
+      load4(wq, ws + j * kHead + k0);
+      const float g = gs[j * kWkvSpan + c];
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWkvK; ++i) {
+        const float rg = rq[i] * g;
+        acc = fmaf(kq[i], fmaf(uu[i], rg, dS[i]), acc);
+        dS[i] = fmaf(wq[i], dS[i], rg);
+      }
+      p[q] = acc;
+    }
+  }
+  const float dvv = reduce_scatter<kWkvG, kWkvG>(p, gl);   // step jb + gl
+  if (kFull || jb + gl < n) dv_col[(size_t)(t0 + jb + gl) * tstride] = dvv;
+}
+
+// The column pass: the forward's layout (kWkvSpan columns of one (b, h) a
+// block, kWkvK rows a thread), walking the pieces last first with d out's
+// columns staged in place of v; dv and dS_0.
+__global__ void __launch_bounds__(kWkvThreads) wkv6_bwd_col_kernel(
+    const float* __restrict__ r, const float* __restrict__ k,
+    const float* __restrict__ w, const float* __restrict__ u,
+    const float* __restrict__ dout, const float* __restrict__ ds_final,
+    float* __restrict__ dv, float* __restrict__ ds0, int T, int H,
+    int vec) {
+  using Y = WkvColLayout;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t full[kStages];
+  const int c = threadIdx.x / kWkvG, gl = threadIdx.x % kWkvG;
+  const int k0 = gl * kWkvK;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int v0 = blockIdx.x * kWkvSpan, col = v0 + c;
+  const size_t tstride = (size_t)H * kHead;
+  const size_t head = (size_t)bh * kHead * kHead;
+  const size_t row0 = (size_t)b * T * tstride + (size_t)h * kHead;
+  float dS[kWkvK], uu[kWkvK];
+#pragma unroll
+  for (int i = 0; i < kWkvK; ++i) {
+    dS[i] = ds_final[head + (k0 + i) * kHead + col];
+    uu[i] = u[h * kHead + k0 + i];
+  }
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kStages; ++i) mbar_init(&full[i], blockDim.x);
+  __syncthreads();
+  const int np = (T + kWkvPiece - 1) / kWkvPiece;
+  auto stage_piece = [&](int q) {   // the q-th piece from the end
+    const int p = np - 1 - q;
+    float* st = smem + (q % kStages) * Y::kStage;
+    const int n = min(kWkvPiece, T - p * kWkvPiece);
+    const size_t o = row0 + (size_t)p * kWkvPiece * tstride;
+    stage_rows(st, kHead, r + o, tstride, n, kHead, vec);
+    stage_rows(st + Y::kRows, kHead, k + o, tstride, n, kHead, vec);
+    stage_rows(st + 2 * Y::kRows, kHead, w + o, tstride, n, kHead, vec);
+    stage_rows(st + 3 * Y::kRows, kWkvSpan, dout + o + v0, tstride, n,
+               kWkvSpan, vec);
+    mbar_arrive_copies(&full[q % kStages]);
+  };
+  stage_piece(0);
+  float* dv_col = dv + row0 + col;
+  for (int q = 0; q < np; ++q) {
+    mbar_wait(&full[q % kStages], (q / kStages) & 1);
+    __syncthreads();   // every thread is done with the piece before
+    if (q + 1 < np) stage_piece(q + 1);
+    const float* rs = smem + (q % kStages) * Y::kStage;
+    const float* ks = rs + Y::kRows;
+    const float* ws = ks + Y::kRows;
+    const float* gs = ws + Y::kRows;
+    const int t0 = (np - 1 - q) * kWkvPiece, n = min(kWkvPiece, T - t0);
+    for (int jb = (n - 1) / kWkvG * kWkvG; jb >= 0; jb -= kWkvG) {
+      if (jb + kWkvG <= n)
+        wkv_col_group<true>(dS, uu, rs, ks, ws, gs, dv_col, tstride, jb, n,
+                            t0, c, gl);
+      else
+        wkv_col_group<false>(dS, uu, rs, ks, ws, gs, dv_col, tstride, jb, n,
+                             t0, c, gl);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWkvK; ++i) ds0[head + (k0 + i) * kHead + col] = dS[i];
+}
+
+// The n (<= kWkvWin) steps of a window (its arrays `p`, its g . v `gv`,
+// its first step t0 of the sequence) on the row pass's thread (row rr of
+// the block, columns c0 .. c0 + 3): the states entering each step
+// recomputed from S0 into registers, then the walk back carrying dS; lane
+// gl stores dr, dk, dw of step t0 + gl and adds its du term.
+template <bool kFull>
+__device__ __forceinline__ void wkv_row_window(
+    float (&dS)[kWkvK], float& du, const float (&S0)[kWkvK], float ui,
+    const WkvRowPiece& p, const float* gv, float* dr_row, float* dk_row,
+    float* dw_row, size_t tstride, int t0, int n, int rr, int gl) {
+  const int c0 = gl * kWkvK;
+  float hs[kWkvWin][kWkvK];        // hs[j]: the state entering step t0 + j
+#pragma unroll
+  for (int i = 0; i < kWkvK; ++i) hs[0][i] = S0[i];
+#pragma unroll
+  for (int j = 0; j + 1 < kWkvWin; ++j) {
+    if (kFull || j + 1 < n) {
+      const float kt = p.ks[j * kWkvSpan + rr], wt = p.ws[j * kWkvSpan + rr];
+      float vq[kWkvK];
+      load4(vq, p.vs + j * kHead + c0);
+#pragma unroll
+      for (int i = 0; i < kWkvK; ++i)
+        hs[j + 1][i] = __fadd_rn(__fmul_rn(wt, hs[j][i]),
+                                 __fmul_rn(kt, vq[i]));
+    }
+  }
+  float pr[kWkvWin], pk[kWkvWin], pw[kWkvWin];
+#pragma unroll
+  for (int j = kWkvWin - 1; j >= 0; --j) {
+    pr[j] = pk[j] = pw[j] = 0.f;
+    if (kFull || j < n) {
+      const float rt = p.rs[j * kWkvSpan + rr], wt = p.ws[j * kWkvSpan + rr];
+      float gq[kWkvK], vq[kWkvK];
+      load4(gq, p.gs + j * kHead + c0);
+      load4(vq, p.vs + j * kHead + c0);
+      float a = 0.f, e = 0.f, f = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWkvK; ++i) {
+        a = fmaf(gq[i], hs[j][i], a);       // -> sum_v g S
+        e = fmaf(dS[i], vq[i], e);          // -> sum_v dS v
+        f = fmaf(dS[i], hs[j][i], f);       // -> sum_v dS S
+        dS[i] = fmaf(wt, dS[i], rt * gq[i]);
+      }
+      pr[j] = a;
+      pk[j] = e;
+      pw[j] = f;
+    }
+  }
+  const float sr = reduce_scatter<kWkvG, kWkvWin>(pr, gl);
+  const float sk = reduce_scatter<kWkvG, kWkvWin>(pk, gl);
+  const float sw = reduce_scatter<kWkvG, kWkvWin>(pw, gl);
+  if (kFull || gl < n) {
+    const float g_v = gv[gl];
+    const float rt = p.rs[gl * kWkvSpan + rr], kt = p.ks[gl * kWkvSpan + rr];
+    const size_t o = (size_t)(t0 + gl) * tstride;
+    dr_row[o] = fmaf(ui * kt, g_v, sr);
+    dk_row[o] = fmaf(ui * rt, g_v, sk);
+    dw_row[o] = sw;
+    du = fmaf(rt * kt, g_v, du);
+  }
+}
+
+// The state entering a whole window's last step + 1 from the one entering
+// its first, with the forward's rounding.
+__device__ __forceinline__ void wkv_row_advance(float (&S)[kWkvK],
+                                                const WkvRowPiece& p, int rr,
+                                                int c0) {
+#pragma unroll
+  for (int j = 0; j < kWkvWin; ++j) {
+    const float kt = p.ks[j * kWkvSpan + rr], wt = p.ws[j * kWkvSpan + rr];
+    float vq[kWkvK];
+    load4(vq, p.vs + j * kHead + c0);
+#pragma unroll
+    for (int i = 0; i < kWkvK; ++i)
+      S[i] = __fadd_rn(__fmul_rn(wt, S[i]), __fmul_rn(kt, vq[i]));
+  }
+}
+
+// The row pass.  A block covers kWkvSpan state rows of one (b, h); row
+// rr's 64 columns sit on a group of kWkvG lanes, kWkvK columns a thread.
+// Chunk by chunk, last first, the block stages its rows of r, k, w, all
+// of v and d out and its rows of the chunk's kept state, half a chunk a
+// slot in kWkvSlots (3) slots: a chunk's second half always in slot 1,
+// its first in slot 0 or 2 by turns, so the next chunk's first half is in
+// flight while this chunk computes, and its second half from the moment
+// this chunk's second half is done.  Each warp then sums g . v of a
+// quarter of the chunk's steps, and one block barrier makes them whole
+// and frees the previous chunk's first half; a second one, after the
+// windows of the second half, frees slot 1.  The chunk's states entering
+// windows 1 .. 3 come from one pass over the chunk; each window, last
+// first, is recomputed into registers and walked back (wkv_row_window).
+// du sums over the row's lanes at the end.
+__global__ void __launch_bounds__(kWkvThreads, kWkvSlots)
+    wkv6_bwd_row_kernel(
+        const float* __restrict__ r, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ w,
+        const float* __restrict__ u, const float* __restrict__ states,
+        const float* __restrict__ dout, const float* __restrict__ ds_final,
+        float* __restrict__ dr, float* __restrict__ dk,
+        float* __restrict__ dw, float* __restrict__ du_part, int T, int H,
+        int chunk, int vec) {
+  using Y = WkvRowLayout;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t full[kWkvSlots];
+  float* gvs = smem + kWkvSlots * Y::kSlot;   // [2][kMaxChunk]
+  const int rr = threadIdx.x / kWkvG, gl = threadIdx.x % kWkvG;
+  const int c0 = gl * kWkvK;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kWkvSpan, row = k0 + rr;
+  const size_t tstride = (size_t)H * kHead;
+  const size_t row0 = (size_t)b * T * tstride + (size_t)h * kHead;
+  const int nc = (T + chunk - 1) / chunk;
+  float dS[kWkvK];
+#pragma unroll
+  for (int i = 0; i < kWkvK; ++i)
+    dS[i] = ds_final[((size_t)bh * kHead + row) * kHead + c0 + i];
+  const float ui = u[h * kHead + row];
+  float du = 0.f;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kWkvSlots; ++i) mbar_init(&full[i], blockDim.x);
+  __syncthreads();
+  // the slot of half `hf` of the q-th chunk from the end
+  auto slot_of = [](int q, int hf) { return hf ? 1 : (q & 1) * 2; };
+  auto stage_half = [&](int q, int hf) {
+    const int ci = nc - 1 - q;
+    const int lo = hf * kWkvPiece;
+    const int m = max(0, min(kWkvPiece, min(chunk, T - ci * chunk) - lo));
+    float* st = smem + slot_of(q, hf) * Y::kSlot;
+    const size_t o = row0 + ((size_t)ci * chunk + lo) * tstride;
+    stage_rows(st, kWkvSpan, r + o + k0, tstride, m, kWkvSpan, vec);
+    stage_rows(st + Y::kRows, kWkvSpan, k + o + k0, tstride, m, kWkvSpan,
+               vec);
+    stage_rows(st + 2 * Y::kRows, kWkvSpan, w + o + k0, tstride, m,
+               kWkvSpan, vec);
+    stage_rows(st + 3 * Y::kRows, kHead, v + o, tstride, m, kHead, vec);
+    stage_rows(st + 3 * Y::kRows + Y::kCols, kHead, dout + o, tstride, m,
+               kHead, vec);
+    if (!hf)
+      stage_rows(st + 3 * Y::kRows + 2 * Y::kCols, kWkvSpan * kHead,
+                 states + (((size_t)b * nc + ci) * H + h) * kHead * kHead +
+                     (size_t)k0 * kHead,
+                 0, 1, kWkvSpan * kHead, vec);
+    mbar_arrive_copies(&full[slot_of(q, hf)]);
+  };
+  stage_half(0, 0);
+  stage_half(0, 1);
+  float* dr_row = dr + row0 + row;
+  float* dk_row = dk + row0 + row;
+  float* dw_row = dw + row0 + row;
+  for (int q = 0; q < nc; ++q) {
+    const int t0 = (nc - 1 - q) * chunk, n = min(chunk, T - t0);
+    mbar_wait(&full[slot_of(q, 0)], (q >> 1) & 1);
+    mbar_wait(&full[1], q & 1);
+    const float* first = smem + slot_of(q, 0) * Y::kSlot;
+    const float* second = smem + Y::kSlot;
+    float* gv = gvs + (q & 1) * kMaxChunk;
+    for (int j = warp; j < n; j += kWkvThreads / 32) {
+      const WkvRowPiece p(j < kWkvPiece ? first : second, j % kWkvPiece);
+      float x = fmaf(p.gs[2 * lane], p.vs[2 * lane],
+                     p.gs[2 * lane + 1] * p.vs[2 * lane + 1]);
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+      if (lane == 0) gv[j] = x;
+    }
+    __syncthreads();   // g . v is whole; every thread is done with the
+    const int nwin = (n + kWkvWin - 1) / kWkvWin;   // chunk before
+    if (q + 1 < nc) {
+      stage_half(q + 1, 0);
+      if (nwin <= 2) stage_half(q + 1, 1);   // slot 1 is free already
+    }
+    float s0[kWkvK], s1[kWkvK], s2[kWkvK], s3[kWkvK], S[kWkvK];
+    load4(s0, first + 3 * Y::kRows + 2 * Y::kCols + rr * kHead + c0);
+#pragma unroll
+    for (int i = 0; i < kWkvK; ++i) S[i] = s0[i];
+    // the states entering windows 1 .. 3 (each window before them whole)
+    if (nwin > 1) wkv_row_advance(S, WkvRowPiece(first, 0), rr, c0);
+#pragma unroll
+    for (int i = 0; i < kWkvK; ++i) s1[i] = S[i];
+    if (nwin > 2) wkv_row_advance(S, WkvRowPiece(first, kWkvWin), rr, c0);
+#pragma unroll
+    for (int i = 0; i < kWkvK; ++i) s2[i] = S[i];
+    if (nwin > 3) wkv_row_advance(S, WkvRowPiece(second, 0), rr, c0);
+#pragma unroll
+    for (int i = 0; i < kWkvK; ++i) s3[i] = S[i];
+    for (int wi = nwin - 1; wi >= 0; --wi) {
+      if (wi == 1 && nwin > 2) {
+        __syncthreads();   // every thread is done with the second half
+        if (q + 1 < nc) stage_half(q + 1, 1);
+      }
+      float a[kWkvK];
+#pragma unroll
+      for (int i = 0; i < kWkvK; ++i)
+        a[i] = pick(wi == 3, s3[i],
+                    pick(wi == 2, s2[i], pick(wi == 1, s1[i], s0[i])));
+      const int j0 = wi * kWkvWin, nw = min(kWkvWin, n - j0);
+      const WkvRowPiece p(wi < 2 ? first : second, j0 % kWkvPiece);
+      if (nw == kWkvWin)
+        wkv_row_window<true>(dS, du, a, ui, p, gv + j0, dr_row, dk_row,
+                             dw_row, tstride, t0 + j0, nw, rr, gl);
+      else
+        wkv_row_window<false>(dS, du, a, ui, p, gv + j0, dr_row, dk_row,
+                              dw_row, tstride, t0 + j0, nw, rr, gl);
+    }
+  }
+#pragma unroll
+  for (int o = kWkvG / 2; o > 0; o /= 2)
+    du += __shfl_xor_sync(0xffffffffu, du, o);
+  if (gl == 0) du_part[(size_t)bh * kHead + row] = du;
+}
+
+// -------------------------------------------------------- selective scan --
+
+// K (1 or 2) consecutive floats of shared memory (8-byte aligned for 2).
+template <int K>
+__device__ __forceinline__ void load_k(float (&v)[K], const float* p) {
+  static_assert(K == 1 || K == 2, "a thread holds 1 or 2 states");
+  if constexpr (K == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = p[0];
+  }
 }
 
 // The forward's shared memory, in floats: a ring of kStages stages of x,
@@ -872,57 +1234,99 @@ extern "C" {
 // allocation.
 int mamba_scan_tiles(int D, int N) { return bwd_tiles(D, lanes_of(N)); }
 
+// The states a thread of the selective scan's forward holds at (B, D, N).
+int mamba_scan_fwd_pick(int B, int D, int N) {
+  return fwd_split(B, D, lanes_of(N));
+}
+
 // Each returns cudaGetLastError() after its launches (0 = success).
 int wkv6_fwd(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* s0, void* out, void* s_final,
              void* states, int B, int T, int H, int chunk, int keep,
              void* stream) {
-  wkv6_fwd_kernel<<<(unsigned)(B * H), kHead, 0,
+  const int bytes = WkvColLayout::kFloats * (int)sizeof(float);
+  cudaFuncSetAttribute(wkv6_fwd_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int vec = aligned16(r) && aligned16(k) && aligned16(v) &&
+                  aligned16(w);
+  const dim3 grid(kHead / kWkvSpan, (unsigned)(B * H));
+  wkv6_fwd_kernel<<<grid, kWkvThreads, bytes,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(s0),
       static_cast<float*>(out), static_cast<float*>(s_final),
-      static_cast<float*>(states), T, H, chunk, keep);
+      static_cast<float*>(states), T, H, chunk, keep, vec);
   return (int)cudaGetLastError();
 }
 
 int wkv6_bwd(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* states, const void* dout,
              const void* ds_final, void* dr, void* dk, void* dv, void* dw,
-             void* du_part, void* du, void* ds0, void* scratch, int B, int T,
-             int H, int chunk, void* stream) {
+             void* du_part, void* du, void* ds0, int B, int T, int H,
+             int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  wkv6_bwd_kernel<<<dim3((unsigned)(B * H), 2), kHead, 0, st>>>(
+  const dim3 grid(kHead / kWkvSpan, (unsigned)(B * H));
+  const int col_bytes = WkvColLayout::kFloats * (int)sizeof(float);
+  cudaFuncSetAttribute(wkv6_bwd_col_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       col_bytes);
+  const int vec_col = aligned16(r) && aligned16(k) && aligned16(w) &&
+                      aligned16(dout);
+  wkv6_bwd_col_kernel<<<grid, kWkvThreads, col_bytes, st>>>(
+      static_cast<const float*>(r), static_cast<const float*>(k),
+      static_cast<const float*>(w), static_cast<const float*>(u),
+      static_cast<const float*>(dout), static_cast<const float*>(ds_final),
+      static_cast<float*>(dv), static_cast<float*>(ds0), T, H, vec_col);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int row_bytes = WkvRowLayout::kFloats * (int)sizeof(float);
+  cudaFuncSetAttribute(wkv6_bwd_row_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       row_bytes);
+  const int vec_row = vec_col && aligned16(v) && aligned16(states);
+  wkv6_bwd_row_kernel<<<grid, kWkvThreads, row_bytes, st>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(states),
       static_cast<const float*>(dout), static_cast<const float*>(ds_final),
       static_cast<float*>(dr), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<float*>(dw),
-      static_cast<float*>(du_part), static_cast<float*>(ds0),
-      static_cast<float*>(scratch), T, H, chunk);
-  const int err = (int)cudaGetLastError();
+      static_cast<float*>(dw), static_cast<float*>(du_part), T, H, chunk,
+      vec_row);
+  err = (int)cudaGetLastError();
   if (err) return err;
   sum_middle(static_cast<const float*>(du_part), static_cast<float*>(du), 1,
              B, (long long)H * kHead, st);
   return (int)cudaGetLastError();
 }
 
-int mamba_scan_fwd(const void* x, const void* dt, const void* bm,
-                   const void* cm, const void* a, const void* h0, void* y,
-                   void* h_final, void* states, int B, int T, int D, int N,
-                   int chunk, int keep, void* stream) {
+// mamba_scan_fwd with `split` (1 or 2) states a thread, whatever
+// fwd_split would pick: the entry the card tests and the smoke time both
+// splits through.
+int mamba_scan_fwd_split(int split, const void* x, const void* dt,
+                         const void* bm, const void* cm, const void* a,
+                         const void* h0, void* y, void* h_final,
+                         void* states, int B, int T, int D, int N, int chunk,
+                         int keep, void* stream) {
   const int L = lanes_of(N);
   auto f = L == 8 ? &mamba_fwd_split_launch<8>
                   : (L == 16 ? &mamba_fwd_split_launch<16>
                              : &mamba_fwd_split_launch<32>);
-  return f(fwd_split(B, D, L), static_cast<const float*>(x),
+  return f(split, static_cast<const float*>(x),
            static_cast<const float*>(dt), static_cast<const float*>(bm),
            static_cast<const float*>(cm), static_cast<const float*>(a),
            static_cast<const float*>(h0), static_cast<float*>(y),
            static_cast<float*>(h_final), static_cast<float*>(states), B, T,
            D, N, chunk, keep, static_cast<cudaStream_t>(stream));
+}
+
+int mamba_scan_fwd(const void* x, const void* dt, const void* bm,
+                   const void* cm, const void* a, const void* h0, void* y,
+                   void* h_final, void* states, int B, int T, int D, int N,
+                   int chunk, int keep, void* stream) {
+  return mamba_scan_fwd_split(fwd_split(B, D, lanes_of(N)), x, dt, bm, cm, a,
+                              h0, y, h_final, states, B, T, D, N, chunk,
+                              keep, stream);
 }
 
 int mamba_scan_bwd(const void* x, const void* dt, const void* bm,

@@ -12,13 +12,14 @@ Nothing is compiled or loaded when this module is imported.
 
 Each kernel is an operator of the dispatcher, ``torch.ops.repro_torch.<name>``
 (a ``torch.library.custom_op``), as the bitplane kernels are: its CUDA
-implementation allocates its outputs (and the backward's partials and
-scratch) with ``torch.empty``, launches on the current stream, raises if
-``cudaGetLastError()`` is not 0 and adds one to its wrapper's ``launches``
-(the record of ``bitplane.launches()``); its fake gives every output's shape,
-the kept chunk states included, so that it runs on ``meta`` and
-``launch.op_analysis.OpAnalysis`` counts its bytes; its CPU implementation
-is its plain version (below).  A CUDA call that no dispatch mode observes
+implementation allocates its outputs and the backward's workspace (the
+shapes ``*_bwd_workspace`` give, declared in ``bitplane.WORKSPACE`` so that
+``OpAnalysis`` counts them) with ``torch.empty``, launches on the current
+stream, raises if ``cudaGetLastError()`` is not 0 and adds one to its
+wrapper's ``launches`` (the record of ``bitplane.launches()``); its fake
+gives every output's shape, the kept chunk states included, so that it runs
+on ``meta`` and ``launch.op_analysis.OpAnalysis`` counts its bytes; its CPU
+implementation is its plain version (below).  A CUDA call that no dispatch mode observes
 launches directly.  Each has a FLOP formula (``register_flop_formula``)
 equal to what ``FlopCounterMode`` counts for the loop's ``einsum``s, so the
 dry run's FLOPs stay the loop's count: the forward's, and for the backward
@@ -57,6 +58,8 @@ from repro_torch.kernels import bitplane as _bp
 HEAD = 64                 # RWKV6's head size (K = V), the kernel's only one
 MAX_CHUNK = 64            # csrc/scan.cu kMaxChunk
 MAX_STATE = 32            # the selective scan's largest d_state
+BWD_THREADS = 128         # csrc/scan.cu kBwdThreads
+CLUSTER = 8               # csrc/scan.cu kCluster
 SYMBOLS = ("wkv6_fwd", "wkv6_bwd", "mamba_scan_fwd", "mamba_scan_bwd")
 
 _lock = threading.Lock()
@@ -70,14 +73,18 @@ def _lib() -> ctypes.CDLL:
         if not _ready:
             vp, i = ctypes.c_void_p, ctypes.c_int
             for name, n_ptrs, n_ints in (("wkv6_fwd", 9, 5),
-                                         ("wkv6_bwd", 16, 4),
+                                         ("wkv6_bwd", 15, 4),
                                          ("mamba_scan_fwd", 9, 6),
                                          ("mamba_scan_bwd", 17, 5)):
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * n_ptrs + [i] * n_ints + [vp]
                 fn.restype = i
+            lib.mamba_scan_fwd_split.argtypes = [i] + [vp] * 9 + [i] * 6 + [vp]
+            lib.mamba_scan_fwd_split.restype = i
             lib.mamba_scan_tiles.argtypes = [i, i]
             lib.mamba_scan_tiles.restype = i
+            lib.mamba_scan_fwd_pick.argtypes = [i, i, i]
+            lib.mamba_scan_fwd_pick.restype = i
             _ready = True
     return lib
 
@@ -156,10 +163,10 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def _run(symbol: str, like: torch.Tensor, *args) -> None:
+def _run(symbol: str, like: torch.Tensor, *args, kernel=None) -> None:
     """Launch ``symbol`` with ``args`` (tensors as pointers, ints as ints)
     on ``like``'s device and current stream; raise on a failed launch,
-    count a good one."""
+    count a good one as a launch of ``kernel`` (``symbol`` by default)."""
     fn = getattr(_lib(), symbol)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
             for a in args]
@@ -167,7 +174,7 @@ def _run(symbol: str, like: torch.Tensor, *args) -> None:
         stream = torch.cuda.current_stream(like.device).cuda_stream
         err = fn(*ptrs, stream)
     _raise_on(err, symbol)
-    _bp._count(symbol)
+    _bp._count(kernel or symbol)
 
 
 # ------------------------------------------------------- the fakes' shapes --
@@ -196,6 +203,45 @@ def _mamba_bwd_empty(x, bm, a, dh_final):
             torch.empty_like(dh_final))
 
 
+# ------------------------------------------------ the backwards' workspace --
+# What a backward's CUDA implementation allocates beyond its outputs and
+# frees when it returns, by name and shape (float32, as its inputs), from
+# the operator's inputs: the launcher allocates exactly this, and
+# ``launch.op_analysis.OpAnalysis`` counts it, through ``WORKSPACE``, as
+# live for the length of the call.
+
+def _mamba_tiles(d: int, n: int) -> int:
+    """The clusters of blocks across ``d`` channels in the selective scan's
+    backward (``csrc/scan.cu`` ``bwd_tiles``: kBwdThreads / L channels a
+    block, kCluster blocks a cluster)."""
+    lanes = 8 if n <= 8 else (16 if n <= 16 else 32)
+    blocks = -(-d // (BWD_THREADS // lanes))
+    return -(-blocks // CLUSTER)
+
+
+def wkv6_bwd_workspace(r, k, v, w, u, states, dout, ds_final, chunk):
+    """``du_part``: du of each batch row, summed over rows in a fixed
+    order."""
+    b, _, h, _ = r.shape
+    return {"du_part": (b, h, HEAD)}
+
+
+def mamba_scan_bwd_workspace(x, dt, bm, cm, a, states, dy, dh_final, chunk):
+    """dB and dC partials of every step, one set a cluster of blocks, and
+    dA of each batch row, all summed in a fixed order."""
+    b, s, d = x.shape
+    n = a.shape[1]
+    tiles = _mamba_tiles(d, n)
+    return {"part_db": (b, tiles, s, n), "part_dc": (b, tiles, s, n),
+            "part_da": (b, d, n)}
+
+
+def _workspace(fn, *args):
+    """The workspace of a call as tensors like its first input."""
+    return {name: args[0].new_empty(shape)
+            for name, shape in fn(*args).items()}
+
+
 # ------------------------------------------------ CUDA implementations --
 
 def _launch_wkv6_fwd(r, k, v, w, u, s0, chunk, keep):
@@ -209,18 +255,23 @@ def _launch_wkv6_fwd(r, k, v, w, u, s0, chunk, keep):
 def _launch_wkv6_bwd(r, k, v, w, u, states, dout, ds_final, chunk):
     dr, dk, dv, dw, du, ds0 = _wkv6_bwd_empty(r, u, ds_final)
     b, s, h, _ = r.shape
-    du_part = r.new_empty((b, h, HEAD))
-    scratch = r.new_empty((b * h, chunk, HEAD, HEAD))
+    ws = _workspace(wkv6_bwd_workspace, r, k, v, w, u, states, dout,
+                    ds_final, chunk)
     _run("wkv6_bwd", r, r, k, v, w, u, states, dout, ds_final, dr, dk, dv,
-         dw, du_part, du, ds0, scratch, b, s, h, chunk)
+         dw, ws["du_part"], du, ds0, b, s, h, chunk)
     return dr, dk, dv, dw, du, ds0
 
 
-def _launch_mamba_fwd(x, dt, bm, cm, a, h0, chunk, keep):
+def _launch_mamba_fwd(x, dt, bm, cm, a, h0, chunk, keep, split=None):
     y, h_final, states = _mamba_fwd_empty(x, a, h0, chunk, keep)
     b, s, d = x.shape
-    _run("mamba_scan_fwd", x, x, dt, bm, cm, a, h0, y, h_final, states, b,
-         s, d, a.shape[1], chunk, int(keep))
+    dims = (b, s, d, a.shape[1], chunk, int(keep))
+    if split is None:
+        _run("mamba_scan_fwd", x, x, dt, bm, cm, a, h0, y, h_final, states,
+             *dims)
+    else:
+        _run("mamba_scan_fwd_split", x, split, x, dt, bm, cm, a, h0, y,
+             h_final, states, *dims, kernel="mamba_scan_fwd")
     return y, h_final, states
 
 
@@ -228,13 +279,11 @@ def _launch_mamba_bwd(x, dt, bm, cm, a, states, dy, dh_final, chunk):
     dx, ddt, db, dc, da, dh0 = _mamba_bwd_empty(x, bm, a, dh_final)
     b, s, d = x.shape
     n = a.shape[1]
-    # dB / dC partials of every step, one set a cluster of blocks
-    tiles = _lib().mamba_scan_tiles(d, n)
-    part_db = x.new_empty((b, tiles, s, n))
-    part_dc = x.new_empty((b, tiles, s, n))
-    part_da = x.new_empty((b, d, n))
+    ws = _workspace(mamba_scan_bwd_workspace, x, dt, bm, cm, a, states, dy,
+                    dh_final, chunk)
     _run("mamba_scan_bwd", x, x, dt, bm, cm, a, states, dy, dh_final, dx,
-         ddt, part_db, part_dc, part_da, db, dc, da, dh0, b, s, d, n, chunk)
+         ddt, ws["part_db"], ws["part_dc"], ws["part_da"], db, dc, da, dh0,
+         b, s, d, n, chunk)
     return dx, ddt, db, dc, da, dh0
 
 
@@ -401,6 +450,8 @@ _OPS = _define()
 _LAUNCH = {"wkv6_fwd": _launch_wkv6_fwd, "wkv6_bwd": _launch_wkv6_bwd,
            "mamba_scan_fwd": _launch_mamba_fwd,
            "mamba_scan_bwd": _launch_mamba_bwd}
+_bp.add_workspace({_OPS["wkv6_bwd"]: wkv6_bwd_workspace,
+                   _OPS["mamba_scan_bwd"]: mamba_scan_bwd_workspace})
 
 
 def _recomputes(s: int, chunk: int) -> bool:
@@ -476,6 +527,19 @@ def mamba_scan_fwd(x, dt, bm, cm, a, h0, chunk: int, keep: bool):
     N) with ``keep``, else (B, 0, D, N)."""
     _check_mamba("mamba_scan_fwd", x, dt, bm, cm, a, h0, chunk)
     return _call("mamba_scan_fwd", x, dt, bm, cm, a, h0, chunk, bool(keep))
+
+
+def mamba_scan_fwd_at_split(split: int, x, dt, bm, cm, a, h0, chunk: int,
+                            keep: bool):
+    """``mamba_scan_fwd`` on the card with ``split`` (1 or 2) states a
+    thread, whatever the kernel's own rule (``fwd_split``) would pick: for
+    timing both splits at one shape (``chip_smoke.py`` phase 20 (a), the
+    card tests); the models never call it."""
+    _check_mamba("mamba_scan_fwd_at_split", x, dt, bm, cm, a, h0, chunk)
+    if split not in (1, 2) or x.device.type != "cuda":
+        raise ValueError(f"mamba_scan_fwd_at_split: split {split} on "
+                         f"{x.device}: expected 1 or 2 on a CUDA device")
+    return _launch_mamba_fwd(x, dt, bm, cm, a, h0, chunk, bool(keep), split)
 
 
 def mamba_scan_bwd(x, dt, bm, cm, a, states, dy, dh_final, chunk: int):

@@ -47,7 +47,10 @@ The rules:
   window created was alive on entry: those make the base.  ``temp_bytes``
   is the peak over the window less that base, ``peak_live_bytes`` the
   base plus it.  A workspace an operator allocates and frees inside
-  itself is not seen.
+  itself is not seen, except a kernel operator's declared one
+  (``kernels.bitplane.WORKSPACE``: the scan backwards' partials), which
+  counts as live for the length of its call, beside its inputs and
+  outputs, and not after it.
 
 Usage::
 
@@ -58,6 +61,7 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import weakref
 from typing import Dict, List, Optional
@@ -67,6 +71,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import bitplane as _bp
 
 TOP = 12  # the reference's length of ``top_collectives``
 
@@ -108,6 +113,7 @@ class _OpInfo:
     alloc: bool               # an allocation: it moves no byte
     mutable: bool             # it writes an input (in place or out=)
     out_args: frozenset       # names of ``out=`` arguments (written only)
+    workspace: object         # its declared workspace's shapes, or None
 
 
 _INFO: Dict[object, _OpInfo] = {}
@@ -133,7 +139,8 @@ def _info(func) -> _OpInfo:
             mutable=schema.is_mutable,
             alloc=packet in _ALLOC,
             out_args=frozenset(a.name for a in schema.arguments
-                               if a.is_out))
+                               if a.is_out),
+            workspace=_bp.WORKSPACE.get(func))
         _INFO[func] = info
     return info
 
@@ -149,6 +156,14 @@ def _flat(x, out: list) -> None:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _workspace_bytes(fn, args, kwargs) -> int:
+    """The bytes of a kernel operator's declared workspace for ``args``
+    (its buffers are of its first input's dtype)."""
+    shapes = fn(*args, **kwargs)
+    return sum(math.prod(shape) for shape in shapes.values()) * \
+        args[0].element_size()
 
 
 class OpAnalysis(TorchDispatchMode):
@@ -276,6 +291,8 @@ class OpAnalysis(TorchDispatchMode):
                     self._live_bytes += n
                     self._watch(key, s, False)
             extra = self._live_bytes - self._base_freed
+            if info.workspace is not None:   # live while the call runs
+                extra += _workspace_bytes(info.workspace, args, kwargs)
             if extra > self._peak_extra:
                 self._peak_extra = extra
             self._tally(info, nbytes, flops)

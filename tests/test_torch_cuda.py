@@ -1352,6 +1352,7 @@ def _guards_hold(buf, numel, shift):
 @pytest.mark.parametrize("shift", [0, 1])
 @pytest.mark.parametrize("b,s,d,n", [
     (1, 4096, 8192, 16),    # jamba's widths, split 2
+    (4, 4096, 8192, 16),    # batch 4 (phase 18 (a) serves it), split 2
     (2, 200, 2048, 16),     # split 1, a ragged last chunk
     (2, 64, 8192, 8),
     (2, 63, 100, 32),       # a ragged block of channels
@@ -1407,6 +1408,138 @@ def test_mamba_scan_bwd_is_deterministic(cuda, d):
     first = sc.mamba_scan_bwd(*bwd_args)
     second = sc.mamba_scan_bwd(*bwd_args)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("b", [2, 4])
+def test_mamba_scan_fwd_at_either_split_gives_the_same_states(cuda, b):
+    """``mamba_scan_fwd_at_split`` at one and at two states a thread, at
+    jamba's widths and B x 200: the kept and final states the plain loop's
+    bits at both, y within 1e-5 of max|y|; the wrappers' own pick is one
+    of them and gives the same states."""
+    from repro_torch.kernels import scan as sc
+    args = _scan_args("mamba", b, 200, seed=10)
+    want = sc.mamba_scan_fwd_ref(*args, 64, True)
+    for split in (1, 2):
+        got = sc.mamba_scan_fwd_at_split(split, *args, 64, True)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert _rel(got[0], want[0]) <= 1e-5
+    assert sc._lib().mamba_scan_fwd_pick(b, 8192, 16) in (1, 2)
+    with pytest.raises(ValueError, match="split"):
+        sc.mamba_scan_fwd_at_split(3, *args, 64, True)
+
+
+def _wkv6_case(args, chunk, keep=True):
+    """``wkv6_fwd`` and ``wkv6_bwd`` on ``args`` against their plain
+    versions: the kept and final states bit for bit, out within 1e-5 of
+    max|out|, every gradient within 1e-4 of its largest |value|, one launch
+    a call.  Returns the backward's inputs."""
+    from repro_torch.kernels import scan as sc
+    before = bp.launches()
+    got = sc.wkv6_fwd(*args, chunk, keep)
+    want = sc.wkv6_fwd_ref(*args, chunk, keep)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[2].shape == want[2].shape
+    assert _rel(got[0], want[0]) <= 1e-5
+    states = want[2] if keep else sc.wkv6_fwd_ref(*args, chunk, True)[2]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cot = [torch.randn(t.shape, generator=g, device="cuda")
+           for t in got[:2]]
+    bwd_args = (*args[:5], states, *cot, chunk)
+    gk = sc.wkv6_bwd(*bwd_args)
+    gp = sc.wkv6_bwd_ref(*bwd_args)
+    for x, y in zip(gk, gp):
+        assert x.shape == y.shape and _rel(x, y) <= 1e-4
+    after = bp.launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in ("wkv6_fwd", "wkv6_bwd")) for k in after}
+    torch.cuda.synchronize()
+    return bwd_args
+
+
+@pytest.mark.parametrize("chunk", [1, 17, 64])
+@pytest.mark.parametrize("h", [40, 3])
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_wkv6_kernels_at_other_batches_heads_and_chunks(cuda, b, h, chunk):
+    """The wkv6 kernels at B = 1, 2, 4, at rwkv6-3b's 40 heads and at 3,
+    with the kept states every 1, 17 (ragged windows and pieces) and 64
+    steps, 200 steps, against the plain versions."""
+    _wkv6_case(_scan_args("wkv6", b, 200, seed=11, d=h), chunk)
+
+
+@pytest.mark.parametrize("s,chunk,keep", [(1, 64, True), (31, 17, False),
+                                          (4096, 64, True)])
+def test_wkv6_kernels_at_the_sequence_s_edges(cuda, s, chunk, keep):
+    """One step (decode), a sequence shorter than a piece without kept
+    states, and 1 x 4096 at rwkv6-3b's widths."""
+    _wkv6_case(_scan_args("wkv6", 1, s, seed=12), chunk, keep)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,s,h,chunk", [
+    (1, 4096, 40, 64),      # rwkv6-3b's widths, 1 x 4096
+    (2, 200, 3, 17),        # ragged chunks, windows and pieces
+    (4, 63, 40, 64),        # batch 4, one ragged chunk
+    (2, 5, 2, 1),           # a state kept every step
+])
+def test_wkv6_kernels_stay_in_bounds(cuda, b, s, h, chunk, shift):
+    """Each buffer of both wkv6 kernels inside guards: NaNs around the
+    inputs (a read past one reaches the outputs), a known value around the
+    outputs and the workspace (a write past one changes it), every pointer
+    16-byte aligned (shift 0) or not (shift 1, the per-float copies).  The
+    guards hold, and three launches give the wrappers' bits."""
+    from repro_torch.kernels import scan as sc
+    args = _scan_args("wkv6", b, s, seed=13, d=h)
+    out_w, sf_w, st_w = sc.wkv6_fwd(*args, chunk, True)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    dout, dsf = (torch.randn(t.shape, generator=g, device="cuda")
+                 for t in (out_w, sf_w))
+    want = sc.wkv6_bwd(*args[:5], st_w, dout, dsf, chunk)
+    ws = sc.wkv6_bwd_workspace(*args[:5], st_w, dout, dsf, chunk)
+    assert ws == {"du_part": (b, h, 64)}
+    ins = [_guarded(t.shape, t, shift) for t in (*args, st_w, dout, dsf)]
+    r, k, v, w, u, s0, st_in, dout_in, dsf_in = (x for _, x in ins)
+    fwd_outs = [_guarded(t.shape, shift=shift) for t in (out_w, sf_w, st_w)]
+    bwd_outs = [_guarded(shape, shift=shift) for shape in (
+        (b, s, h, 64), (b, s, h, 64), (b, s, h, 64), (b, s, h, 64),
+        (h, 64), (b, h, 64, 64), ws["du_part"])]
+    dr, dk, dv, dw, du, ds0, du_part = (x for _, x in bwd_outs)
+    for _ in range(3):
+        sc._run("wkv6_fwd", r, r, k, v, w, u, s0,
+                *(x for _, x in fwd_outs), b, s, h, chunk, 1)
+        sc._run("wkv6_bwd", r, r, k, v, w, u, st_in, dout_in, dsf_in, dr,
+                dk, dv, dw, du_part, du, ds0, b, s, h, chunk)
+        torch.cuda.synchronize()
+        for (_, x), y in zip(fwd_outs, (out_w, sf_w, st_w)):
+            assert torch.equal(x, y)
+        for x, y in zip((dr, dk, dv, dw, du, ds0), want):
+            assert torch.equal(x, y)
+    for buf, x in fwd_outs + bwd_outs:
+        assert _guards_hold(buf, x.numel(), shift)
+    for buf, x in ins:
+        assert buf[:GUARD + shift].isnan().all()
+        assert buf[GUARD + shift + x.numel():].isnan().all()
+
+
+def test_wkv6_bwd_is_deterministic(cuda):
+    """Two calls of ``wkv6_bwd`` at rwkv6-3b's widths and 1 x 4096 give the
+    same bits: every sum (over lanes and steps, g . v over the warps, du
+    over the row's lanes and the batch) has a fixed order."""
+    from repro_torch.kernels import scan as sc
+    bwd_args = _wkv6_case(_scan_args("wkv6", 1, 4096, seed=15), 64)
+    first = sc.wkv6_bwd(*bwd_args)
+    second = sc.wkv6_bwd(*bwd_args)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_the_declared_workspace_is_the_kernels_own(cuda):
+    """The Mamba backward's partials' clusters, as ``kernels/scan.py``
+    declares them (``_mamba_tiles``, which ``OpAnalysis`` reads on
+    ``meta``), are the kernel's grid's, at every lane group and ragged
+    widths."""
+    from repro_torch.kernels import scan as sc
+    for d in (1, 6, 100, 127, 128, 129, 2048, 8192):
+        for n in (1, 5, 8, 9, 16, 17, 32):
+            assert sc._mamba_tiles(d, n) == sc._lib().mamba_scan_tiles(d, n)
 
 
 @pytest.mark.parametrize("kind", ["wkv6", "mamba"])

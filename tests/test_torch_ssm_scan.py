@@ -21,7 +21,11 @@ What is held:
 * the fakes on ``meta``: every output's shape and dtype, the kept chunk
   states included;
 * ``OpAnalysis``: the operators' FLOPs on ``meta``, forward and backward,
-  equal the loop's on the CPU (``FlopCounterMode``'s count);
+  equal the loop's on the CPU (``FlopCounterMode``'s count); a backward's
+  declared workspace (``bitplane.WORKSPACE``) counted as live for the
+  length of its call: a lone call's temp is its outputs plus it, and a
+  mini SSM cell's temp rises by exactly what is declared where the call
+  is the step's peak;
 * ``mamba_apply`` and ``rwkv_time_mix_apply`` on ``meta`` dispatch to the
   operators (one each a pass) and never to the per-token steps;
 * a mini SSM dry-run cell on a fake world finishes, with the FLOPs of the
@@ -384,6 +388,124 @@ def test_mini_ssm_dryrun_cell_flops_equal_the_loop_s(mini_cells, arch):
     assert not any(k.startswith("repro_torch.") for k in loop["ops_by_name"])
     # the fused scans move fewer bytes than the loop's eager steps
     assert fake["hbm_bytes_per_device"] < loop["hbm_bytes_per_device"]
+
+
+# ------------------------------------------------ the backwards' workspace --
+
+# rwkv6-3b's 40 heads, jamba-v0.1-52b's d_inner 8192 and d_state 16, 1 x 4096
+FULL = {"wkv6": dict(h=40), "mamba": dict(d=8192, n=16)}
+WS_OP = {"wkv6": torch.ops.repro_torch.wkv6_bwd.default,
+         "mamba": torch.ops.repro_torch.mamba_scan_bwd.default}
+BWD_OPS = {"wkv6": scan.wkv6_bwd, "mamba": scan.mamba_scan_bwd}
+
+
+def _bwd_meta_args(kind, b=1, s=4096):
+    """A backward's inputs at full width on ``meta`` (made before any
+    analysis opens, so that they are its arguments)."""
+    def m(*shape):
+        return torch.empty(shape, device="meta")
+    nc = -(-s // CHUNK)
+    if kind == "wkv6":
+        h = FULL[kind]["h"]
+        x = m(b, s, h, 64)
+        return (x, m(b, s, h, 64), m(b, s, h, 64), m(b, s, h, 64), m(h, 64),
+                m(b, nc, h, 64, 64), m(b, s, h, 64), m(b, h, 64, 64))
+    d, n = FULL[kind]["d"], FULL[kind]["n"]
+    return (m(b, s, d), m(b, s, d), m(b, s, n), m(b, s, n), m(d, n),
+            m(b, nc, d, n), m(b, s, d), m(b, d, n))
+
+
+@pytest.mark.parametrize("kind", ["wkv6", "mamba"])
+def test_a_lone_backward_s_temp_is_its_outputs_and_its_workspace(kind):
+    """Under ``OpAnalysis`` on ``meta``, one backward call at its model's
+    widths and 1 x 4096: temp bytes = its outputs + the workspace its
+    launcher allocates (``*_bwd_workspace``, declared in
+    ``bitplane.WORKSPACE``): wkv6's du of each batch row, Mamba's dB / dC
+    partials of 128 clusters (2 x 32 MiB) and dA of each batch row."""
+    args = _bwd_meta_args(kind)
+    fn = bp.WORKSPACE[WS_OP[kind]]
+    shapes = fn(*args, CHUNK)
+    want = ({"du_part": (1, 40, 64)} if kind == "wkv6" else
+            {"part_db": (1, 128, 4096, 16), "part_dc": (1, 128, 4096, 16),
+             "part_da": (1, 8192, 16)})
+    assert shapes == want
+    ws = 4 * sum(int(np.prod(v)) for v in shapes.values())
+    with OpAnalysis() as ana:
+        grads = BWD_OPS[kind](*args, CHUNK)
+    outs = sum(g.numel() * g.element_size() for g in grads)
+    rec = ana.summary()
+    assert rec["temp_bytes"] == outs + ws
+    assert rec["peak_live_bytes"] == rec["base_bytes"] + outs + ws
+    # nothing of the workspace outlives the call: a second call's peak is
+    # the same, its outputs beside the first's
+    with OpAnalysis() as ana:
+        first = BWD_OPS[kind](*args, CHUNK)
+        second = BWD_OPS[kind](*args, CHUNK)
+    assert ana.summary()["temp_bytes"] == 2 * outs + ws
+    del first, second
+
+
+BIG = 1 << 28      # bytes: a declared buffer past any mini cell's peak
+
+
+def _cell_temp(spec):
+    """The mini cell's temp bytes, measured in this process as rank 0 of a
+    fake world of two ranks on ``meta``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import op_analysis
+    op_analysis._INFO.clear()     # the operators' workspace is looked up anew
+    dims, axes = spec["mesh_dims"]
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(np.prod(dims)))
+    try:
+        return dryrun.measure(spec, Mesh(tuple(dims), tuple(axes), "cpu"),
+                              fake=True)["memory"]["temp_bytes"]
+    finally:
+        dist.destroy_process_group()
+        op_analysis._INFO.clear()
+
+
+@pytest.mark.parametrize("arch", [a for a, _, _ in MINI])
+def test_a_mini_ssm_cell_s_temp_rises_by_the_declared_workspace(arch,
+                                                                monkeypatch):
+    """A mini SSM cell's step (its smoke train step, 2 x 128 tokens, a fake
+    (1, 2) world), counted with the scan backward's workspace declared,
+    without it, and with extra declared buffers of ``BIG`` and ``2 BIG``
+    bytes.  At the smoke widths the call is not the step's peak, so the
+    extra buffers put it there: the temp rises by exactly each declared
+    byte (``2 BIG`` gives ``BIG`` more than ``BIG``), which gives what is
+    live at the call; the real workspace's temp is then exactly the larger
+    of the count without it and that live count plus the workspace."""
+    kind = "wkv6" if arch.startswith("rwkv") else "mamba"
+    op = WS_OP[kind]
+    real = bp.WORKSPACE[op]
+    _, b, s = next(m for m in MINI if m[0] == arch)
+    spec = dryrun.cell_spec(arch, "train", "pair", smoke=True,
+                            shape_dims=("train", s, b),
+                            mesh_dims=((1, 2), ("data", "model")))
+    seen = []
+
+    def recorded(*args):
+        shapes = real(*args)
+        seen.append(4 * sum(int(np.prod(v)) for v in shapes.values()))
+        return shapes
+    monkeypatch.setitem(bp.WORKSPACE, op, recorded)
+    with_ws = _cell_temp(spec)
+    assert seen and len(set(seen)) == 1     # every call of the step alike
+    ws = seen[0]
+    monkeypatch.delitem(bp.WORKSPACE, op)
+    without = _cell_temp(spec)
+    temps = {}
+    for extra in (BIG, 2 * BIG):
+        monkeypatch.setitem(bp.WORKSPACE, op, lambda *a, e=extra: {
+            **real(*a), "extra": (e // 4,)})
+        temps[extra] = _cell_temp(spec)
+    assert temps[2 * BIG] - temps[BIG] == BIG
+    live = temps[BIG] - BIG - ws        # live at the call, its outputs too
+    assert with_ws == max(without, live + ws)
+    assert without < temps[BIG]
 
 
 def test_importing_the_scan_operators_builds_nothing():
