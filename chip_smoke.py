@@ -122,18 +122,28 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    4 steps of batch 2 x 4096 (AdamW lr 3e-4, bf16 compute, remat, float32
    params and state, 8-plane compression), each step's wall against its
    bound, the step-4 checkpoint's snapshot, save and load seconds with the
-   ``ckpt.*`` spans (loaded bit-exact), ``rb_encode``/``rb_decode``
-   launches a step and no plain bitplane call, ``ef_quantize`` through
-   the kernels bit-identical to its plain path on every gradient leaf
-   (the 122.9M-value embedding's included), and the two kernels timed at
-   the embedding's N; with ``--profile``, one more danube step under
+   ``ckpt.*`` spans (loaded bit-exact); a step's launches are the
+   optimizer path's kernels' (``kernels/csrc/optim.cu``): ``ef_amax`` and
+   ``ef_apply`` a leaf for ``ef_quantize`` and ``adamw_update`` a leaf,
+   with no ``rb_encode``/``rb_decode`` (the checkpoint's only) and no call
+   of a plain version (the plain bitplanes, ``ef_quantize``'s plane path,
+   AdamW's ``_upd``); each of the three kernels bit-identical to its plain
+   version on every gradient leaf (the 122.9M-value embedding's included;
+   ``adamw_update`` in float32 and in bfloat16 state); the step's stages
+   (loss and gradient, ``ef_quantize``, the global norm, the update; CUDA
+   events) and wall with the kernels and without them (the eager path
+   before them) in turns in one process, and ``torch._fused_adamw_`` over
+   the same leaves; the two register_block kernels and the three new
+   ones timed at the embedding's N (``torch._fused_adamw_`` beside
+   ``adamw_update``); with ``--profile``, one more danube step under
    ``torch.profiler``;
 15. the mesh-bound paths (``repro_torch.distributed``, ``launch.mesh``):
    a NCCL world of one rank and a (1, 1) ``('data', 'model')`` mesh.
    ``make_compressed_allreduce`` over vectors of the sizes of
    h2o-danube-3-4b/2's 12 gradient leaves (122,880,000 values the
-   largest): the output equal to ``ef_quantize(x, 0)``'s q and the
-   residual to x - q bit for bit, through ``rb_encode``/``rb_decode``
+   largest): the output equal to ``ef_quantize(x, 0)``'s q (its
+   ``ef_amax``/``ef_apply`` kernels) and the residual to x - q and to its
+   residual bit for bit, through ``rb_encode``/``rb_decode``
    (two launches of each a leaf) and equal to the plain path; qwen2-7b at
    its published widths and full depth (bf16 weights held) with
    ``cell_policy``'s decode_32k policy (a 32,768-deep, seq-sharded cache),
@@ -222,7 +232,8 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    cut to 4 layers and jamba's period without its MoE, 3
    ``make_train_step`` steps of 1 x 4096 each (losses finite and
    falling), and jamba's period prefilling 1 x 4096 (finite logits);
-   launches = scanning layers x steps x passes; the event time of the scan
+   launches = scanning layers x steps x passes (and ``adamw_update``
+   parameter leaves x steps, no other kernel); the event time of the scan
    calls in each step and in the prefill (CUDA events around each wrapper
    call: an upper bound on the kernels' device time) and its share of the
    wall; then one more warm training step of each under ``torch.profiler``:
@@ -230,8 +241,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
 
 Phases 7-12, 14, 15 and 20 zero the launch counters before their runs and
 require the kernels of their paths to have launched; the kernels line's
-``launches`` is phase 3's count for the ``register_block`` pair and phase
-20 (b)'s for the scan kernels (phases 9's and 15's are printed on lines
+``launches`` is phase 3's count for the ``register_block`` pair, phase
+14's danube/2 run's for the optimizer kernels and phase 20 (b)'s for the
+scan kernels (phases 9's and 15's are printed on lines
 of their own).  Each phase's wall and peak device
 memory are printed at its end.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
@@ -1826,32 +1838,68 @@ FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
 
 class _PlainCalls:
-    """Counts calls of the plain bitplane encode and decode while active
-    (``kernels.ops`` reaches them through the module's attributes)."""
+    """Counts calls of the plain versions on the trainer's path while
+    active, by name: the plain bitplane encode and decode (``kernels.ops``
+    reaches them through ``kernels.ref``'s attributes), ``ef_quantize``'s
+    plane path and AdamW's ``_upd``."""
 
     def __init__(self, ref):
-        self.ref, self.n = ref, {"encode": 0, "decode": 0}
+        from repro_torch.distributed import grad_compress as gc
+        from repro_torch.optim import adamw
+        self.targets = {"ref.encode": (ref, "encode"),
+                        "ref.decode": (ref, "decode"),
+                        "ef_quantize planes": (gc, "_encode_planes"),
+                        "ef_quantize decode": (gc, "_decode_planes"),
+                        "adamw._upd": (adamw, "_upd")}
+        self.n = dict.fromkeys(self.targets, 0)
 
     def __enter__(self):
-        self.orig = {k: getattr(self.ref, k) for k in self.n}
+        self.orig = {k: getattr(m, a) for k, (m, a) in self.targets.items()}
 
         def counted(k):
             def call(*a, **kw):
                 self.n[k] += 1
                 return self.orig[k](*a, **kw)
             return call
-        for k in self.n:
-            setattr(self.ref, k, counted(k))
+        for k, (m, a) in self.targets.items():
+            setattr(m, a, counted(k))
         return self.n
 
     def __exit__(self, *exc):
-        for k, f in self.orig.items():
-            setattr(self.ref, k, f)
+        for k, (m, a) in self.targets.items():
+            setattr(m, a, self.orig[k])
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    was = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, was)
 
 
 def _rb_launches(bp):
     return {"rb_encode": bp.encode_register_block_cuda.launches,
             "rb_decode": bp.decode_register_block_cuda.launches}
+
+
+OPT_KERNELS = ("ef_amax", "ef_apply", "adamw_update")
+OPT_SOURCE = "src/repro_torch/kernels/csrc/optim.cu"
+# what each replaces: the reference's jitted code that XLA fuses (no
+# Pallas kernel)
+OPT_REPLACES = {"ef_amax": "src/repro/distributed/grad_compress.py:65",
+                "ef_apply": "src/repro/distributed/grad_compress.py:65",
+                "adamw_update": "src/repro/optim/adamw.py:68"}
+FP64_FLOPS = 34e12              # H100 SXM, float64 outside the tensor cores
+
+
+def _opt_launches(bp):
+    """The trainer path's kernels' launches: the optimizer path's and the
+    register_block pair's."""
+    got = bp.launches()
+    return {k: got[k] for k in OPT_KERNELS + ("rb_encode", "rb_decode")}
 
 
 def _trainer(model, ckpt_dir, ckpt_every, lr, data_fn):
@@ -1961,9 +2009,36 @@ def step_bound(cfg, n_params, batch, seq):
             f"{bytes_ms:.2f} ms")
 
 
+def _timing_row(torch, name, case, n, call, plain, nbytes, ops_ms=0.0,
+                library=None, inner=20):
+    """A kernel's times at one shape: ``ms`` back to back through its
+    wrapper, ``device_ms`` from a replayed CUDA graph of ``inner`` calls,
+    the plain version's, the library call's (or None) and the bound."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    r = dict(name=name, case=case, n=n, ms=time_ms(call, inner=inner),
+             device_ms=time_ms(call, inner=inner, graph=True),
+             plain_ms=time_ms(plain, reps=3, inner=1, warmup=1),
+             library_ms=(None if library is None else
+                         time_ms(library, reps=5, inner=1, warmup=2)),
+             bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             bytes=nbytes)
+    print(f"{name} {case} (N={n}, the embedding's): kernel "
+          f"{r['ms'] * 1e3:.1f} us a call back to back, device "
+          f"{r['device_ms'] * 1e3:.1f} us "
+          f"({nbytes / r['device_ms'] / 1e6:.0f} GB/s), plain "
+          f"{r['plain_ms'] * 1e3:.1f} us"
+          + ("" if library is None else
+             f", library {r['library_ms'] * 1e3:.1f} us")
+          + f", bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
+          f"{r['device_ms'] / r['bound_ms']:.2f}x", flush=True)
+    return r
+
+
 def ef_kernel_timings(torch, bp, ref, n):
     """rb_encode and rb_decode at the embedding gradient's N, the shapes
-    ``ef_quantize`` gives them (8 magnitude planes and the sign plane):
+    ``ef_quantize`` gave them before its own kernels (8 magnitude planes
+    and the sign plane; checkpoints and ``compressed_psum`` still do):
     kernel and plain time and the byte bound, as phase 2 times them."""
     words = -(-n // 4096) * 128
     rows = []
@@ -1978,51 +2053,146 @@ def ef_kernel_timings(torch, bp, ref, n):
                  lambda a: bp.decode_register_block_cuda(a, p, n),
                  lambda: ref.decode_register_block(planes, p, n), planes,
                  4 * p * words + 4 * n)):
-            want = plain()
-            check(torch.equal(call(arg), want), f"{name} {what} at N={n}")
-            r = dict(name=name, case=what, n=n, ms=time_ms(lambda: call(arg)),
-                     device_ms=time_ms(lambda: call(arg), graph=True),
-                     plain_ms=time_ms(plain, reps=3, inner=1, warmup=1),
-                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
-            rows.append(r)
-            print(f"{name} {what} (N={n}, the embedding's gradient): kernel "
-                  f"{r['ms'] * 1e3:.1f} us a call back to back, device "
-                  f"{r['device_ms'] * 1e3:.1f} us ({nbytes / r['device_ms'] / 1e6:.0f} "
-                  f"GB/s), plain {r['plain_ms'] * 1e3:.1f} us, bound "
-                  f"{r['bound_ms'] * 1e3:.1f} us (bytes), "
-                  f"{r['device_ms'] / r['bound_ms']:.2f}x", flush=True)
+            check(torch.equal(call(arg), plain()),
+                  f"{name} {what} at N={n}")
+            rows.append(_timing_row(torch, name, what, n,
+                                    lambda: call(arg), plain, nbytes))
         del x, planes
     return rows
+
+
+def _fused_adamw(torch, cfg, p, g, m, v, step):
+    """``torch._fused_adamw_`` over the leaves (in place, on copies): a
+    different function from the port's update (its own rounding, no
+    flushes), timed as the library's yardstick for ``adamw_update``."""
+    p, g, m, v = ([t.clone() for t in ts] for ts in (p, g, m, v))
+    steps = [torch.tensor(float(step), device="cuda") for _ in p]
+    return lambda: torch._fused_adamw_(
+        p, g, m, v, [], steps, lr=cfg.lr, beta1=cfg.b1, beta2=cfg.b2,
+        weight_decay=cfg.weight_decay, eps=cfg.eps, amsgrad=False,
+        maximize=False)
+
+
+def optimizer_kernel_timings(torch, n):
+    """ef_amax, ef_apply and adamw_update at the embedding gradient's N
+    (h2o-danube-3-4b's, 122,880,000 values; the update in float32 and in
+    bfloat16 state): each against its plain version, the update also
+    against ``torch._fused_adamw_`` on the same leaf, and its bound.  Bytes:
+    ef_amax reads x and r (8 a value), ef_apply reads them and writes q
+    and r (16), adamw_update reads p, g, m, v and writes p, m, v (28 in
+    float32, 20 with a bfloat16 state); its operations, 7 float64 and
+    about 15 float32 a value, stay under a tenth of that."""
+    from repro_torch.distributed.grad_compress import ef_quantize
+    from repro_torch.kernels import optim as ko
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(n, generator=gen, device="cuda") * 1e-4
+    r = torch.randn(n, generator=gen, device="cuda") * 1e-8
+    part = ko.ef_amax(x, r)
+    rows = [_timing_row(torch, "ef_amax", "x, r -> maxima", n,
+                        lambda: ko.ef_amax(x, r),
+                        lambda: ko.ef_amax_ref(x, r), 8 * n, inner=5),
+            _timing_row(torch, "ef_apply", "8 planes", n,
+                        lambda: ko.ef_apply(x, r, part, 8),
+                        lambda: ef_quantize(x, r, 8, backend="torch"),
+                        16 * n, inner=5)]
+    ops_ms = (7 * n / FP64_FLOPS + 15 * n / FP32_FLOPS) * 1e3
+    p = torch.randn(n, generator=gen, device="cuda") * 2e-2
+    for sname in ("float32", "bfloat16"):
+        cfg = adamw.AdamWConfig(state_dtype=sname)
+        sdt = adamw.DTYPES[sname]
+        m = (x * 1e-2).to(sdt)
+        v = (x * x).to(sdt)
+        sc = adamw.step_scalars(cfg, torch.tensor(150, dtype=torch.int32,
+                                                  device="cuda"),
+                                adamw.global_norm({"g": x}))
+        args = (p, x, m, v, *sc, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+        library = (_fused_adamw(torch, cfg, [p], [x], [m], [v], 150)
+                   if sname == "float32" else None)
+        rows.append(_timing_row(
+            torch, "adamw_update", f"{sname} state", n,
+            lambda: ko.adamw_update(*args),
+            lambda: adamw._upd(p, x, m, v, *sc, cfg, sdt),
+            (12 + 2 * 2 * m.element_size()) * n, ops_ms,
+            library=library, inner=5))
+        del m, v, library
+    return rows
+
+
+def optimizer_stages(torch, bp, trainer, res, batch):
+    """Trainer._step's stages on the device's timeline (CUDA events) and
+    the step's wall, with the optimizer path's kernels ("kernels") and
+    without them ("eager": ``ef_quantize``'s plane path through
+    rb_encode/rb_decode and AdamW's ``_upd``, the path before these
+    kernels), in turns eager, kernels, kernels, eager in this one process:
+    loss and gradient, ef_quantize over the leaves, the global norm, and
+    the update less the norm; then ``torch._fused_adamw_`` over the same
+    leaves.  Returns each mode's two readings."""
+    from repro_torch.distributed.grad_compress import ef_quantize
+    from repro_torch.kernels import optim as ko
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import value_and_grad
+    state = (res["params"], res["opt_state"], res["ef"])
+    out = {"eager": [], "kernels": []}
+    for mode in ("eager", "kernels", "kernels", "eager"):
+        with (_patched(ko, "_on_operators", lambda t: False)
+              if mode == "eager" else contextlib.nullcontext()):
+            before = _opt_launches(bp)
+            trainer._step(*state, batch)            # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._step(*state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            _, grads = value_and_grad(
+                lambda p: trainer.model.loss(p, batch), state[0])
+            ev[1].record()
+            qs = tree_unflatten(grads, [
+                ef_quantize(g, r, 8)[0] for g, r in
+                zip(tree_leaves(grads), tree_leaves(state[2]))])
+            ev[2].record()
+            adamw.global_norm(qs)
+            ev[3].record()
+            adamw.update(qs, state[1], state[0], trainer.opt_cfg)
+            ev[4].record()
+            torch.cuda.synchronize()
+            used = {k: v - before[k] for k, v in
+                    _opt_launches(bp).items()}
+        t = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+        row = dict(wall_ms=wall, grad_ms=t[0], ef_ms=t[1], norm_ms=t[2],
+                   adamw_ms=t[3], update_ms=t[3] - t[2])
+        out[mode].append(row)
+        kernels = mode == "kernels"
+        check(all((used[k] > 0) == kernels for k in OPT_KERNELS)
+              and (used["rb_encode"] > 0) != kernels,
+              f"{mode} steps launched {used}")
+        print(f"danube/2 step, {mode}: wall {wall:.1f} ms; stages (CUDA "
+              f"events) loss and gradient {t[0]:.1f} ms, ef_quantize "
+              f"{t[1]:.1f} ms, AdamW {t[3]:.1f} ms = global norm "
+              f"{t[2]:.1f} ms + update {t[3] - t[2]:.1f} ms", flush=True)
+        del grads, qs
+    opt = state[1]
+    leaves = tree_leaves(state[0])      # the parameters as the gradients
+    fused = _fused_adamw(torch, trainer.opt_cfg, leaves, leaves,
+                         tree_leaves(opt.m), tree_leaves(opt.v),
+                         int(opt.step) + 1)
+    out["fused_ms"] = time_ms(fused, reps=5, inner=1, warmup=2)
+    print(f"torch._fused_adamw_ over the same {len(leaves)} leaves (a "
+          f"different function: its own rounding, no flushes): "
+          f"{out['fused_ms']:.2f} ms", flush=True)
+    del fused
+    return out
 
 
 def _profile_step(torch, trainer, res, batch):
     """One more danube training step under torch.profiler: its wall, the
     device's busy time and idle share, kernel launches, and the top ops by
-    self device time."""
-    from repro_torch.distributed.grad_compress import ef_quantize
-    from repro_torch.models.params import tree_leaves, tree_unflatten
-    from repro_torch.optim import adamw
-    from repro_torch.train.step import value_and_grad
+    self device time (``optimizer_stages`` times its stages)."""
     state = (res["params"], res["opt_state"], res["ef"])
     trainer._step(*state, batch)        # warm: the profiled step's twin
-    # Trainer._step's three stages on the device's timeline
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    ev[0].record()
-    _, grads = value_and_grad(lambda p: trainer.model.loss(p, batch),
-                              state[0])
-    ev[1].record()
-    qs = tree_unflatten(grads, [ef_quantize(g, r, 8)[0] for g, r in
-                                zip(tree_leaves(grads),
-                                    tree_leaves(state[2]))])
-    ev[2].record()
-    adamw.update(qs, state[1], state[0], trainer.opt_cfg)
-    ev[3].record()
-    torch.cuda.synchronize()
-    stages = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
-    print(f"danube step stages (CUDA events): loss and gradient "
-          f"{stages[0]:.1f} ms, ef_quantize {stages[1]:.1f} ms, AdamW "
-          f"{stages[2]:.1f} ms", flush=True)
-    del grads, qs
     prof, walls = _profile(torch, lambda: trainer._step(*state, batch))
     evs = sorted(prof.key_averages(), key=lambda e: -_dev_us(e))
     busy = _busy_ms(evs)
@@ -2083,7 +2253,7 @@ def danube_train(torch, bp, ref, profile=False):
     marks = []
 
     def data_fn(step):
-        marks.append(_rb_launches(bp))   # launches before each step
+        marks.append(_opt_launches(bp))   # launches before each step
         return data(step)
     root = os.path.join(TRAIN_ROOT, "danube")
     trainer = _trainer(model, root, TRAIN_STEPS, 3e-4, data_fn)
@@ -2094,18 +2264,21 @@ def danube_train(torch, bp, ref, profile=False):
         t0 = time.perf_counter()
         res = trainer.run()
         wall = time.perf_counter() - t0
-    end = _rb_launches(bp)
+    end = _opt_launches(bp)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(plain == {"encode": 0, "decode": 0},
-          f"the training run called the plain bitplane path: {plain}")
+    check(not any(plain.values()),
+          f"the training run called a plain version: {plain}")
     per_step = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
     last = {k: end[k] - marks[-1][k] for k in end}
     ckpt_launches = {k: last[k] - per_step[0][k] for k in last}
+    n_leaves = len(leaves)
     check(len(per_step) == TRAIN_STEPS - 1
           and all(s == per_step[0] for s in per_step)
-          and per_step[0]["rb_encode"] == 2 * len(leaves)
-          and per_step[0]["rb_decode"] == 2 * len(leaves)
-          and ckpt_launches["rb_encode"] > 0,
+          and per_step[0] == {"ef_amax": n_leaves, "ef_apply": n_leaves,
+                              "adamw_update": n_leaves, "rb_encode": 0,
+                              "rb_decode": 0}
+          and ckpt_launches["rb_encode"] > 0
+          and not any(ckpt_launches[k] for k in OPT_KERNELS),
           f"launches: per step {per_step}, last step and checkpoint {last}")
     for m in res["metrics"]:
         check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
@@ -2116,9 +2289,9 @@ def danube_train(torch, bp, ref, profile=False):
               f"bound), loss {m['loss']:.4f}, grad norm "
               f"{m['grad_norm']:.4f}", flush=True)
     print(f"danube run {wall:.2f} s; launches a step: {per_step[0]} "
-          f"(ef_quantize: a sign plane and 8 magnitude planes a leaf); the "
-          f"checkpoint's: {ckpt_launches}; plain bitplane calls: {plain}; "
-          f"peak device memory {peak:.3f} GiB", flush=True)
+          f"(ef_amax and ef_apply a leaf for ef_quantize, adamw_update a "
+          f"leaf); the checkpoint's: {ckpt_launches}; plain versions' "
+          f"calls: {plain}; peak device memory {peak:.3f} GiB", flush=True)
 
     tree = {"params": res["params"], "opt": res["opt_state"], "ef": res["ef"]}
     raw = sum(t.numel() * t.element_size() for t in _state_leaves(tree))
@@ -2151,31 +2324,96 @@ def danube_train(torch, bp, ref, profile=False):
     del out
 
     # the gradient leaves at the final params on step 4's batch, with the
-    # final residual: ef_quantize through the kernels against its plain path
+    # final residual and state: each optimizer kernel against its plain
+    # version, then the step's stages with and without them
     batch = data(TRAIN_STEPS - 1)
     if profile:
         _profile_step(torch, trainer, res, batch)
     _, grads = value_and_grad(lambda p: model.loss(p, batch), res["params"])
-    for g, r in zip(tree_leaves(grads), tree_leaves(res["ef"])):
-        before = _rb_launches(bp)
-        q, nr = ef_quantize(g, r, 8)
-        after = _rb_launches(bp)
-        qp, nrp = ef_quantize(g, r, 8, backend="torch")
-        check(after["rb_encode"] - before["rb_encode"] == 2
-              and after["rb_decode"] - before["rb_decode"] == 2
-              and _rb_launches(bp) == after,
-              f"ef_quantize launches at N={g.numel()}")
-        check(torch.equal(q.view(torch.int32), qp.view(torch.int32))
-              and torch.equal(nr.view(torch.int32), nrp.view(torch.int32)),
-              f"ef_quantize through the kernels differs from its plain "
-              f"path at N={g.numel()}")
-    print(f"ef_quantize (8 planes) through rb_encode/rb_decode == its plain "
-          f"path, bit for bit, on all {len(leaves)} gradient leaves (N up to "
-          f"{max(g.numel() for g in tree_leaves(grads))})", flush=True)
+    errs = optimizer_kernels_check(torch, bp, grads, res, trainer.opt_cfg)
+    del grads
+    stages = optimizer_stages(torch, bp, trainer, res, batch)
     n_emb = model.params["embed"].numel()
-    del grads, res, tree, trainer, model, batch
+    del res, tree, trainer, model, batch
     _free(torch)
-    ef_kernel_timings(torch, bp, ref, n_emb)
+    rows = ef_kernel_timings(torch, bp, ref, n_emb)
+    _free(torch)
+    rows += optimizer_kernel_timings(torch, n_emb)
+    return {"launches": {k: end[k] for k in OPT_KERNELS}, "errs": errs,
+            "stages": stages,
+            "rows": {r["name"]: r for r in rows if r["name"] in OPT_KERNELS
+                     and r["case"] != "bfloat16 state"}}
+
+
+def optimizer_kernels_check(torch, bp, grads, res, opt_cfg):
+    """Each optimizer-path kernel against its plain version on the card, on
+    every gradient leaf of danube/2 (the embedding's 122,880,000 values
+    included): ef_amax's blocks' largest against torch's maximum;
+    ``ef_quantize`` through ef_amax and ef_apply (one launch each, no
+    rb_*) against its plane path (``backend="torch"``); adamw_update
+    against ``_upd`` at the final parameters and state, in float32 and in
+    bfloat16 state, on the quantized gradients at the next step's scalars.
+    All bit for bit; returns each kernel's largest |kernel - plain|."""
+    import dataclasses
+    from repro_torch.distributed.grad_compress import ef_quantize
+    from repro_torch.kernels import optim as ko
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim import adamw
+
+    def same(a, b):
+        iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        return a.dtype == b.dtype and torch.equal(a.view(iv), b.view(iv))
+
+    def err(a, b):
+        return (a.double() - b.double()).abs().max().item()
+    errs = dict.fromkeys(OPT_KERNELS, 0.0)
+    qs = []
+    for g, r in zip(tree_leaves(grads), tree_leaves(res["ef"])):
+        amax = ko.ef_amax(g, r).view(torch.int32).max().view(torch.float32)
+        want = ko.ef_amax_ref(g, r)
+        check(same(amax, want), f"ef_amax at N={g.numel()}: "
+              f"{amax.item()} != {want.item()}")
+        errs["ef_amax"] = max(errs["ef_amax"], err(amax, want))
+        before = _opt_launches(bp)
+        q, nr = ef_quantize(g, r, 8)
+        after = _opt_launches(bp)
+        check(after == dict(before, ef_amax=before["ef_amax"] + 1,
+                            ef_apply=before["ef_apply"] + 1),
+              f"ef_quantize launches at N={g.numel()}: {before} -> {after}")
+        qp, nrp = ef_quantize(g, r, 8, backend="torch")
+        check(same(q, qp) and same(nr, nrp),
+              f"ef_quantize through ef_amax/ef_apply differs from its "
+              f"plane path at N={g.numel()}")
+        errs["ef_apply"] = max(errs["ef_apply"], err(q, qp), err(nr, nrp))
+        qs.append(q)
+        del nr, qp, nrp
+    opt = res["opt_state"]
+    gnorm = adamw.global_norm(tree_unflatten(grads, qs))
+    for sname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(opt_cfg, state_dtype=sname)
+        sdt = adamw.DTYPES[sname]
+        sc = adamw.step_scalars(cfg, opt.step + 1, gnorm)
+        for p, q, m, v in zip(tree_leaves(res["params"]), qs,
+                              tree_leaves(opt.m), tree_leaves(opt.v)):
+            m, v = m.to(sdt), v.to(sdt)
+            n0 = ko.adamw_update.launches
+            got = ko.adamw_update(p, q, m, v, *sc, cfg.b1, cfg.b2, cfg.eps,
+                                  cfg.weight_decay)
+            check(ko.adamw_update.launches == n0 + 1,
+                  f"adamw_update launches at N={p.numel()}")
+            want = adamw._upd(p, q, m, v, *sc, cfg, sdt)
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"adamw_update differs from _upd at N={p.numel()}, "
+                  f"{sname} state")
+            errs["adamw_update"] = max(errs["adamw_update"],
+                                       *(err(a, b) for a, b in
+                                         zip(got, want)))
+            del got, want, m, v
+    print(f"ef_amax, ef_apply (ef_quantize, 8 planes) and adamw_update "
+          f"(float32 and bfloat16 state) == their plain versions, bit for "
+          f"bit, on all {len(qs)} gradient leaves (N up to "
+          f"{max(q.numel() for q in qs)})", flush=True)
+    return errs
 
 
 def train_phase(torch, bp, ref, profile=False):
@@ -2187,12 +2425,13 @@ def train_phase(torch, bp, ref, profile=False):
         print(f"smoke archs: {time.perf_counter() - t0:.2f} s", flush=True)
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        danube_train(torch, bp, ref, profile)
+        out = danube_train(torch, bp, ref, profile)
         _free(torch)
         print(f"h2o-danube-3-4b/2: {time.perf_counter() - t0:.2f} s",
               flush=True)
     finally:
         shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    return out
 
 
 # --------------------------------------------------------------- phase 15 --
@@ -2246,22 +2485,32 @@ def compressed_allreduce_check(torch, bp, mesh):
         check(after["rb_encode"] - before["rb_encode"] == 2
               and after["rb_decode"] - before["rb_decode"] == 2,
               f"compressed_psum launches at N={n}: {before} -> {after}")
-        q, _ = gc.ef_quantize(x, torch.zeros_like(x), 8)
+        ef0 = _opt_launches(bp)
+        q, q_res = gc.ef_quantize(x, torch.zeros_like(x), 8)
+        ef1 = _opt_launches(bp)
+        check(ef1["ef_amax"] - ef0["ef_amax"] == 1
+              and ef1["ef_apply"] - ef0["ef_apply"] == 1
+              and ef1["rb_encode"] == ef0["rb_encode"],
+              f"ef_quantize's launches at N={n}: {ef0} -> {ef1}")
         check(torch.equal(out.view(torch.int32), q.view(torch.int32)),
               f"compressed_psum at one rank != ef_quantize's q at N={n}")
         check(torch.equal(res[:n].view(torch.int32),
-                          (x - q).view(torch.int32)),
-              f"compressed_psum's residual != x - q at N={n}")
+                          (x - q).view(torch.int32))
+              and torch.equal(res[:n].view(torch.int32),
+                              q_res.view(torch.int32)),
+              f"compressed_psum's residual != x - q, ef_quantize's "
+              f"residual, at N={n}")
         out_p, res_p = f_plain(x)
         check(torch.equal(out.view(torch.int32), out_p.view(torch.int32))
               and torch.equal(res.view(torch.int32), res_p.view(torch.int32)),
               f"compressed_psum through the kernels != its plain path at "
               f"N={n}")
-        del x, out, res, q, out_p, res_p
+        del x, out, res, q, q_res, out_p, res_p
     payload = sum(4 * (1 + 8) * (-(-n // 4096) * 128) + 4 for n in sizes)
     print(f"compressed all-reduce, 8 planes, over {len(sizes)} vectors of "
           f"danube/2's gradient leaf sizes (N up to {max(sizes)}): output "
-          f"== ef_quantize's q and residual == x - q bit for bit, kernels "
+          f"== ef_quantize's q (ef_amax/ef_apply) and residual == x - q == "
+          f"its residual bit for bit, kernels "
           f"== plain bit for bit; {t_kernel:.3f} s through the kernels; "
           f"launches {launches}; gathered payload {payload} B "
           f"({payload / (4 * sum(sizes)):.4f} of the float32 gradients); "
@@ -3606,10 +3855,12 @@ def scan_main_path(torch, bp, sc):
     through ``make_prefill_step`` (bf16 weights, ``unstack_fan_in``): the
     loss finite and falling, the logits finite, each kernel's launches
     scanning layers x steps x passes (a forward, its remat recompute, a
-    backward).  Returns the launches by kernel."""
+    backward), ``adamw_update``'s parameter leaves x steps, and no other
+    kernel's.  Returns the scan kernels' launches."""
     import dataclasses
     from repro_torch.configs.base import get_config
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, model_abstract
+    from repro_torch.models.params import tree_leaves
     from repro_torch.obs import trace as obs_trace
     from repro_torch.train.step import make_prefill_step
     total = {}
@@ -3622,11 +3873,15 @@ def scan_main_path(torch, bp, sc):
         passes = 2 if cfg.remat else 1
         n = _scan_layers(cfg)
         want = {fwd: n * SCAN_STEPS * passes, bwd: n * SCAN_STEPS}
-        check({k: got[k] for k in want} == want
-              and not any(v for k, v in got.items() if k not in want),
-              f"{arch}/{layers} training launches {got}, expected {want}")
+        # and the step's AdamW update, one launch a parameter leaf
+        updates = len(tree_leaves(model_abstract(cfg))) * SCAN_STEPS
+        check(got == dict(dict.fromkeys(got, 0), adamw_update=updates,
+                          **want),
+              f"{arch}/{layers} training launches {got}, expected {want} "
+              f"and {updates} adamw_update")
         print(f"{arch}/{layers} training launches: {want} ({n} scanning "
-              f"layers x {SCAN_STEPS} steps x passes)", flush=True)
+              f"layers x {SCAN_STEPS} steps x passes), adamw_update "
+              f"{updates}", flush=True)
         total.update(want)
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
                               n_layers=JAMBA_PERIOD)
@@ -3794,7 +4049,9 @@ def main(argv) -> int:
 
     t0 = phase("14 train: smoke archs card vs CPU and crash/resume; "
                "h2o-danube-3-4b at full width, 2 of 24 layers")
-    train_phase(torch, bp, ref, args.profile)
+    p14 = train_phase(torch, bp, ref, args.profile)
+    print(f"phase-14 launches (danube/2's 4 Trainer steps): "
+          f"{p14['launches']}", flush=True)
     done(t0, "phase 14")
 
     t0 = phase("15 the mesh-bound paths (NCCL, a (1, 1) mesh; more cards: "
@@ -3857,6 +4114,16 @@ def main(argv) -> int:
                         "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
+    for name in OPT_KERNELS:
+        r = p14["rows"][name]
+        entries.append({"name": name, "route": "cuda", "source": OPT_SOURCE,
+                        "replaces": OPT_REPLACES[name],
+                        "launches": p14["launches"][name],
+                        "max_abs_err": p14["errs"][name], "ms": r["ms"],
+                        "device_ms": r["device_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card_line())

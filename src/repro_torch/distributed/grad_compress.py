@@ -12,10 +12,14 @@ A port of ``repro.distributed.grad_compress``.  Two pieces:
    path (a gradient truncated to its sign and top ``planes`` magnitude
    planes, the truncation error carried to the next step).
 
-The planes are in the ``register_block`` format.  On a CUDA tensor they go
-through the ``rb_encode``/``rb_decode`` kernels (``kernels.ops``, backend
-``auto``); on the CPU, or with ``backend="torch"``, through their plain
-versions.
+The planes are in the ``register_block`` format.  ``compressed_psum``'s
+planes cross the wire: on a CUDA tensor they go through the
+``rb_encode``/``rb_decode`` kernels (``kernels.ops``, backend ``auto``).
+``ef_quantize`` keeps no planes: on a CUDA (or ``meta``) tensor it is the
+``ef_amax`` and ``ef_apply`` kernels (``kernels.optim``), one pass for the
+leaf's maximum and one that quantizes it, bit-identical to encoding and
+decoding the planes; on the CPU, or with ``backend="torch"``, it encodes
+and decodes them with the plain bitplane versions (its plain path).
 
 Bit-identity with the reference (XLA on the CPU): the scale is the
 reference's inexact ``exp2(MAG_BITS - e)`` (``core/align.py``'s table),
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.core.align import _sat_u32, exp2_int, flush_subnormal
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import optim as _kopt
 from repro_torch.kernels.ops import decode_bitplanes_batch, encode_bitplanes
 
 MAG_BITS = 23  # exact fp32 quantization bound (see core/align.py)
@@ -89,9 +94,14 @@ def ef_quantize(x: torch.Tensor, residual: torch.Tensor, planes: int,
                 backend: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Bitplane-truncate ``x + residual`` to ``planes`` (1 .. 23) magnitude
     planes; returns (q, new residual), float32 tensors of ``x``'s shape on
-    its device."""
+    its device.  ``backend`` ``"auto"``/``"cuda"``: the ``ef_amax`` and
+    ``ef_apply`` kernels on a CUDA or ``meta`` tensor; the CPU and
+    ``"torch"``: the planes' plain path."""
     if not 1 <= planes <= MAG_BITS:
         raise ValueError(f"planes must be in 1..{MAG_BITS}, got {planes}")
+    if _kopt.use_operators(x, backend):
+        return _kopt.ef_quantize(x.float().contiguous(),
+                                 residual.float().contiguous(), planes)
     total = flush_subnormal(flush_subnormal(x.float())
                             + flush_subnormal(residual.float()))
     flat = total.reshape(-1)

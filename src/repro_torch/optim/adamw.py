@@ -40,6 +40,12 @@ On blocks (a sharded step's trees, ``sharding.shard_tree``) the update is
 the same elementwise pass; only the global norm must see every element
 once: ``update(..., shardings=)`` sums each leaf's block in float64 over
 the axes its spec cuts, and no others, before it adds up the leaves.
+
+On the card (and on ``meta``) each leaf's update is one launch of the
+``adamw_update`` kernel (``kernels.optim``), which computes ``_upd`` op for
+op with the same roundings; on the CPU, or with ``backend="torch"``,
+``_upd`` runs, its plain version.  The global norm, the schedule and the
+bias corrections are torch everywhere.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ import torch
 from repro_torch.core.align import flush_subnormal
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import optim as _kopt
 from repro_torch.models.params import (DTYPES, tree_leaves, tree_map,
                                        tree_unflatten)
 
@@ -172,13 +179,11 @@ def _upd(p, g, m, v, scale, lr, c1, c2, cfg: AdamWConfig, sdt):
     return newp.to(p.dtype), m32.to(sdt), v32.to(sdt)
 
 
-def update(grads, state: AdamWState, params, cfg: AdamWConfig,
-           shardings=None) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
-    """One AdamW step: returns (new params, new state, {"grad_norm",
-    "lr"}), all on the parameters' device.  ``shardings``: the parameters'
-    ``sharding.Named`` by leaf when the trees hold this rank's blocks."""
-    step = state.step + 1
-    gnorm = global_norm(grads, shardings)
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor, gnorm: torch.Tensor
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The update's 0-d float32 device scalars at int32 ``step`` (1 for the
+    first) and global norm ``gnorm``: the clip factor, the learning rate
+    and the two bias corrections."""
     dev = gnorm.device
     scale = torch.minimum(_f32(1.0, dev),
                           cfg.clip_norm / torch.clamp_min(gnorm, 1e-9))
@@ -186,8 +191,34 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
     lr = _schedule(cfg, stepf)
     c1 = 1 - torch.pow(_f32(cfg.b1, dev), stepf)
     c2 = 1 - torch.pow(_f32(cfg.b2, dev), stepf)
+    return scale, lr, c1, c2
+
+
+def update(grads, state: AdamWState, params, cfg: AdamWConfig,
+           shardings=None, backend: str = "auto"
+           ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step: returns (new params, new state, {"grad_norm",
+    "lr"}), all on the parameters' device.  ``shardings``: the parameters'
+    ``sharding.Named`` by leaf when the trees hold this rank's blocks.
+    ``backend``: ``"auto"`` updates each leaf with the ``adamw_update``
+    kernel on the card and on ``meta`` and with ``_upd`` on the CPU;
+    ``"torch"`` with ``_upd`` everywhere."""
+    if backend not in ("auto", "torch"):
+        raise ValueError(f"backend must be 'auto' or 'torch', got "
+                         f"{backend!r}")
+    step = state.step + 1
+    gnorm = global_norm(grads, shardings)
+    scale, lr, c1, c2 = step_scalars(cfg, step, gnorm)
     sdt = DTYPES[cfg.state_dtype]
-    outs = [_upd(p, g, m, v, scale, lr, c1, c2, cfg, sdt)
+
+    def leaf(p, g, m, v):
+        if _kopt.use_operators(p, backend):
+            return _kopt.adamw_update(
+                p.contiguous(), g.contiguous(), m.contiguous(),
+                v.contiguous(), scale, lr, c1, c2, cfg.b1, cfg.b2, cfg.eps,
+                cfg.weight_decay)
+        return _upd(p, g, m, v, scale, lr, c1, c2, cfg, sdt)
+    outs = [leaf(p, g, m, v)
             for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                                   tree_leaves(state.m), tree_leaves(state.v))]
     pick = lambda i: tree_unflatten(params, [o[i] for o in outs])

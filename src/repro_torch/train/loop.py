@@ -11,8 +11,11 @@ A port of ``repro.train.loop`` (fault-tolerance model as there):
     slower than ``straggler_factor`` x the rolling median raise a flag and
     call ``on_straggler``;
   * optional progressive gradient compression: every gradient leaf goes
-    through ``ef_quantize`` (``rb_encode``/``rb_decode`` on the card), its
-    error-feedback residual kept in the loop state and checkpointed.
+    through ``ef_quantize`` (on the card its ``ef_amax`` and ``ef_apply``
+    kernels, ``kernels/optim.py``), its error-feedback residual kept in
+    the loop state and checkpointed;
+  * AdamW's update of each leaf is one ``adamw_update`` kernel on the
+    card (``optim/adamw.py``).
 
 The step runs where the model's parameters are.  The reference draws its
 start from ``Model.init(PRNGKey(seed))``; here a run starts from the

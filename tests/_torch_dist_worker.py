@@ -952,17 +952,20 @@ def dryrun_real(mesh, spec, scan_ops=True):
     world (the model's weights, real tensors), the counterpart of the dry
     run's fake world: argument bytes, temp bytes, FLOPs, HBM bytes and
     ``WIRE`` by kind with the largest calls.  With ``scan_ops`` the SSM
-    scans run as the scan operators (their plain versions on the CPU), as
-    the fake world's ``meta`` tensors run them; else as the CPU's loop."""
+    scans and AdamW's update run as their operators (``kernels.scan``,
+    ``kernels.optim``; their plain versions on the CPU), as the fake
+    world's ``meta`` tensors run them; else as the CPU's loop and
+    ``adamw._upd``."""
+    from repro_torch.kernels import optim as kopt
     from repro_torch.launch import dryrun
     from repro_torch.models import ssm
-    on_operators = ssm._on_operators
+    on_operators = ssm._on_operators, kopt._on_operators
     if scan_ops:
-        ssm._on_operators = lambda t: True
+        ssm._on_operators = kopt._on_operators = lambda t: True
     try:
         rec = dryrun.measure(spec, mesh, fake=False)
     finally:
-        ssm._on_operators = on_operators
+        ssm._on_operators, kopt._on_operators = on_operators
     return {k: rec[k] for k in ("memory", "flops_per_device", "flops_by_op",
                                 "hbm_bytes_per_device", "ops_by_name",
                                 "collectives",

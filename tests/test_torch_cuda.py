@@ -594,27 +594,247 @@ def test_smoke_models_on_the_card_match_the_cpu(cuda, arch):
 
 # ------------------------------------------------------------------ training --
 
+def _ef_launches():
+    return {k: bp.launches()[k] for k in ("ef_amax", "ef_apply",
+                                          "rb_encode", "rb_decode")}
+
+
 @pytest.mark.parametrize("n", [1, 4095, 4097, 100_003])
 @pytest.mark.parametrize("planes", [1, 8, 23])
 def test_ef_quantize_on_the_card_equals_the_plain_path(cuda, n, planes):
-    """``ef_quantize`` through ``rb_encode``/``rb_decode`` (two of each a
-    call: the sign plane and the magnitude planes) against its plain path
-    on the card, bit for bit."""
+    """``ef_quantize`` on the card through ``ef_amax`` and ``ef_apply`` (one
+    launch of each a call, none of ``rb_encode``/``rb_decode``) against its
+    plain path on the card (the planes encoded and decoded by the plain
+    versions), bit for bit, and against the CPU."""
     from repro_torch.distributed.grad_compress import ef_quantize
     g = torch.Generator(device=cuda).manual_seed(n + planes)
     x = torch.randn(n, generator=g, device=cuda)
     r = torch.randn(n, generator=g, device=cuda) * 1e-3
-    enc, dec = (bp.encode_register_block_cuda.launches,
-                bp.decode_register_block_cuda.launches)
+    before = _ef_launches()
     q, nr = ef_quantize(x, r, planes)
-    assert bp.encode_register_block_cuda.launches == enc + 2
-    assert bp.decode_register_block_cuda.launches == dec + 2
+    after = _ef_launches()
+    assert after == dict(before, ef_amax=before["ef_amax"] + 1,
+                         ef_apply=before["ef_apply"] + 1)
     qp, nrp = ef_quantize(x, r, planes, backend="torch")
-    assert bp.encode_register_block_cuda.launches == enc + 2
+    assert _ef_launches() == after
     assert torch.equal(q.view(torch.int32), qp.view(torch.int32))
     assert torch.equal(nr.view(torch.int32), nrp.view(torch.int32))
     qc, nrc = ef_quantize(x.cpu(), r.cpu(), planes)
     assert torch.equal(q.cpu().view(torch.int32), qc.view(torch.int32))
+    assert torch.equal(nr.cpu().view(torch.int32), nrc.view(torch.int32))
+
+
+# +-0, subnormals, +-inf and NaN, sprinkled at a stride through a leaf
+OPT_SPECIALS = [0.0, -0.0, 1e-39, -1e-39, 1e-45, -3e-40, math.inf,
+                -math.inf, math.nan, 3.0]
+
+
+def _sprinkle(x, vals):
+    for i, v in enumerate(vals):
+        x[i::len(vals) * 7] = v
+    return x
+
+
+def _ef_leaf(kind, n, seed=0):
+    """A gradient leaf and a residual (numpy float32): normal values, or
+    the special cases the kernels must keep bit-identical."""
+    rng = np.random.default_rng(seed + n)
+    x = rng.normal(size=n).astype(np.float32)
+    r = (rng.normal(size=n) * 1e-3).astype(np.float32)
+    if kind == "specials":
+        x = _sprinkle(x, OPT_SPECIALS)
+        r = _sprinkle(r, OPT_SPECIALS[::-1])
+    elif kind == "zeros":
+        x, r = np.zeros(n, np.float32), np.zeros(n, np.float32)
+        x[::3] = -0.0
+    elif kind == "inf_scale":       # max|total| below 2**-105: scale inf
+        x = (x * 2.0 ** -112).astype(np.float32)
+        r = (r * 2.0 ** -112).astype(np.float32)
+        x[0] = 2.0 ** -106
+    elif kind == "saturate":        # the largest value rounds to 2**23
+        x = rng.uniform(-1, 1, size=n).astype(np.float32)
+        r = np.zeros(n, np.float32)
+        x[0] = np.nextafter(np.float32(2), np.float32(0))
+        x[-1] = -x[0]
+    elif kind == "saturate_u32":    # inf totals saturate the magnitude
+        x[::5] = np.inf
+    return x, r
+
+
+def _bits_equal(a, b, nan_as_nan=False):
+    a, b = a.cpu(), b.cpu()
+    if nan_as_nan:
+        na, nb = torch.isnan(a), torch.isnan(b)
+        assert torch.equal(na, nb)
+        a, b = a[~na], b[~nb]
+    iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    assert torch.equal(a.view(iv), b.view(iv))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("planes", [1, 8, 23])
+@pytest.mark.parametrize("n", [1, 31, 4097, 100_003])
+@pytest.mark.parametrize("kind", ["specials", "zeros", "inf_scale",
+                                  "saturate", "saturate_u32"])
+def test_ef_kernels_on_special_leaves(cuda, kind, n, planes, offset):
+    """``ef_amax``/``ef_apply`` against the plain path on the card, bit for
+    bit (NaN included: both form it by arithmetic), at 16-byte-aligned
+    pointers (the vector loop) and one float past them (the scalar loop);
+    ``ef_amax``'s blocks' largest against torch's maximum; two calls give
+    the same bits; and the CPU's plain path agrees (a NaN as a NaN: the
+    CPU keeps an input NaN's payload)."""
+    from repro_torch.distributed.grad_compress import ef_quantize
+    from repro_torch.kernels import optim as ko
+    xs, rs = _ef_leaf(kind, n + offset)
+    x = torch.from_numpy(xs).to(cuda)[offset:]
+    r = torch.from_numpy(rs).to(cuda)[offset:]
+    q, nr = ef_quantize(x, r, planes)
+    q2, nr2 = ef_quantize(x, r, planes)
+    qp, nrp = ef_quantize(x, r, planes, backend="torch")
+    for a, b in ((q, qp), (nr, nrp), (q2, q), (nr2, nr)):
+        _bits_equal(a, b)
+    amax = ko.ef_amax(x, r).view(torch.int32).max().view(torch.float32)
+    _bits_equal(amax, ko.ef_amax_ref(x, r), nan_as_nan=True)
+    qc, nrc = ef_quantize(x.cpu(), r.cpu(), planes)
+    _bits_equal(q, qc)
+    _bits_equal(nr, nrc, nan_as_nan=True)
+
+
+def test_ef_kernels_at_the_embedding_s_size(cuda):
+    """h2o-danube-3-4b's embedding gradient (122,880,000 values), the
+    largest leaf of the trainer's path, against the plain path on the
+    card."""
+    from repro_torch.distributed.grad_compress import ef_quantize
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(32000, 3840, generator=g, device=cuda) * 1e-4
+    r = torch.randn(32000, 3840, generator=g, device=cuda) * 1e-8
+    for planes in (8, 23):
+        got = ef_quantize(x, r, planes)
+        want = ef_quantize(x, r, planes, backend="torch")
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+ADAMW_DTYPES = [(torch.float32, torch.float32, "float32"),
+                (torch.float32, torch.float32, "bfloat16"),
+                (torch.bfloat16, torch.bfloat16, "float32"),
+                (torch.bfloat16, torch.bfloat16, "bfloat16"),
+                (torch.bfloat16, torch.float32, "float32"),
+                (torch.bfloat16, torch.float32, "bfloat16")]
+ADAMW_IDS = [f"p{str(p)[6:]}-g{str(g)[6:]}-s{s}" for p, g, s in ADAMW_DTYPES]
+# the defaults, and other values of every Python scalar the update
+# multiplies by or adds, which pin each one's float32 value
+ADAMW_HYPER = [dict(), dict(b1=0.8, b2=0.99, eps=1e-6, weight_decay=0.05)]
+
+
+def _adamw_leaf(n, pdt, gdt, sdt, seed, special=False):
+    rng = np.random.default_rng(seed + n)
+    p = rng.normal(size=n).astype(np.float32)
+    g = (rng.normal(size=n) * 1e-2).astype(np.float32)
+    m = (rng.normal(size=n) * 1e-3).astype(np.float32)
+    v = np.abs(rng.normal(size=n) * 1e-5).astype(np.float32)
+    if special:
+        g = _sprinkle(g, OPT_SPECIALS)
+        p = _sprinkle(p, [0.0, -0.0, 1e-39, -1e-39, 5.0])
+        m = _sprinkle(m, [1e-40, -0.0, 0.0])
+        v = _sprinkle(v, [1e-41, 0.0])
+    return tuple(torch.from_numpy(a).to(dt) for a, dt in
+                 ((p, pdt), (g, gdt), (m, sdt), (v, sdt)))
+
+
+def _adamw_scalars(cfg, g, step, device):
+    from repro_torch.optim import adamw
+    return adamw.step_scalars(
+        cfg, torch.tensor(step, dtype=torch.int32, device=device),
+        adamw.global_norm({"g": g}))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("hyper", [0, 1])
+@pytest.mark.parametrize("n", [1, 31, 4097, 100_003])
+@pytest.mark.parametrize("dtypes", ADAMW_DTYPES, ids=ADAMW_IDS)
+def test_adamw_update_kernel_equals_upd_on_the_card(cuda, dtypes, n, hyper,
+                                                    offset):
+    """``adamw_update`` against ``adamw._upd`` on the card, bit for bit:
+    warmup and cosine steps, with and without clipping, a leaf of special
+    values, vector and scalar loops (``offset``), one launch a call, and
+    two calls the same bits."""
+    from repro_torch.kernels import optim as ko
+    from repro_torch.optim import adamw
+    pdt, gdt, sname = dtypes
+    sdt = adamw.DTYPES[sname]
+    for step, special in ((1, False), (3, False), (9, False), (3, True)):
+        leaf = _adamw_leaf(n + offset, pdt, gdt, sdt, step, special)
+        p, g, m, v = (t.to(cuda)[offset:] for t in leaf)
+        finite = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        for clip in (1e9, 0.3 * adamw.global_norm({"g": finite}).item()):
+            cfg = adamw.AdamWConfig(warmup_steps=2, total_steps=9,
+                                    clip_norm=clip, state_dtype=sname,
+                                    **ADAMW_HYPER[hyper])
+            sc = _adamw_scalars(cfg, g, step, cuda)
+            before = ko.adamw_update.launches
+            got = ko.adamw_update(p, g, m, v, *sc, cfg.b1, cfg.b2, cfg.eps,
+                                  cfg.weight_decay)
+            assert ko.adamw_update.launches == before + 1
+            again = ko.adamw_update(p, g, m, v, *sc, cfg.b1, cfg.b2,
+                                    cfg.eps, cfg.weight_decay)
+            want = adamw._upd(p, g, m, v, *sc, cfg, sdt)
+            for a, b, c in zip(got, want, again):
+                assert a.dtype == b.dtype
+                _bits_equal(a, b)
+                _bits_equal(a, c)
+
+
+def test_adamw_update_kernel_at_the_embedding_s_size(cuda):
+    """h2o-danube-3-4b's embedding (122,880,000 values), float32 and
+    bfloat16 state, against ``_upd`` on the card."""
+    from repro_torch.kernels import optim as ko
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    shape = (32000, 3840)
+    p = torch.randn(shape, generator=gen, device=cuda) * 2e-2
+    g = torch.randn(shape, generator=gen, device=cuda) * 1e-5
+    for sname in ("float32", "bfloat16"):
+        sdt = adamw.DTYPES[sname]
+        m = (torch.randn(shape, generator=gen, device=cuda) * 1e-6).to(sdt)
+        v = (torch.rand(shape, generator=gen, device=cuda) * 1e-10).to(sdt)
+        cfg = adamw.AdamWConfig(state_dtype=sname)
+        sc = _adamw_scalars(cfg, g, 150, cuda)
+        got = ko.adamw_update(p, g, m, v, *sc, cfg.b1, cfg.b2, cfg.eps,
+                              cfg.weight_decay)
+        want = adamw._upd(p, g, m, v, *sc, cfg, sdt)
+        for a, b in zip(got, want):
+            _bits_equal(a, b)
+        del m, v, got, want
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_update_on_the_card_equals_the_plain_update(cuda, state_dtype):
+    """``adamw.update`` through the kernel (one launch a leaf a step)
+    against ``backend="torch"`` on the card over 4 steps with clipping."""
+    from repro_torch.optim import adamw
+    from repro_torch.models.params import tree_leaves
+    cfg = adamw.AdamWConfig(warmup_steps=2, total_steps=6, clip_norm=0.5,
+                            state_dtype=state_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = {"a": torch.randn(4097, generator=gen, device=cuda),
+              "b": {"c": torch.randn(33, 129, generator=gen, device=cuda)}}
+    plain = kern = (params, adamw.init(params, cfg))
+    for _ in range(4):
+        grads = {"a": torch.randn(4097, generator=gen, device=cuda),
+                 "b": {"c": torch.randn(33, 129, generator=gen,
+                                        device=cuda)}}
+        before = bp.launches()["adamw_update"]
+        kp, ks, km = adamw.update(grads, kern[1], kern[0], cfg)
+        assert bp.launches()["adamw_update"] == before + 2
+        pp, ps, pm = adamw.update(grads, plain[1], plain[0], cfg,
+                                  backend="torch")
+        assert bp.launches()["adamw_update"] == before + 2
+        for a, b in zip(tree_leaves(kp) + tree_leaves(ks.m)
+                        + tree_leaves(ks.v), tree_leaves(pp)
+                        + tree_leaves(ps.m) + tree_leaves(ps.v)):
+            _bits_equal(a, b)
+        kern, plain = (kp, ks), (pp, ps)
 
 
 def _smoke_trainer(arch, model, ckpt_dir, device, steps=2):
