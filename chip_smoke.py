@@ -7,8 +7,9 @@ needs one CUDA card, ``nvcc`` and the checkout's ``src/repro_torch``; it
 imports nothing of JAX and nothing of the JAX package.  Phases, in order
 (any failure exits non-zero and prints no result):
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
-   the build time and the card's name and power limit;
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (every
+   source at once) and print the build time and the card's name and power
+   limit;
 2. hold each of the five kernels bit-exact against its plain torch version
    on the card (N in {1, 4095, 4097, 12289, 21875000}, P in {1, 8, 9, 23,
    31, 32}, batch {1, 3}, plane offsets {0, 4, 20}, decoded row counts {1,
@@ -213,10 +214,12 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    peak within [0.80, 1.25] x the predicted arguments + temp bytes, and
    neither the FLOP bound (989 TFLOP/s) nor the byte bound above the wall;
    (c) one ``wkv6_bwd`` call at rwkv6-3b's widths and one
-   ``mamba_scan_bwd`` call at jamba's, 1 x 4096: the allocator's peak
-   rise over the call, in bytes requested, equal to ``OpAnalysis``'s
-   temp bytes on ``meta`` (the outputs and the declared workspace), and
-   in bytes allocated within 512 bytes an allocation of it;
+   ``mamba_scan_bwd`` call at jamba's, 1 x 4096, run right after the
+   build (an allocator with no earlier phase's cached blocks): the
+   allocator's peak rise over the call, in bytes requested, equal to
+   ``OpAnalysis``'s temp bytes on ``meta`` (the outputs and the declared
+   workspace), and in bytes allocated within 512 bytes an allocation of
+   it;
 20. the SSM scan kernels (``kernels/csrc/scan.cu``): (a) each of
    ``wkv6_fwd``, ``wkv6_bwd``, ``mamba_scan_fwd`` and ``mamba_scan_bwd``
    against its plain version at rwkv6-3b's widths (40 heads of 64) and
@@ -237,14 +240,32 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    calls in each step and in the prefill (CUDA events around each wrapper
    call: an upper bound on the kernels' device time) and its share of the
    wall; then one more warm training step of each under ``torch.profiler``:
-   the scan kernels' own device time beside the events' bound.
+   the scan kernels' own device time beside the events' bound;
+21. the lossless codec's kernels (``kernels/csrc/lossless.cu``): (a)
+   ``lossless_stats``, ``huffman_pack``, ``huffman_decode``, ``rle_scan``
+   and ``rle_expand`` byte-identical to their plain passes at S in {1, 2, 31,
+   4095, 4096, 4097, 32767, 32768, 32769, 65537}, B 1 and 3, five
+   contents, and on groups taken from real writes (Isabel's finest-piece
+   4-plane group and sign plane, phase 8's and phase 9's largest), timed
+   there (wrapper, replayed graph past the L2, plain pass, bound,
+   ``torch.bincount`` beside the histogram, ``torch.repeat_interleave``
+   beside the expand); Isabel written and read with
+   RLE forced (the RLE kernels' main path; the default picks none there),
+   counters zeroed before, no plain pass, the blob ``backend="torch"``'s;
+   (b) phase 3's write and ladder and phase 8's pipelined write and read
+   with ``backend="torch"``, the kernels, the kernels, ``"torch"``: the
+   same blobs and values, the walls, the ``encode.finish`` /
+   ``encode.finish_many`` and ``codec.decode`` spans and each read's
+   peak rise.
 
-Phases 7-12, 14, 15 and 20 zero the launch counters before their runs and
-require the kernels of their paths to have launched; the kernels line's
-``launches`` is phase 3's count for the ``register_block`` pair, phase
-14's danube/2 run's for the optimizer kernels and phase 20 (b)'s for the
-scan kernels (phases 9's and 15's are printed on lines
-of their own).  Each phase's wall and peak device
+Phases 3, 7-12, 14, 15, 20 and 21 zero the launch counters before their
+runs and require the kernels of their paths to have launched (3, 8, 9 and
+12 the lossless kernels too, with no plain lossless pass on the card; 3
+one launch a batch of each); the kernels line's ``launches`` is phase 3's
+count for the ``register_block`` pair and the lossless kernels (RLE's:
+phase 21's forced-RLE path), phase 14's danube/2 run's for the optimizer
+kernels and phase 20 (b)'s for the scan kernels (phases 9's and 15's are
+printed on lines of their own).  Each phase's wall and peak device
 memory are printed at its end.
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -539,11 +560,18 @@ def read_launches(bp, required, what: str):
 def main_path(torch, bp, rf, rt, x_np):
     from repro_torch.core import lossless_batch as lb
     x_dev = torch.from_numpy(x_np).to("cuda")
+    batches = dict.fromkeys(("hist_batches", "huffman_pack_batches",
+                             "rle_scan_batches", "huffman_unpack_batches",
+                             "rle_expand_batches"), 0)
+    plain = _PlainCalls(targets=_plain_lossless_targets())
+    plain.__enter__()
     bp.reset_launches()
     t0 = time.perf_counter()
     with lb.stats_scope() as st:
         r = rf.refactor_array(x_np, "isabel", device="cuda")
     torch.cuda.synchronize()
+    for k in batches:
+        batches[k] += getattr(st, k)
     t_write = time.perf_counter() - t0
     check(st.host_syncs == 3, f"write made {st.host_syncs} host syncs, not 3")
     blob = rf.refactored_to_bytes(r)
@@ -572,11 +600,25 @@ def main_path(torch, bp, rf, rt, x_np):
         check(fetched >= 0 and reader.total_bytes_fetched >= cum,
               "cumulative bytes decreased")
         cum = reader.total_bytes_fetched
+        for k in batches:
+            batches[k] += getattr(st, k)
         print(f"retrieve rel tol {tol:g}: {dt:.3f} s, bound {bound:.6g}, "
               f"max err {err:.6g}, +{fetched} B, cumulative {cum} B, "
               f"{st.host_syncs} host sync(s)", flush=True)
-    launches = read_launches(bp, ("rb_encode", "rb_decode"),
-                             "main-path launches")
+    plain.__exit__(None, None, None)
+    launches = lossless_launches(
+        bp, plain.n, ("rb_encode", "rb_decode", "lossless_stats",
+                      "huffman_pack", "huffman_decode"), "main-path launches")
+    # one launch a batch of each lossless pass: none ran another way
+    for k, name in (("hist_batches", "lossless_stats"),
+                    ("huffman_pack_batches", "huffman_pack"),
+                    ("rle_scan_batches", "rle_scan"),
+                    ("huffman_unpack_batches", "huffman_decode"),
+                    ("rle_expand_batches", "rle_expand")):
+        check(launches[name] == batches[k], f"{name}: {launches[name]} "
+              f"launches for {batches[k]} {k}")
+    print(f"main-path lossless batches {batches} == the kernels' launches; "
+          f"no plain lossless pass", flush=True)
     return launches, blob
 
 
@@ -815,6 +857,8 @@ def pipeline_phase(torch, bp):
     kw = dict(chunk_elems=PIPE_CHUNK, levels=PIPE_LEVELS, design="shuffle",
               use_tune_cache=False, device="cuda")
     bp.reset_launches()
+    plain = _PlainCalls(targets=_plain_lossless_targets())
+    plain.__enter__()
     first = None
     for i, piped in enumerate((True, False, True, False)):
         w = pipe.ChunkedRefactorPipeline(pipelined=piped, **kw)
@@ -848,8 +892,11 @@ def pipeline_phase(torch, bp):
               f"{wall:.3f} s, max err {err.item():.6g}", flush=True)
     check(outs[True].tobytes() == outs[False].tobytes(),
           "pipelined and serial reads differ")
-    launches = read_launches(bp, ("shuffle_encode", "loc_decode"),
-                             "pipeline-path launches")
+    plain.__exit__(None, None, None)
+    launches = lossless_launches(
+        bp, plain.n, ("shuffle_encode", "loc_decode", "lossless_stats",
+                      "huffman_pack", "huffman_decode"),
+        "pipeline-path launches")
 
     # the kernels against their plain versions at the pipeline's own piece
     # shapes and batches: the plain backend on the card must write the same
@@ -863,9 +910,7 @@ def pipeline_phase(torch, bp):
             first, PIPE_TOL)
     check(plain_out.tobytes() == outs[True].tobytes(),
           "kernel and plain-version reads differ")
-    check(bp.encode_shuffle_cuda.launches == launches["shuffle_encode"]
-          and bp.decode_locality_cuda.launches == launches["loc_decode"],
-          "the plain backend launched a kernel")
+    check(bp.launches() == launches, "the plain backend launched a kernel")
     print("kernel == plain version on the card at the pipeline's shapes: "
           f"write blobs and read values identical "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
@@ -968,9 +1013,11 @@ def _store_phase(torch, bp, shape, device, root):
     raw = sum(v.nbytes for v in vs.values())
     card, cpu = os.path.join(root, "card"), os.path.join(root, "cpu")
     launches = {}
+    on_card = ("lossless_stats", "huffman_pack") if device == "cuda" else ()
     bp.reset_launches()
     t0 = time.perf_counter()
-    with DatasetWriter(card, device=device) as w:
+    with _PlainCalls(targets=_plain_lossless_targets()) as plain, \
+            DatasetWriter(card, device=device) as w:
         entries = [w.write(n, vs[n]) for n in STORE_NAMES]
     sync()
     t_write = time.perf_counter() - t0
@@ -979,8 +1026,9 @@ def _store_phase(torch, bp, shape, device, root):
           f"{len(entries[0].chunks)} chunks of 2**20 each): {t_write:.3f} s, "
           f"{raw / t_write / 1e9:.3f} GB/s, {stored / 1e6:.1f} MB stored",
           flush=True)
-    launches["write"] = read_launches(bp, ("rb_encode",),
-                                      "phase-9 write launches")
+    launches["write"] = lossless_launches(
+        bp, plain if on_card else {}, ("rb_encode",) + on_card,
+        "phase-9 write launches")
     peak("phase-9 write")
 
     # the shared tier: 8 sessions released together, two ladders per
@@ -1025,12 +1073,15 @@ def _store_phase(torch, bp, shape, device, root):
     jobs.update({("qoi", k): (lambda: qoi(svc)) for k in (0, 1)})
     bp.reset_launches()
     t0 = time.perf_counter()
-    with obs_trace.tracing() as tr:
+    with _PlainCalls(targets=_plain_lossless_targets()) as plain, \
+            obs_trace.tracing() as tr:
         shared = _run_sessions(jobs)
         sync()
     t_serve = time.perf_counter() - t0
-    launches["serve"] = read_launches(bp, ("rb_decode",),
-                                      "phase-9 shared serving launches")
+    launches["serve"] = lossless_launches(
+        bp, plain if on_card else {},
+        ("rb_decode",) + (("huffman_decode",) if on_card else ()),
+        "phase-9 shared serving launches")
     peak("phase-9 shared serving")
     snap = svc.stats()
     tier, be = snap["serving"], snap["backend"]
@@ -1390,6 +1441,8 @@ def miranda_phase(torch, bp):
           f" MB): {time.perf_counter() - t0:.2f} s to make", flush=True)
     x_dev = torch.from_numpy(x).cuda()
     bp.reset_launches()
+    plain = _PlainCalls(targets=_plain_lossless_targets())
+    plain.__enter__()
     with obs_trace.tracing() as tr:
         t0 = time.perf_counter()
         r = bc.exact_refactor(x)
@@ -1427,8 +1480,10 @@ def miranda_phase(torch, bp):
         print(f"exact_retrieve rel {rel}: {wall:.3f} s, {nb} bytes "
               f"({nb / len(blob):.3f} of the blob), max relative error "
               f"{err:.3g}{' (bit-exact)' if rel is None else ''}", flush=True)
-    read_launches(bp, ("rb_encode", "rb_decode"),
-                  "phase-12 Miranda launches (32-plane limbs)")
+    plain.__exit__(None, None, None)
+    lossless_launches(bp, plain.n, ("rb_encode", "rb_decode", "huffman_pack",
+                                    "huffman_decode"),
+                      "phase-12 Miranda launches (32-plane limbs)")
     xs = x[:64, :96, :96].copy()
     check(bc.exact_to_bytes(bc.exact_refactor(xs)) ==
           bc.exact_to_bytes(bc.exact_refactor(xs, device="cpu")),
@@ -1838,19 +1893,23 @@ FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
 
 class _PlainCalls:
-    """Counts calls of the plain versions on the trainer's path while
-    active, by name: the plain bitplane encode and decode (``kernels.ops``
-    reaches them through ``kernels.ref``'s attributes), ``ef_quantize``'s
-    plane path and AdamW's ``_upd``."""
+    """Counts calls of plain versions while active, by name: by default
+    those on the trainer's path, the plain bitplane encode and decode
+    (``kernels.ops`` reaches them through ``kernels.ref``'s attributes),
+    ``ef_quantize``'s plane path and AdamW's ``_upd``; else ``targets``
+    ({name: (module, attribute)}, such as the lossless codec's,
+    ``_plain_lossless_targets``)."""
 
-    def __init__(self, ref):
-        from repro_torch.distributed import grad_compress as gc
-        from repro_torch.optim import adamw
-        self.targets = {"ref.encode": (ref, "encode"),
-                        "ref.decode": (ref, "decode"),
-                        "ef_quantize planes": (gc, "_encode_planes"),
-                        "ef_quantize decode": (gc, "_decode_planes"),
-                        "adamw._upd": (adamw, "_upd")}
+    def __init__(self, ref=None, targets=None):
+        if targets is None:
+            from repro_torch.distributed import grad_compress as gc
+            from repro_torch.optim import adamw
+            targets = {"ref.encode": (ref, "encode"),
+                       "ref.decode": (ref, "decode"),
+                       "ef_quantize planes": (gc, "_encode_planes"),
+                       "ef_quantize decode": (gc, "_decode_planes"),
+                       "adamw._upd": (adamw, "_upd")}
+        self.targets = targets
         self.n = dict.fromkeys(self.targets, 0)
 
     def __enter__(self):
@@ -3473,8 +3532,8 @@ def analysis_phase(torch, bp, x_np):
     """Phase 19: the dispatched-op analysis and the cost model against the
     card: (a) the fused write program, card and ``meta``; (b) danube/2's
     train step in a NCCL world of one rank on a (1, 1) mesh, card and the
-    dry run's fake count; (c) the scan backwards' workspace, card and
-    ``meta``."""
+    dry run's fake count.  (c), the scan backwards' workspace, runs first,
+    after the build (``main``)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     t0 = time.perf_counter()
@@ -3490,10 +3549,6 @@ def analysis_phase(torch, bp, x_np):
     finally:
         dist.destroy_process_group()
     _free(torch)
-    t0 = time.perf_counter()
-    scan_workspace_check(torch)
-    print(f"(c) the scan backwards' workspace: {time.perf_counter() - t0:.2f} "
-          f"s", flush=True)
 
 
 # --------------------------------------------------------------- phase 20 --
@@ -3937,6 +3992,425 @@ def scan_phase(torch, bp):
     return rows, scan_main_path(torch, bp, sc)
 
 
+# --------------------------------------------------------------- phase 21 --
+
+LOSSLESS = ("lossless_stats", "huffman_pack", "huffman_decode", "rle_scan",
+            "rle_expand")
+LOSSLESS_SOURCE = "src/repro_torch/kernels/csrc/lossless.cu"
+# what each replaces: the reference's jitted passes (no Pallas kernel)
+LOSSLESS_REPLACES = {"lossless_stats": "src/repro/core/lossless_batch.py:163",
+                     "huffman_pack": "src/repro/core/lossless.py:216",
+                     "huffman_decode": "src/repro/core/lossless.py:238",
+                     "rle_scan": "src/repro/core/lossless.py:265",
+                     "rle_expand": "src/repro/core/lossless.py:280"}
+LOSSLESS_SIZES = (1, 2, 31, 4095, 4096, 4097, 32767, 32768, 32769, 65537)
+LOSSLESS_CONTENTS = ("skewed", "zeros", "uniform", "runs", "one")
+# the least integer operations a symbol (of S, or of n decoded) each
+# function needs: a bin's add and a neighbour's compare; a length's add
+# to the offset, two shifts and an OR; a window's shift, a look-up, an add
+# and a store; a compare and a count; a store
+LOSSLESS_OPS = {"lossless_stats": 2, "huffman_pack": 4, "huffman_decode": 4,
+                "rle_scan": 2, "rle_expand": 1}
+
+
+def _plain_lossless_targets():
+    from repro_torch.core import lossless as ll
+    from repro_torch.core import lossless_batch as lb
+    return {"group_stats": (lb, "_group_stats_plain"),
+            "huffman_pack": (ll, "_huffman_pack_plain"),
+            "huffman_unpack": (ll, "_huffman_unpack_plain"),
+            "rle_scan": (ll, "_rle_scan_plain"),
+            "rle_expand": (ll, "_rle_expand_plain")}
+
+
+def lossless_launches(bp, plain, required, what):
+    """The launches since the last reset (printed), the ``required`` ones
+    > 0, and no plain lossless pass counted by ``plain`` (a
+    ``_PlainCalls`` of ``_plain_lossless_targets``)."""
+    got = read_launches(bp, required, what)
+    check(not any(plain.values()),
+          f"{what}: plain lossless passes ran on the card: {plain}")
+    return got
+
+
+def _lossless_rows(kind, b, s, rng):
+    """(B, S) uint8 rows of one content: skewed, all-zero, uniform, runs,
+    or one symbol."""
+    import numpy as np
+    if kind == "skewed":
+        return (rng.geometric(0.3, (b, s)) % 256).astype(np.uint8)
+    if kind == "zeros":
+        return np.zeros((b, s), np.uint8)
+    if kind == "uniform":
+        return rng.integers(0, 256, (b, s)).astype(np.uint8)
+    if kind == "runs":
+        reps = rng.integers(1, 300, (b, s // 20 + 2))
+        vals = rng.integers(0, 4, (b, s // 20 + 2))
+        return np.stack([np.repeat(v, r)[:s] for v, r in zip(vals, reps)]
+                        ).astype(np.uint8)
+    return np.full((b, s), 7 + b, np.uint8)
+
+
+def lossless_case(torch, x):
+    """Each lossless kernel against its plain version on the card, on the
+    (B, S) uint8 rows ``x``, byte for byte: the stats; the pack with each
+    row's codebook from its histogram; the decode of that stream back to
+    ``x``; the RLE scan (nruns, and each row's first nruns values and
+    lengths); the expand of those runs back to ``x``.  Returns the
+    kernels' inputs and each kernel's largest difference."""
+    import numpy as np
+    from repro_torch.core import lossless as ll
+    from repro_torch.core import lossless_batch as lb
+    from repro_torch.kernels import lossless as kl
+    b, s = x.shape
+    errs = {}
+
+    def diff(name, got, want):
+        d = max((a.to(torch.int64) - w.to(torch.int64)).abs().max().item()
+                if a.numel() else 0 for a, w in zip(got, want))
+        check(d == 0 and all(a.shape == w.shape for a, w in zip(got, want)),
+              f"{name} (B={b}, S={s}) differs from its plain version by {d}")
+        errs[name] = max(errs.get(name, 0), d)
+
+    diff("lossless_stats", kl.lossless_stats(x), lb._group_stats_plain(x))
+    hist = lb._group_stats_plain(x)[0].cpu().numpy()
+    books = [ll.build_codebook(h) for h in hist]
+    lt, ct = (torch.from_numpy(np.stack([bk[i] for bk in books]
+                                        ).astype(np.int64)).cuda()
+              for i in (0, 1))
+    want = ll._huffman_pack_plain(x, lt, ct)
+    diff("huffman_pack", kl.huffman_pack(x, lt, ct), want)
+    # the stored words, padded to the bucket's longest row, as
+    # ``decode_segments`` uploads them
+    stored = int(((want[1] + 31) // 32 + 1).max())
+    words, offs = want[0][:, :stored].contiguous(), want[2].contiguous()
+    luts = [ll._build_decode_lut(*bk) for bk in books]
+    ls, ln = (torch.from_numpy(np.stack([lu[i] for lu in luts])).cuda()
+              for i in (0, 1))
+    dec = ll._huffman_unpack_plain(words, offs, ls, ln, s)
+    check(torch.equal(dec, x), f"plain decode (B={b}, S={s}) is not x")
+    diff("huffman_decode", (kl.huffman_decode(words, offs, ls, ln, s),),
+         (dec,))
+    vals, lens, nruns = kl.rle_scan(x)
+    pv, pl, pn = ll._rle_scan_plain(x)
+    diff("rle_scan", (nruns,), (pn,))
+    for r in range(b):
+        k = int(pn[r])
+        diff("rle_scan", (vals[r, :k], lens[r, :k].to(torch.int64) & 0xFFFF),
+             (pv[r, :k], pl[r, :k]))
+    rr = int(pn.max())
+    rv, rl = pv[:, :rr].contiguous(), pl[:, :rr].to(torch.int32).contiguous()
+    out = ll._rle_expand_plain(rv, rl, s)
+    check(torch.equal(out, x), f"plain expand (B={b}, S={s}) is not x")
+    diff("rle_expand", (kl.rle_expand(rv, rl, s),), (out,))
+    return dict(x=x, lt=lt, ct=ct, words=words, offs=offs, ls=ls, ln=ln,
+                rv=rv, rl=rl, nruns=pn, total_bits=want[1], errs=errs)
+
+
+def lossless_edges(torch):
+    """Phase 21 (a)'s sizes and contents: every kernel byte-identical to
+    its plain version; returns the cases checked and the largest
+    differences (0)."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    n, errs = 0, {}
+    for s in LOSSLESS_SIZES:
+        for b in (1, 3):
+            for kind in LOSSLESS_CONTENTS:
+                x = torch.from_numpy(_lossless_rows(kind, b, s, rng)).cuda()
+                for k, v in lossless_case(torch, x)["errs"].items():
+                    errs[k] = max(errs.get(k, 0), v)
+                n += 1
+    torch.cuda.synchronize()
+    return n, errs
+
+
+class _Buckets:
+    """Records every bucket the batched encoder stacks (the (B, S) uint8
+    rows of one group size) while active."""
+
+    def __enter__(self):
+        from repro_torch.core import lossless_batch as lb
+        self.lb, self.was, self.seen = lb, lb._encode_buckets, []
+
+        def rec(stacked, *args, **kw):
+            self.seen.extend(stacked.values())
+            return self.was(stacked, *args, **kw)
+        lb._encode_buckets = rec
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.lb._encode_buckets = self.was
+
+
+def main_path_groups(torch, rf, x_np, pipe, nyx):
+    """Groups taken from real writes, one row each: a 4-plane group of
+    Isabel's finest piece and its sign plane (phase 3's write), phase 8's
+    largest group (a 2**24-value NYX chunk, ``shuffle``) and phase 9's
+    kind (a 2**20-value chunk, ``register_block``, the store's write
+    path; of the Isabel-shaped field)."""
+    groups = {}
+    with _Buckets() as seen:
+        rf.refactor_array(x_np, "isabel", device="cuda")
+    sizes = sorted({int(st.shape[1]) for st in seen})
+    big = max(seen, key=lambda st: st.shape[1])
+    # the bucket's rows are the piece's 4-plane groups, MSB first: the
+    # middle one (planes 8-11 of 23) is neither all zero nor all noise
+    groups["isabel 4-plane group"] = big[big.shape[0] // 2:][:1].contiguous()
+    sign = [st for st in seen if st.shape[1] == big.shape[1] // 4]
+    check(sign, f"no sign-plane bucket among sizes {sizes}")
+    groups["isabel sign plane"] = sign[0][:1].contiguous()
+    with _Buckets() as seen:
+        pipe.ChunkedRefactorPipeline(
+            chunk_elems=PIPE_CHUNK, levels=PIPE_LEVELS, design="shuffle",
+            use_tune_cache=False, device="cuda").refactor(
+                nyx.reshape(-1)[:PIPE_CHUNK], "nyx")
+    groups["phase 8 largest group"] = max(
+        seen, key=lambda st: st.shape[1])[:1].contiguous()
+    u = x_np.reshape(-1)[:1 << 20]
+    with _Buckets() as seen:
+        pipe.ChunkedRefactorPipeline(
+            chunk_elems=1 << 20, design="register_block",
+            use_tune_cache=False, device="cuda").refactor(u, "U")
+    groups["phase 9 largest group"] = max(
+        seen, key=lambda st: st.shape[1])[:1].contiguous()
+    for k, g in groups.items():
+        print(f"{k}: S = {g.shape[1]}", flush=True)
+    return groups
+
+
+def _lossless_bytes(name, c):
+    """The bytes each function must move at ``c``'s inputs: inputs read
+    once, outputs written once (rle_scan's: this data's runs)."""
+    b, s = c["x"].shape
+    if name == "lossless_stats":
+        return b * s + 8 * 257 * b
+    if name == "huffman_pack":
+        return b * s + 16 * 256 * b + 4 * c["words"].numel() + 8 * b \
+            + 8 * c["offs"].numel()
+    if name == "huffman_decode":   # each row's stored words
+        words = int(((c["total_bits"] + 31) // 32 + 1).sum())
+        return 4 * words + 8 * c["offs"].numel() + 2 * 65536 * b + b * s
+    if name == "rle_scan":
+        return b * s + 3 * int(c["nruns"].sum()) + 8 * b
+    return 5 * c["rv"].numel() + b * s
+
+
+def lossless_timings(torch, c, what):
+    """Each lossless kernel at the (1, S) group ``c`` (a ``lossless_case``):
+    ``ms`` through the wrapper back to back, ``device_ms`` a replayed CUDA
+    graph over input copies past the L2, the plain version, the bound
+    (bytes at 3.35 TB/s or ``LOSSLESS_OPS`` at the INT32 rate), and for
+    the histogram ``torch.bincount`` and for the expand
+    ``torch.repeat_interleave`` (the same bytes where a row's run lengths
+    sum to S, as every segment's do)."""
+    from repro_torch.core import lossless as ll
+    from repro_torch.core import lossless_batch as lb
+    from repro_torch.kernels import lossless as kl
+    s = c["x"].shape[1]
+    x, words, offs, ls, ln = c["x"], c["words"], c["offs"], c["ls"], c["ln"]
+    calls = {
+        "lossless_stats": (kl.lossless_stats, lb._group_stats_plain, (x,)),
+        "huffman_pack": (kl.huffman_pack, ll._huffman_pack_plain,
+                         (x, c["lt"], c["ct"])),
+        "huffman_decode": (lambda *a: kl.huffman_decode(*a, s),
+                           lambda *a: ll._huffman_unpack_plain(*a, s),
+                           (words, offs, ls, ln)),
+        "rle_scan": (kl.rle_scan, ll._rle_scan_plain, (x,)),
+        "rle_expand": (lambda *a: kl.rle_expand(*a, s),
+                       lambda *a: ll._rle_expand_plain(*a, s),
+                       (c["rv"], c["rl"]))}
+    rows = {}
+    for name, (fn, plain, args) in calls.items():
+        nbytes = _lossless_bytes(name, c)
+        copies = [args] + [tuple(a.clone() for a in args) for _ in range(
+            -(-2 * L2_BYTES // max(nbytes, 1)) - 1)]
+        it = itertools.cycle(copies)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = LOSSLESS_OPS[name] * s / INT32_OPS_PER_S * 1e3
+        rows[name] = dict(
+            case=what, s=s, bytes=nbytes, ms=time_ms(lambda: fn(*args)),
+            device_ms=time_ms(lambda: fn(*next(it)), graph=True),
+            plain_ms=time_ms(lambda: plain(*args), reps=3, inner=1,
+                             warmup=1),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, max_abs_err=c["errs"][name],
+            copies=len(copies))
+    rows["lossless_stats"]["library_ms"] = time_ms(
+        lambda: torch.bincount(x[0], minlength=256))
+    rv, rl = c["rv"][0], c["rl"][0]
+    check(torch.equal(torch.repeat_interleave(rv, rl, output_size=s), x[0]),
+          f"torch.repeat_interleave on {what} is not the group")
+    rows["rle_expand"]["library_ms"] = time_ms(
+        lambda: torch.repeat_interleave(rv, rl, output_size=s))
+    for name, r in rows.items():
+        extra = ""
+        if name == "huffman_decode":
+            extra = (f"; the chain: "
+                     f"{r['device_ms'] * 1e6 / min(kl.CHUNK, s):.1f} ns "
+                     f"a code over {min(kl.CHUNK, s)} dependent codes")
+        elif name == "lossless_stats":
+            extra = f"; torch.bincount {r['library_ms'] * 1e3:.1f} us"
+        elif name == "rle_expand":
+            extra = (f"; torch.repeat_interleave "
+                     f"{r['library_ms'] * 1e3:.1f} us")
+        print(f"{name} on {what} (S={s}): kernel {r['ms'] * 1e3:.1f} us "
+              f"through the wrapper back to back, device "
+              f"{r['device_ms'] * 1e3:.1f} us (graph replay over "
+              f"{r['copies']} input copies), plain {r['plain_ms'] * 1e3:.1f}"
+              f" us, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
+              f"{r['bytes'] / 1e6:.2f} MB), device / bound "
+              f"{r['device_ms'] / r['bound_ms']:.1f}{extra}", flush=True)
+    return rows
+
+
+def _peak_base(torch) -> int:
+    """Start a read's peak: the allocator's peak from here, less what is
+    allocated now, is the read's own rise."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _ladder(torch, rt, r, backend):
+    """Phase 3's read ladder on a fresh reader: each step's values."""
+    reader = rt.ProgressiveReader(r, backend=backend, device="cuda")
+    return [reader.retrieve_device(tol, relative=True)[0] for tol in TOLS]
+
+
+def lossless_stage_walls(torch, rf, rt, pipe, x_np, nyx):
+    """Phase 21 (b): phase 3's write and ladder and phase 8's pipelined
+    write and read, ``backend="torch"``, then the kernels (``"auto"``)
+    twice, then ``"torch"``, in one process: the same blobs and values
+    every turn; the walls, the spans ``encode.finish`` / ``encode.
+    finish_many`` and ``codec.decode``, and each read's peak device memory
+    above what was allocated when it began."""
+    from repro_torch.obs import trace as obs_trace
+    kw = dict(chunk_elems=PIPE_CHUNK, levels=PIPE_LEVELS, design="shuffle",
+              use_tune_cache=False, device="cuda")
+    first, turns = None, []
+    for backend in ("torch", "auto", "auto", "torch"):
+        t = {"backend": backend}
+        with obs_trace.tracing() as tr:
+            t0 = time.perf_counter()
+            r = rf.refactor_array(x_np, "isabel", backend=backend,
+                                  device="cuda")
+            torch.cuda.synchronize()
+            t["isabel write"] = time.perf_counter() - t0
+            blob = rf.refactored_to_bytes(r)
+            del r
+            base = _peak_base(torch)
+            t0 = time.perf_counter()
+            vals = _ladder(torch, rt, rf.refactored_from_bytes(blob), backend)
+            torch.cuda.synchronize()
+            t["isabel ladder"] = time.perf_counter() - t0
+            t["isabel ladder peak"] = torch.cuda.max_memory_allocated() - base
+        spans = tr.summary()["spans"]
+        t["isabel spans"] = {k: spans[k]["total_s"] for k in
+                             ("encode.finish", "codec.decode") if k in spans}
+        with obs_trace.tracing() as tr:
+            t0 = time.perf_counter()
+            blobs = pipe.ChunkedRefactorPipeline(
+                pipelined=True, backend=backend, **kw).refactor(nyx, "nyx")
+            t["nyx write"] = time.perf_counter() - t0
+            base = _peak_base(torch)
+            t0 = time.perf_counter()
+            out = pipe.ChunkedReconstructPipeline(
+                pipelined=True, backend=backend, device="cuda").reconstruct(
+                    blobs, PIPE_TOL)
+            t["nyx read"] = time.perf_counter() - t0
+            t["nyx read peak"] = torch.cuda.max_memory_allocated() - base
+        spans = tr.summary()["spans"]
+        t["nyx spans"] = {k: spans[k]["total_s"] for k in
+                          ("encode.finish_many", "codec.decode")
+                          if k in spans}
+        if first is None:
+            first = (blob, vals, blobs, out.tobytes())
+        else:
+            check(blob == first[0] and blobs == first[2],
+                  f"backend {backend!r}: blobs differ from the first turn's")
+            check(all(torch.equal(a, b) for a, b in zip(vals, first[1]))
+                  and out.tobytes() == first[3],
+                  f"backend {backend!r}: values differ from the first turn's")
+        print(f"turn {len(turns) + 1} (backend {backend!r}): Isabel write "
+              f"{t['isabel write']:.3f} s, ladder {t['isabel ladder']:.3f} s "
+              f"(peak rise {t['isabel ladder peak'] / 2 ** 30:.3f} GiB), "
+              f"spans "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in
+                          t["isabel spans"].items())
+              + f"; NYX pipelined write {t['nyx write']:.3f} s, read "
+              f"{t['nyx read']:.3f} s (peak rise "
+              f"{t['nyx read peak'] / 2 ** 30:.3f} GiB), spans " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in t["nyx spans"].items()),
+              flush=True)
+        turns.append(t)
+        del vals, out
+        _free(torch)
+    print("kernels == backend='torch' in every turn: Isabel's blob and "
+          "ladder values, NYX's chunk blobs and read values", flush=True)
+    return turns
+
+
+def rle_main_path(torch, bp, rf, rt, x_np):
+    """Algorithm 2 with RLE forced (``HybridConfig(force="rle")``, the
+    lossless strategies' RLE mode): Isabel's write and ladder on the card,
+    counters zeroed before: every group through ``rle_scan`` and back
+    through ``rle_expand``, no plain pass, the bound held at every step,
+    and the same blob as with ``backend="torch"``."""
+    from repro_torch.core import lossless as ll
+    x_dev = torch.from_numpy(x_np).cuda()
+    hybrid = ll.HybridConfig(force="rle")
+    bp.reset_launches()
+    with _PlainCalls(targets=_plain_lossless_targets()) as plain:
+        t0 = time.perf_counter()
+        r = rf.refactor_array(x_np, "isabel", hybrid=hybrid, device="cuda")
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t0
+        blob = rf.refactored_to_bytes(r)
+        t0 = time.perf_counter()
+        reader = rt.ProgressiveReader(rf.refactored_from_bytes(blob),
+                                      device="cuda")
+        for tol in TOLS:
+            xh, bound, _ = reader.retrieve_device(tol, relative=True)
+            err = (xh - x_dev).abs().max().item()
+            check(err <= bound, f"rle tol {tol}: error {err} > {bound}")
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+    launches = lossless_launches(
+        bp, plain, ("lossless_stats", "rle_scan", "rle_expand"),
+        "phase-21 forced-RLE main-path launches")
+    check(launches["huffman_pack"] == 0, "forced RLE packed Huffman")
+    plain_blob = rf.refactored_to_bytes(rf.refactor_array(
+        x_np, "isabel", hybrid=hybrid, backend="torch", device="cuda"))
+    check(plain_blob == blob, "forced-RLE blobs differ between the kernels "
+          "and backend='torch'")
+    print(f"forced RLE: write {t_write:.3f} s, ladder {t_read:.3f} s, "
+          f"{len(blob)} wire bytes, == backend='torch''s blob", flush=True)
+    return launches
+
+
+def lossless_phase(torch, bp, rf, rt, x_np, nyx):
+    """Phase 21: (a) the lossless kernels against their plain versions at
+    the edge sizes and on real groups, timed there; the forced-RLE main
+    path; (b) the stage walls, kernels against plain, in turns.  Returns
+    the timing rows by group and the forced-RLE path's launches.  ``nyx``:
+    phase 8's field."""
+    from repro_torch.core import pipeline as pipe
+    n, errs = lossless_edges(torch)
+    print(f"{n} lossless cases (S in {LOSSLESS_SIZES}, B 1 and 3, "
+          f"{', '.join(LOSSLESS_CONTENTS)}): every kernel byte-identical to "
+          f"its plain version", flush=True)
+    rows = {}
+    for what, g in main_path_groups(torch, rf, x_np, pipe, nyx).items():
+        rows[what] = lossless_timings(torch, lossless_case(torch, g), what)
+        _free(torch)
+    rle = rle_main_path(torch, bp, rf, rt, x_np)
+    _free(torch)
+    lossless_stage_walls(torch, rf, rt, pipe, x_np, nyx)
+    return rows, rle
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3973,6 +4447,16 @@ def main(argv) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     done(t0, "phase 1")
 
+    # before any other phase: the allocator gives a request a cached free
+    # block up to 1 MB larger than it without splitting it, so the bytes
+    # allocated over one call hold to the rounding only where no earlier
+    # phase left such a block
+    t0 = phase("19 (c) the scan backwards' workspace, card and meta, "
+               "first")
+    scan_workspace_check(torch)
+    _free(torch)
+    done(t0, "phase 19 (c)")
+
     t0 = phase("2 kernels vs plain, on the card")
     specs = kernel_specs(bp, ref)
     n_cases = kernels_vs_plain(torch, specs)
@@ -3996,6 +4480,7 @@ def main(argv) -> int:
     x_np = gaussian_field(ISABEL_SHAPE, slope=-2.0, seed=0)
     print(f"field {ISABEL_SHAPE}: {time.perf_counter() - t0:.2f} s to make")
     launches, blob = main_path(torch, bp, rf, rt, x_np)
+    p3_lossless = {k: launches[k] for k in LOSSLESS}
     launches = {k: launches[k] for k in ("rb_encode", "rb_decode")}
     done(t0, "phase 3")
 
@@ -4031,7 +4516,7 @@ def main(argv) -> int:
 
     t0 = phase("10 sharded engines, split over one card")
     sharded_phase(torch, bp, nyx, nyx_blobs, nyx_values)
-    del nyx, nyx_blobs, nyx_values
+    del nyx_blobs, nyx_values     # phase 21 writes nyx again
     done(t0, "phase 10")
 
     t0 = phase("11 the autotuner at the Isabel shape")
@@ -4077,8 +4562,8 @@ def main(argv) -> int:
     jamba_phase(torch)
     done(t0, "phase 18")
 
-    t0 = phase("19 analysis: the fused write program, danube/2's train "
-               "step and the scan backwards counted on the card and on meta")
+    t0 = phase("19 analysis: the fused write program and danube/2's train "
+               "step counted on the card and on meta ((c) ran first)")
     analysis_phase(torch, bp, x_np)
     done(t0, "phase 19")
 
@@ -4088,6 +4573,17 @@ def main(argv) -> int:
     scan_rows, scan_launches = scan_phase(torch, bp)
     print(f"phase-20 (b) launches: {scan_launches}", flush=True)
     done(t0, "phase 20")
+
+    t0 = phase("21 the lossless codec's kernels: against the plain passes "
+               "at the edges and on real groups, timed; forced RLE; the "
+               "stage walls, kernels against backend='torch' in turns")
+    ll_rows, rle_launches = lossless_phase(torch, bp, rf, rt, x_np, nyx)
+    # launches: phase 3's main path, and the forced-RLE path's for RLE
+    ll_launches = dict(p3_lossless, rle_scan=rle_launches["rle_scan"],
+                       rle_expand=rle_launches["rle_expand"])
+    print(f"phase-21 launches (phase 3's, RLE's forced path): "
+          f"{ll_launches}", flush=True)
+    done(t0, "phase 21")
 
     src = "src/repro_torch/kernels/csrc/bitplane.cu"
     entries = []
@@ -4120,6 +4616,17 @@ def main(argv) -> int:
                         "replaces": OPT_REPLACES[name],
                         "launches": p14["launches"][name],
                         "max_abs_err": p14["errs"][name], "ms": r["ms"],
+                        "device_ms": r["device_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    for name in LOSSLESS:
+        r = ll_rows["isabel 4-plane group"][name]
+        entries.append({"name": name, "route": "cuda",
+                        "source": LOSSLESS_SOURCE,
+                        "replaces": LOSSLESS_REPLACES[name],
+                        "launches": ll_launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -139,7 +139,8 @@ def exact_refactor(x, hybrid: ll.HybridConfig = ll.HybridConfig(),
     with obs_trace.span("ckpt.compress", groups=len(group_planes)):
         for g in group_planes:
             blob = planes_np[row:row + g].reshape(-1).view(np.uint8)
-            seg = ll.compress_group(blob, hybrid, device=x.device)
+            seg = ll.compress_group(blob, hybrid, device=x.device,
+                                    backend=backend)
             seg.meta["n_planes"] = g
             seg.meta["n_words"] = int(planes_np.shape[1])
             groups.append(seg)
@@ -162,7 +163,7 @@ def exact_retrieve(r: ExactRefactored, rel_error: Optional[float] = None,
             if got >= want:
                 break
             w = seg.meta["n_words"]
-            rows.append(ll.decompress_group(seg, device=dev)
+            rows.append(ll.decompress_group(seg, device=dev, backend=backend)
                         .view(np.int32).reshape(-1, w))
             nbytes += seg.stored_bytes
             got += g

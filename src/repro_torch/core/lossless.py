@@ -18,10 +18,13 @@ selector:
 
 The codebook build, the estimators, ``exact_stored_bytes``, the ``Segment``
 framing and the Algorithm-2 decision are host numpy, copied from the
-reference.  The device parts are torch ops on rows ``(B, S)`` -- the batched
-engine (``core.lossless_batch``) calls them on whole buckets, the per-group
-codecs here on one row -- with the bit work in int64 (torch's CPU backend
-has no uint32 shifts or scatter-adds).
+reference.  The device parts take rows ``(B, S)`` -- the batched engine
+(``core.lossless_batch``) calls them on whole buckets, the per-group codecs
+here on one row.  On CUDA and ``meta`` tensors they are the Hopper kernels
+of ``kernels/lossless.py`` (``backend="auto"`` or ``"cuda"``); on the CPU
+and with ``backend="torch"`` their plain versions (``*_plain``), eager
+torch ops with the bit work in int64 (torch's CPU backend has no uint32
+shifts or scatter-adds).  Both give the same bytes.
 
 The per-group codecs place their data on ``device`` (``None`` means
 ``cuda``; see ``repro_torch.device``).
@@ -55,6 +58,23 @@ def _check_group_size(n: int) -> None:
         raise ValueError(
             f"group of {n} symbols exceeds MAX_GROUP_SYMS={MAX_GROUP_SYMS} "
             "(uint32 bit offsets would overflow); use smaller chunks")
+
+
+def _check_chunk_offs(seg: "Segment") -> None:
+    """A Huffman segment's chunk offsets, checked on the host before any
+    upload: one for every CHUNK symbols, each before the end of the
+    segment's words.  Past that end the plain decode reads zero padding
+    and then faults (its ``gather``; on the card a device-side assert),
+    and the kernel reads no word past its row; the reference decodes such
+    a segment to garbage.  Raises ``ValueError``."""
+    offs = seg.payload["chunk_offs"]
+    n, n_bits = seg.meta["n_syms"], 32 * seg.payload["words"].shape[0]
+    if offs.shape[0] < -(-n // CHUNK):
+        raise ValueError(f"corrupt segment: {offs.shape[0]} chunk offsets "
+                         f"for {n} symbols")
+    if offs.size and int(offs.max()) >= n_bits:
+        raise ValueError(f"corrupt segment: a chunk offset {int(offs.max())}"
+                         f" past its {n_bits} bits of words")
 
 
 # ---------------------------------------------------------------- codebook --
@@ -165,12 +185,38 @@ def _build_decode_lut(lengths: np.ndarray, codes: np.ndarray) -> Tuple[np.ndarra
 #
 # All four take rows: (B, S) uint8 symbols (or their (B, ...) payloads) on
 # one device, and return device tensors; the host trims per-row tails.
+# Each dispatches on its first tensor and ``backend`` (``kernels.lossless.
+# use_kernel``) to its kernel operator or to its plain version.
+
+def _kernels():
+    from repro_torch.kernels import lossless as kl  # local: no import cycle
+    return kl
+
+
+def _refuse(device: DeviceLike, backend: str) -> None:
+    """Raise, before any work, on a backend that ``device`` cannot take
+    (``"cuda"`` on the CPU, an unknown name)."""
+    _kernels().use_kernel(torch.device("cuda" if device is None else device),
+                          backend)
+
 
 def _huffman_pack(syms: torch.Tensor, lens_tab: torch.Tensor,
-                  codes_tab: torch.Tensor):
+                  codes_tab: torch.Tensor, backend: str = "auto"):
     """Parallel bit-pack of each row: (B, S) symbols + per-row (B, 256)
     codebooks -> (words (B, cap) uint32 bits in int32 storage, total_bits
     (B,), chunk_offs (B, ceil(S/CHUNK))).  ``cap`` is the reference's."""
+    kl = _kernels()
+    if kl.use_kernel(syms, backend):
+        return kl.huffman_pack(syms.contiguous(),
+                               lens_tab.to(torch.int64).contiguous(),
+                               codes_tab.to(torch.int64).contiguous())
+    return _huffman_pack_plain(syms, lens_tab, codes_tab)
+
+
+def _huffman_pack_plain(syms: torch.Tensor, lens_tab: torch.Tensor,
+                        codes_tab: torch.Tensor):
+    """``_huffman_pack``'s plain version: eager int64 passes and two
+    ``scatter_add_``s."""
     b, s = syms.shape
     idx = syms.to(torch.int64)
     lens = torch.gather(lens_tab.to(torch.int64), 1, idx)
@@ -194,9 +240,25 @@ def _huffman_pack(syms: torch.Tensor, lens_tab: torch.Tensor,
 
 def _huffman_unpack(words: torch.Tensor, chunk_offs: torch.Tensor,
                     lut_sym: torch.Tensor, lut_len: torch.Tensor,
-                    n_syms: int) -> torch.Tensor:
+                    n_syms: int, backend: str = "auto") -> torch.Tensor:
     """Chunk-parallel decode of each row: (B, L) words (zero-padded rows),
     (B, C) chunk start bits, (B, 2**16) peek LUTs -> (B, n_syms) uint8.
+    The kernel (a thread walks a chunk's codes) takes int32 words and
+    int64 offsets; the plain version any integer type."""
+    kl = _kernels()
+    if kl.use_kernel(words, backend):
+        return kl.huffman_decode(
+            words.to(torch.int32).contiguous(),
+            chunk_offs.to(torch.int64).contiguous(),
+            lut_sym.to(torch.uint8).contiguous(),
+            lut_len.to(torch.uint8).contiguous(), n_syms)
+    return _huffman_unpack_plain(words, chunk_offs, lut_sym, lut_len, n_syms)
+
+
+def _huffman_unpack_plain(words: torch.Tensor, chunk_offs: torch.Tensor,
+                          lut_sym: torch.Tensor, lut_len: torch.Tensor,
+                          n_syms: int) -> torch.Tensor:
+    """``_huffman_unpack``'s plain version, by pointer doubling.
 
     A chunk never holds more than CHUNK symbols, and a single-chunk stream
     only ``n_syms``, so each chunk decodes ``steps = min(CHUNK, n_syms)``.
@@ -245,9 +307,19 @@ def _huffman_unpack(words: torch.Tensor, chunk_offs: torch.Tensor,
     return torch.gather(sym, 1, pos)
 
 
-def _rle_scan(syms: torch.Tensor):
+def _rle_scan(syms: torch.Tensor, backend: str = "auto"):
     """(B, S) symbols -> per-row (values (B, S), lengths (B, S), nruns (B,));
-    run slots beyond a row's nruns are trimmed on the host."""
+    run slots beyond a row's nruns are trimmed on the host.  The kernel's
+    lengths are uint16 bits in int16 storage, the plain version's int64."""
+    kl = _kernels()
+    if kl.use_kernel(syms, backend):
+        return kl.rle_scan(syms.contiguous())
+    return _rle_scan_plain(syms)
+
+
+def _rle_scan_plain(syms: torch.Tensor):
+    """``_rle_scan``'s plain version: a cumsum, a ``scatter_reduce_`` and
+    gathers."""
     b, n = syms.shape
     dev = syms.device
     idx = torch.arange(n, dtype=torch.int64, device=dev)
@@ -265,9 +337,19 @@ def _rle_scan(syms: torch.Tensor):
 
 
 def _rle_expand(values: torch.Tensor, lengths: torch.Tensor,
-                n: int) -> torch.Tensor:
+                n: int, backend: str = "auto") -> torch.Tensor:
     """(B, R) run values + lengths (zero-length padded runs allowed at the
-    end) -> (B, n) symbols."""
+    end) -> (B, n) symbols.  The kernel takes int32 lengths."""
+    kl = _kernels()
+    if kl.use_kernel(values, backend):
+        return kl.rle_expand(values.contiguous(),
+                             lengths.to(torch.int32).contiguous(), n)
+    return _rle_expand_plain(values, lengths, n)
+
+
+def _rle_expand_plain(values: torch.Tensor, lengths: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """``_rle_expand``'s plain version: one ``searchsorted`` a byte."""
     b, r = values.shape
     cum = torch.cumsum(lengths.to(torch.int64), dim=1)
     pos = torch.arange(n, dtype=torch.int64,
@@ -426,7 +508,8 @@ class Segment:
 
 def huffman_encode(data: np.ndarray, hist: Optional[np.ndarray] = None,
                    codebook: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-                   device: DeviceLike = None) -> Segment:
+                   device: DeviceLike = None, backend: str = "auto"
+                   ) -> Segment:
     data = np.asarray(data, dtype=np.uint8)
     n = data.size
     _check_group_size(n)
@@ -440,7 +523,7 @@ def huffman_encode(data: np.ndarray, hist: Optional[np.ndarray] = None,
     words, total_bits, chunk_offs = _huffman_pack(
         _rows(data, dev),
         torch.from_numpy(lengths.astype(np.int64)).to(dev)[None],
-        torch.from_numpy(codes.astype(np.int64)).to(dev)[None])
+        torch.from_numpy(codes.astype(np.int64)).to(dev)[None], backend)
     total_bits = int(total_bits[0])
     n_words = (total_bits + 31) // 32 + 1
     return Segment(
@@ -454,7 +537,8 @@ def huffman_encode(data: np.ndarray, hist: Optional[np.ndarray] = None,
     )
 
 
-def huffman_decode(seg: Segment, device: DeviceLike = None) -> np.ndarray:
+def huffman_decode(seg: Segment, device: DeviceLike = None,
+                   backend: str = "auto") -> np.ndarray:
     lengths = seg.payload["lengths"]
     # canonical codes are reconstructible from lengths alone
     codes = _codes_from_lengths(lengths)
@@ -463,13 +547,15 @@ def huffman_decode(seg: Segment, device: DeviceLike = None) -> np.ndarray:
     _check_group_size(n)
     if n == 0:
         return np.zeros(0, np.uint8)
+    _check_chunk_offs(seg)
     dev = resolve_device(device)
     out = _huffman_unpack(
-        torch.from_numpy(seg.payload["words"].astype(np.int64)).to(dev)[None],
+        torch.from_numpy(seg.payload["words"].astype(np.uint32)
+                         .view(np.int32)).to(dev)[None],
         torch.from_numpy(seg.payload["chunk_offs"].astype(np.int64)
                          ).to(dev)[None],
         torch.from_numpy(lut_sym).to(dev)[None],
-        torch.from_numpy(lut_len).to(dev)[None], n)
+        torch.from_numpy(lut_len).to(dev)[None], n, backend)
     return out[0].cpu().numpy()
 
 
@@ -490,13 +576,15 @@ def _codes_from_lengths(lengths: np.ndarray) -> np.ndarray:
 
 
 
-def rle_encode(data: np.ndarray, device: DeviceLike = None) -> Segment:
+def rle_encode(data: np.ndarray, device: DeviceLike = None,
+               backend: str = "auto") -> Segment:
     data = np.asarray(data, dtype=np.uint8)
     if data.size == 0:
         return Segment("rle", 0, {"values": np.zeros(0, np.uint8),
                                   "lengths": np.zeros(0, np.uint16)},
                        {"n_syms": 0})
-    values, lengths, nruns = _rle_scan(_rows(data, resolve_device(device)))
+    values, lengths, nruns = _rle_scan(_rows(data, resolve_device(device)),
+                                       backend)
     r = int(nruns[0])
     return Segment("rle", data.size,
                    payload={"values": values[0, :r].cpu().numpy(),
@@ -505,15 +593,16 @@ def rle_encode(data: np.ndarray, device: DeviceLike = None) -> Segment:
                    meta={"n_syms": data.size})
 
 
-def rle_decode(seg: Segment, device: DeviceLike = None) -> np.ndarray:
+def rle_decode(seg: Segment, device: DeviceLike = None,
+               backend: str = "auto") -> np.ndarray:
     n = seg.meta["n_syms"]
     if n == 0:
         return np.zeros(0, np.uint8)
     dev = resolve_device(device)
     out = _rle_expand(
         torch.from_numpy(seg.payload["values"].copy()).to(dev)[None],
-        torch.from_numpy(seg.payload["lengths"].astype(np.int64)
-                         ).to(dev)[None], n)
+        torch.from_numpy(seg.payload["lengths"].astype(np.int32)
+                         ).to(dev)[None], n, backend)
     return out[0].cpu().numpy()
 
 
@@ -537,20 +626,23 @@ class HybridConfig:
 
 
 def compress_group(data: np.ndarray, cfg: HybridConfig = HybridConfig(),
-                   device: DeviceLike = None) -> Segment:
+                   device: DeviceLike = None,
+                   backend: str = "auto") -> Segment:
     """Algorithm 2, inner decision for one merged group (byte symbols).
 
     The paper's CR-threshold decision gains a store-raw fallback: when the
     chosen codec's EXACT serialized size (``exact_stored_bytes``) would not
     beat storing the group raw, fall back to ``dc``.  ``force`` modes skip
-    the fallback (they exist to benchmark a specific codec)."""
+    the fallback (they exist to benchmark a specific codec).  ``backend``
+    picks the device passes' kernels or plain versions."""
     data = np.asarray(data, dtype=np.uint8)
     s = data.size
     _check_group_size(s)
+    _refuse(device, backend)
     if cfg.force == "huffman":
-        return huffman_encode(data, device=device)
+        return huffman_encode(data, device=device, backend=backend)
     if cfg.force == "rle":
-        return rle_encode(data, device=device)
+        return rle_encode(data, device=device, backend=backend)
     if cfg.force == "dc" or s <= cfg.size_threshold:
         return dc_encode(data)
     hist = np.bincount(data, minlength=256)
@@ -561,20 +653,22 @@ def compress_group(data: np.ndarray, cfg: HybridConfig = HybridConfig(),
                 >= exact_stored_bytes("dc", s):
             return dc_encode(data)
         return huffman_encode(data, hist=hist, codebook=(lengths, codes),
-                              device=device)
-    _, _, nruns = _rle_scan(_rows(data, resolve_device(device)))
+                              device=device, backend=backend)
+    _, _, nruns = _rle_scan(_rows(data, resolve_device(device)), backend)
     nruns = int(nruns[0])
     r_r = estimate_rle(nruns, s)
     if r_r > cfg.cr_threshold:
         if exact_stored_bytes("rle", s, n_runs=nruns) \
                 >= exact_stored_bytes("dc", s):
             return dc_encode(data)
-        return rle_encode(data, device=device)
+        return rle_encode(data, device=device, backend=backend)
     return dc_encode(data)
 
 
-def decompress_group(seg: Segment, device: DeviceLike = None) -> np.ndarray:
+def decompress_group(seg: Segment, device: DeviceLike = None,
+                     backend: str = "auto") -> np.ndarray:
+    _refuse(device, backend)
     if seg.method == "dc":
         return dc_decode(seg)
     return {"huffman": huffman_decode, "rle": rle_decode}[seg.method](
-        seg, device=device)
+        seg, device=device, backend=backend)

@@ -7,12 +7,14 @@ Write path (``encode_groups`` / ``encode_groups_stacked``), per call:
 
   1. stack the chunk's group blobs into same-size buckets,
   2. one pass per bucket computes all 256-bin histograms AND all RLE
-     run-break counts (``_group_stats_batch``: ``bincount`` on the card),
+     run-break counts (``_group_stats_batch``: the ``lossless_stats``
+     kernel on the card),
   3. **sync #1** (small): every bucket's stats come to the host in one
      ``host_sync``, where Algorithm-2 selection and canonical-codebook
      construction run,
   4. the Huffman groups of each bucket are packed by one batched
-     ``_huffman_pack``, the RLE groups by one batched ``_rle_scan``,
+     ``_huffman_pack``, the RLE groups by one batched ``_rle_scan`` (the
+     ``huffman_pack`` and ``rle_scan`` kernels on the card),
   5. **sync #2** (payloads): a single ``host_sync`` materializes every
      payload of the chunk.
 
@@ -24,7 +26,13 @@ card keep the stats on the card and ship only the stats.
 
 Read path (``decode_segments``): all same-shape Huffman (resp. RLE) segments
 of a request are decoded through one batched ``_huffman_unpack`` /
-``_rle_expand``, with a single ``host_sync`` for every decoded blob.
+``_rle_expand`` (the ``huffman_decode`` and ``rle_expand`` kernels on the
+card), with a single ``host_sync`` for every decoded blob.
+
+Every entry point takes ``backend``: ``"auto"`` runs the device passes as
+the kernels of ``kernels/lossless.py`` on the card and as their plain
+versions (eager torch) on the CPU, ``"torch"`` the plain versions
+everywhere, ``"cuda"`` the kernels (refused on the CPU).
 
 All host materialization goes through ``host_sync`` so tests and benchmarks
 can count syncs (``STATS``, context-local via ``obs.trace.ContextLocal``).
@@ -40,6 +48,7 @@ import torch
 
 from repro_torch.core import lossless as ll
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import lossless as kl
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -116,12 +125,22 @@ def host_sync(tree, label: str = "host_sync"):
 
 # ------------------------------------------------------------ device passes --
 
-def _group_stats_batch(syms: torch.Tensor):
+def _group_stats_batch(syms: torch.Tensor, backend: str = "auto"):
     """(B, S) uint8 (a same-size bucket, on the card) -> (histograms (B,256)
-    int64, RLE run counts (B,) int64), computed on the card.
+    int64, RLE run counts (B,) int64), computed on the card: the
+    ``lossless_stats`` kernel, or with ``backend="torch"`` (and on the
+    CPU) the plain version.
 
     The run-break rule matches ``lossless._rle_scan`` exactly (neighbor
     change or forced break every RLE_BREAK symbols)."""
+    if kl.use_kernel(syms, backend):
+        return kl.lossless_stats(syms.contiguous())
+    return _group_stats_plain(syms)
+
+
+def _group_stats_plain(syms: torch.Tensor):
+    """``_group_stats_batch``'s plain version: a ``bincount`` over an int64
+    copy of the bucket and a neighbour comparison."""
     b, s = syms.shape
     offs = torch.arange(b, dtype=torch.int64, device=syms.device)[:, None]
     hists = torch.bincount((syms.to(torch.int64) + offs * 256).reshape(-1),
@@ -147,8 +166,9 @@ def _group_stats_host(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 # The batch pack/scan/unpack/expand passes ARE the per-group passes of
-# ``lossless`` (they take rows natively) -- bit-identity with the per-group
-# codecs holds by construction, row for row.
+# ``lossless`` (they take rows natively, and dispatch on ``backend``) --
+# bit-identity with the per-group codecs holds by construction, row for
+# row.
 _huffman_pack_batch = ll._huffman_pack
 _rle_scan_batch = ll._rle_scan
 _huffman_unpack_batch = ll._huffman_unpack
@@ -210,7 +230,8 @@ def _as_rows(blob, device: torch.device) -> torch.Tensor:
 
 
 def encode_groups(blobs: Sequence, cfg: ll.HybridConfig = ll.HybridConfig(),
-                  device: DeviceLike = None) -> List[ll.Segment]:
+                  device: DeviceLike = None,
+                  backend: str = "auto") -> List[ll.Segment]:
     """Batched Algorithm 2 over a chunk's merged plane groups.
 
     ``blobs`` are 1-D uint8 tensors (numpy blobs are placed on ``device``;
@@ -235,20 +256,21 @@ def encode_groups(blobs: Sequence, cfg: ll.HybridConfig = ll.HybridConfig(),
             # empty groups never touch the device; compress_group reproduces
             # the per-group encoder (incl. force modes) exactly
             segs[i] = ll.compress_group(np.zeros(0, np.uint8), cfg,
-                                        device=rows[i].device)
+                                        device=rows[i].device,
+                                        backend=backend)
         else:
             buckets.setdefault((s, rows[i].device), []).append(i)
     if not buckets:
         return segs
     stacked = {k: torch.stack([rows[i] for i in idxs])
                for k, idxs in buckets.items()}
-    _encode_buckets(stacked, buckets, segs, cfg)
+    _encode_buckets(stacked, buckets, segs, cfg, backend)
     return segs
 
 
 def encode_groups_stacked(stacks: Sequence[torch.Tensor],
-                          cfg: ll.HybridConfig = ll.HybridConfig()
-                          ) -> List[ll.Segment]:
+                          cfg: ll.HybridConfig = ll.HybridConfig(),
+                          backend: str = "auto") -> List[ll.Segment]:
     """``encode_groups`` for blobs that are ALREADY stacked on the device.
 
     ``stacks`` are (B, S) uint8 tensors — one group blob per row, as emitted
@@ -274,7 +296,8 @@ def encode_groups_stacked(stacks: Sequence[torch.Tensor],
         if s == 0:
             for i in range(base, base + b):
                 segs[i] = ll.compress_group(np.zeros(0, np.uint8), cfg,
-                                            device=st.device)
+                                            device=st.device,
+                                            backend=backend)
         else:
             k = (s, st.device)
             buckets.setdefault(k, []).extend(range(base, base + b))
@@ -284,14 +307,14 @@ def encode_groups_stacked(stacks: Sequence[torch.Tensor],
         return segs
     stacked = {k: (p[0] if len(p) == 1 else torch.cat(p))
                for k, p in parts.items()}
-    _encode_buckets(stacked, buckets, segs, cfg)
+    _encode_buckets(stacked, buckets, segs, cfg, backend)
     return segs
 
 
 def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
                     buckets: Dict[tuple, List[int]],
                     segs: List[Optional[ll.Segment]],
-                    cfg: ll.HybridConfig) -> None:
+                    cfg: ll.HybridConfig, backend: str = "auto") -> None:
     """Shared stages of the batched encoder: stats (sync #1), host-side
     Algorithm-2 selection, batched pack/scan (sync #2).  Fills ``segs`` at
     the indices listed in ``buckets``; bucket keys are ``(group_size,
@@ -302,6 +325,8 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
     the synced rows.  Rows on the card keep the stats pass on the card and
     only the stats cross.  Both keep two syncs per call and are
     byte-identical."""
+    for k in stacked:
+        kl.use_kernel(k[1], backend)  # refuse an impossible backend early
     on_host = {k: k[1].type == "cpu" for k in stacked}
     # stage 1: all histograms + run counts, one batch per bucket, ONE sync
     host_keys = [k for k in stacked if on_host[k]]
@@ -309,7 +334,7 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
     for k, st in stacked.items():
         STATS.add(hist_batches=1)
         if not on_host[k]:
-            dev_stats[k] = _group_stats_batch(st)
+            dev_stats[k] = _group_stats_batch(st, backend)
     synced = host_sync({"rows": {k: stacked[k] for k in host_keys},
                         "stats": dev_stats}, label="codec.stats")
     rows_host: Dict[tuple, np.ndarray] = synced["rows"]
@@ -354,10 +379,11 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
             STATS.add(huffman_pack_batches=1)
             pend.append(("huffman", s, h,
                          _huffman_pack_batch(rows_for(h), lens_tab,
-                                             codes_tab)))
+                                             codes_tab, backend)))
         if r:
             STATS.add(rle_scan_batches=1)
-            pend.append(("rle", s, r, _rle_scan_batch(rows_for(r))))
+            pend.append(("rle", s, r, _rle_scan_batch(rows_for(r),
+                                                      backend)))
         if d:
             if k in rows_host:
                 # dc payloads are the raw rows — already on host
@@ -415,7 +441,8 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
 # ------------------------------------------------------------------- decode --
 
 def decode_segments(segs: Sequence[ll.Segment],
-                    device: DeviceLike = None) -> List[np.ndarray]:
+                    device: DeviceLike = None,
+                    backend: str = "auto") -> List[np.ndarray]:
     """Decode many segments on ``device``, batching same-shape Huffman/RLE
     decodes.
 
@@ -428,11 +455,12 @@ def decode_segments(segs: Sequence[ll.Segment],
     if not segs:
         return []
     with obs_trace.span("codec.decode", groups=len(segs)):
-        return _decode_segments(segs, resolve_device(device))
+        return _decode_segments(segs, resolve_device(device), backend)
 
 
-def _decode_segments(segs: Sequence[ll.Segment],
-                     dev: torch.device) -> List[np.ndarray]:
+def _decode_segments(segs: Sequence[ll.Segment], dev: torch.device,
+                     backend: str = "auto") -> List[np.ndarray]:
+    kl.use_kernel(dev, backend)  # refuse an impossible backend early
     STATS.add(decode_calls=1, groups_decoded=len(segs))
     outs: List[Optional[np.ndarray]] = [None] * len(segs)
     pending = []  # (indices, device batch) resolved by one host_sync
@@ -454,31 +482,35 @@ def _decode_segments(segs: Sequence[ll.Segment],
                 outs[i] = segs[i].payload["raw"]
             continue
         if method == "huffman":
+            for i in idxs:
+                ll._check_chunk_offs(segs[i])  # before any upload
             luts = [ll._build_decode_lut(
                 segs[i].payload["lengths"],
                 ll._codes_from_lengths(segs[i].payload["lengths"]))
                 for i in idxs]
             words = _pad_stack(
-                [segs[i].payload["words"].astype(np.int64) for i in idxs],
+                [segs[i].payload["words"].astype(np.uint32).view(np.int32)
+                 for i in idxs],
                 max(segs[i].payload["words"].shape[0] for i in idxs),
-                np.int64)
+                np.int32)
             chunk_offs = np.stack([segs[i].payload["chunk_offs"]
                                    .astype(np.int64) for i in idxs])
             lut_sym = np.stack([l[0] for l in luts])
             lut_len = np.stack([l[1] for l in luts])
             STATS.add(huffman_unpack_batches=1)
             pending.append((idxs, _huffman_unpack_batch(
-                up(words), up(chunk_offs), up(lut_sym), up(lut_len), n)))
+                up(words), up(chunk_offs), up(lut_sym), up(lut_len), n,
+                backend)))
         elif method == "rle":
             rmax = max(segs[i].payload["values"].shape[0] for i in idxs)
             values = _pad_stack([segs[i].payload["values"] for i in idxs],
                                 rmax, np.uint8)
             lengths = _pad_stack(
-                [segs[i].payload["lengths"].astype(np.int64) for i in idxs],
-                rmax, np.int64)
+                [segs[i].payload["lengths"].astype(np.int32) for i in idxs],
+                rmax, np.int32)
             STATS.add(rle_expand_batches=1)
             pending.append((idxs, _rle_expand_batch(up(values), up(lengths),
-                                                    n)))
+                                                    n, backend)))
         else:
             raise ValueError(f"cannot decode method {method!r}")
 

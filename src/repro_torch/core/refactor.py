@@ -185,7 +185,7 @@ def refactor_array(
         amax = rng = 0.0
     exponents = [int(e) for e in host_scalars]
 
-    segs = lb.encode_groups(blobs, hybrid)
+    segs = lb.encode_groups(blobs, hybrid, backend=backend)
     metas: List[PieceMeta] = []
     per_piece = 1 + len(group_planes)
     for pi, piece in enumerate(pieces):
@@ -223,13 +223,15 @@ def _refactor_array_pergroup(x, pieces, name, levels, design, mag_bits,
         planes = kops.encode_bitplanes(mag, mag_bits, design, **kw)
         sign_planes = kops.encode_bitplanes(sign, 1, design, **kw)
         sign_seg = ll.compress_group(
-            _device_bytes(sign_planes).cpu().numpy(), hybrid, device=dev)
+            _device_bytes(sign_planes).cpu().numpy(), hybrid, device=dev,
+            backend=kw["backend"])
         groups: List[ll.Segment] = []
         row = 0
         planes_np = planes.cpu().numpy()
         for g in group_planes:
             blob = planes_np[row:row + g].reshape(-1).view(np.uint8)
-            seg = ll.compress_group(blob, hybrid, device=dev)
+            seg = ll.compress_group(blob, hybrid, device=dev,
+                                    backend=kw["backend"])
             seg.meta["n_planes"] = g
             seg.meta["n_words"] = planes_np.shape[1]
             groups.append(seg)

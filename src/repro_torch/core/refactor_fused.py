@@ -191,6 +191,7 @@ class PendingChunk:
     amax: Optional[torch.Tensor]          # None when the chunk is empty
     rng: Optional[torch.Tensor]
     stacks: Tuple[torch.Tensor, ...]      # (B, S) uint8 rows, plan.entries order
+    backend: str = "auto"                 # the lossless passes' (cfg.backend)
 
 
 def dispatch_encode(x, name: str = "var",
@@ -228,7 +229,7 @@ def dispatch_encode(x, name: str = "var",
         amax, rng, rest = rest[0], rest[1], rest[2:]
     return PendingChunk(name=name, plan=plan, hybrid=hybrid, exps=exps,
                         overflow=overflow, amax=amax, rng=rng,
-                        stacks=tuple(rest))
+                        stacks=tuple(rest), backend=cfg.backend)
 
 
 def finish_encode(p: PendingChunk, _scalars=None) -> rf.Refactored:
@@ -241,7 +242,7 @@ def finish_encode(p: PendingChunk, _scalars=None) -> rf.Refactored:
     with obs_trace.span("encode.finish", name=p.name):
         scalars = (lb.host_sync(scalar_handles(p), label="encode.scalars")
                    if _scalars is None else _scalars)
-        segs_flat = lb.encode_groups_stacked(p.stacks, p.hybrid)
+        segs_flat = lb.encode_groups_stacked(p.stacks, p.hybrid, p.backend)
         return _assemble(p, scalars, segs_flat)
 
 
@@ -264,7 +265,7 @@ def finish_encode_many(pendings: Sequence[PendingChunk], _scalars=None
     lossless pass encodes every chunk's blob rows — 3 host syncs for the
     batch instead of 3 per chunk.  Results come back in input order and are
     byte-identical to ``[finish_encode(p) for p in pendings]``.  Chunks
-    with differing ``HybridConfig``s are batched per config."""
+    with differing ``HybridConfig``s or backends are batched per config."""
     pendings = list(pendings)
     if not pendings:
         return []
@@ -275,12 +276,12 @@ def finish_encode_many(pendings: Sequence[PendingChunk], _scalars=None
     out: List[Optional[rf.Refactored]] = [None] * len(pendings)
     by_cfg = lb.batch_jobs(pendings, lambda p: (
         p.hybrid.group_size, p.hybrid.size_threshold, p.hybrid.cr_threshold,
-        p.hybrid.force))
+        p.hybrid.force, p.backend))
     with obs_trace.span("encode.finish_many", chunks=len(pendings)):
         for idxs in by_cfg.values():
             segs_flat = lb.encode_groups_stacked(
                 [st for i in idxs for st in pendings[i].stacks],
-                pendings[idxs[0]].hybrid)
+                pendings[idxs[0]].hybrid, pendings[idxs[0]].backend)
             base = 0
             for i in idxs:
                 n = stack_rows(pendings[i])
@@ -320,10 +321,11 @@ def _assemble(p: PendingChunk, scalars, segs_flat: List[ll.Segment]
             # empty pieces reproduce the per-piece encoders exactly: every
             # blob is zero-length, n_words is 0
             sign_segs[pi] = ll.compress_group(np.zeros(0, np.uint8), p.hybrid,
-                                              device=dev)
+                                              device=dev, backend=p.backend)
             for gi in range(len(plan.group_planes)):
                 group_segs[(pi, gi)] = ll.compress_group(
-                    np.zeros(0, np.uint8), p.hybrid, device=dev)
+                    np.zeros(0, np.uint8), p.hybrid, device=dev,
+                    backend=p.backend)
             n_words[pi] = 0
 
         ndim = len(plan.shape)

@@ -246,7 +246,8 @@ class ProgressiveReader:
                 dead.add(i)
                 continue
             wants.append((i, g, seg))
-        blobs = lb.decode_segments([w[2] for w in wants], device=self.device)
+        blobs = lb.decode_segments([w[2] for w in wants], device=self.device,
+                                   backend=self.backend)
 
         fetched = 0
         decoded: dict = {(i, g): (s, b) for (i, g, s), b in zip(wants, blobs)}
@@ -380,7 +381,8 @@ class ProgressiveReader:
                     continue
                 wants.append((i, g, seg, payload))
             blobs = lb.decode_segments([w[2] for w in wants],
-                                        device=self.device)
+                                        device=self.device,
+                                        backend=self.backend)
             tier.submit(self.shared_tenant,
                         [self._shared_job(i, g, seg, keys[(i, g)], fut, blob)
                          for (i, g, seg, fut), blob in zip(wants, blobs)])

@@ -6,8 +6,9 @@ kernels they replace, what bounds them and what the design does about it):
 ``shuffle_encode`` for the ``locality`` and ``shuffle`` designs, and
 ``loc_decode`` for the format those two share.
 Every source of ``SOURCES`` (these, ``csrc/scan.cu``, the SSM scans of
-``kernels/scan.py``, and ``csrc/optim.cu``, the optimizer path of
-``kernels/optim.py``) is compiled by ``nvcc`` for ``sm_90a`` into a shared
+``kernels/scan.py``, ``csrc/optim.cu``, the optimizer path of
+``kernels/optim.py``, and ``csrc/lossless.cu``, Algorithm 2's lossless
+codec of ``kernels/lossless.py``) is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface at first use, all at once (one ``nvcc``
 each), into ``build/repro_torch_kernels/`` at the root of the checkout,
 and loaded with ``ctypes``.  A library's name carries a hash of its
@@ -52,7 +53,8 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode
 from repro_torch.kernels.ref import TILE, TILE_LANE
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "bitplane.cu", _CSRC / "scan.cu", _CSRC / "optim.cu")
+SOURCES = (_CSRC / "bitplane.cu", _CSRC / "scan.cu", _CSRC / "optim.cu",
+           _CSRC / "lossless.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -326,9 +328,9 @@ def decode_locality_cuda(planes: torch.Tensor, num_planes_total: int,
 
 WRAPPERS = (encode_register_block_cuda, decode_register_block_cuda,
             encode_locality_cuda, encode_shuffle_cuda, decode_locality_cuda)
-# every kernel's wrapper by its symbol, the SSM scans' and the optimizer
-# path's too (kernels/scan.py and kernels/optim.py add them): one record of
-# launches
+# every kernel's wrapper by its symbol, the SSM scans', the optimizer
+# path's and the lossless codec's too (kernels/scan.py, kernels/optim.py and
+# kernels/lossless.py add them): one record of launches
 _COUNTED = dict(zip(("rb_encode", "rb_decode", "loc_encode",
                      "shuffle_encode", "loc_decode"), WRAPPERS))
 
@@ -344,10 +346,11 @@ def add_counters(wrappers) -> None:
 
 # each kernel operator's workspace, by operator (``torch.ops.repro_torch.
 # <name>.default``): a function of the operator's arguments giving
-# {name: shape} of the buffers (of its first input's dtype) its CUDA
-# implementation allocates beyond its outputs and frees when it returns
-# (``kernels/scan.py`` adds the scan backwards', ``kernels/optim.py``
-# ``ef_quantize``'s);
+# {name: shape} (a buffer of its first input's dtype) or {name: (shape,
+# dtype)} of the buffers its CUDA implementation allocates beyond its
+# outputs and frees when it returns (``kernels/scan.py`` adds the scan
+# backwards', ``kernels/optim.py`` ``ef_quantize``'s, ``kernels/lossless.py``
+# the lossless codec's tile totals);
 # ``launch.op_analysis.OpAnalysis`` counts them
 WORKSPACE: Dict[object, object] = {}
 

@@ -1,0 +1,532 @@
+"""Hopper CUDA kernels for Algorithm 2's lossless codec.
+
+The kernels live in ``csrc/lossless.cu`` (the note there says which of the
+reference's jitted passes each replaces, what bounds it and what its design
+does about it): ``lossless_stats`` (a bucket's histograms and RLE run
+counts), ``huffman_pack``, ``huffman_decode`` (a thread walks a chunk's
+codes), ``rle_scan`` and ``rle_expand``.  They are built with the other
+kernels (``bitplane.load``: ``nvcc`` for ``sm_90a`` at first use, every
+source at once) and loaded with ``ctypes``.  Nothing is compiled or loaded
+when this module is imported.
+
+Five operators of the dispatcher, ``torch.ops.repro_torch.<name>``
+(``torch.library.custom_op``s), as the other kernels are: the CUDA
+implementation allocates the outputs and the scratch (declared in
+``bitplane.WORKSPACE``, so that ``OpAnalysis`` counts it), launches its
+passes on the current stream, raises if ``cudaGetLastError()`` is not 0
+and adds one to the kernel's ``launches`` (the record of
+``bitplane.launches()``: one a call, whatever its passes; an empty call
+launches nothing and counts nothing); the fake gives the outputs' shapes
+and dtypes, so that the operators run on ``meta``; the CPU implementation
+is the plain version.  A CUDA call that no dispatch mode observes launches
+directly.  On a CUDA tensor the operators launch or raise: there is no
+fallback.
+
+The plain versions are the eager passes of ``core/lossless.py``
+(``_huffman_pack_plain``, ``_huffman_unpack_plain``, ``_rle_scan_plain``,
+``_rle_expand_plain``) and ``core/lossless_batch.py``
+(``_group_stats_plain``), held to the reference by the CPU tests.  Each
+operator's outputs are theirs, byte for byte, but for ``rle_scan``: its
+lengths are uint16 bits in int16 storage (the host keeps them as uint16),
+and only a row's first ``nruns`` value and length slots are defined.  The
+device parts of ``core/lossless.py`` take the operators on CUDA and
+``meta`` tensors (``use_kernel``) and keep the plain passes on the CPU and
+with ``backend="torch"``.
+
+Beside each multi-pass kernel, a small torch reference that follows its
+decomposition (``huffman_pack_tiled``, ``huffman_decode_stepwise``,
+``rle_scan_tiled``, ``rle_expand_tiled``), so that the CPU tests reach the
+tiling's edges.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+from repro_torch.core import lossless as ll
+from repro_torch.kernels import bitplane as _bp
+from repro_torch.tune.config import BACKENDS
+
+CHUNK = ll.CHUNK                 # csrc/lossless.cu kChunk
+RLE_BREAK = ll.RLE_BREAK         # kRleBreak
+LUT_SIZE = 1 << ll.MAX_CODE_LEN  # kLut
+EXPAND_TILE = 4096               # kExpTile: runs a tile of rle_expand
+TILE_WORDS = CHUNK * ll.MAX_CODE_LEN // 32 + 2   # kTileWords
+SYMBOLS = ("lossless_stats", "huffman_pack", "huffman_decode", "rle_scan",
+           "rle_expand")
+_MASK32 = 0xFFFFFFFF
+
+_lock = threading.Lock()
+_ready = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _ready
+    lib = _bp.library("lossless")
+    with _lock:
+        if not _ready:
+            vp, ll_, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            lib.lossless_stats.argtypes = [vp, ll_, ll_, vp, vp, vp]
+            lib.huffman_pack.argtypes = [vp, ll_, ll_, vp, vp, vp, vp, vp,
+                                         vp, ll_, vp]
+            lib.huffman_decode.argtypes = [vp, ll_, ll_, vp, i, vp, vp, vp,
+                                           ll_, vp]
+            lib.rle_scan.argtypes = [vp, ll_, ll_, vp, vp, vp, vp, vp, vp]
+            lib.rle_expand.argtypes = [vp, vp, ll_, ll_, vp, vp, vp, vp, ll_,
+                                       vp]
+            for name in SYMBOLS:
+                getattr(lib, name).restype = i
+            _ready = True
+    return lib
+
+
+def use_kernel(where, backend: str) -> bool:
+    """True: the kernel operators; False: the plain passes.  ``where`` is
+    a tensor or a device.  The card and ``meta`` take the operators under
+    ``"auto"`` and ``"cuda"``; the CPU keeps the plain passes under
+    ``"auto"`` and raises under ``"cuda"``; ``"torch"`` is the plain passes
+    everywhere (``kernels/ops.py`` ``_use_kernel``'s rule, ``meta``
+    counted as the card's)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected one of "
+                         f"{BACKENDS})")
+    dev = where.device if isinstance(where, torch.Tensor) else \
+        torch.device(where)
+    if backend == "torch":
+        return False
+    if dev.type in ("cuda", "meta"):
+        return True
+    if backend == "cuda":
+        raise ValueError(f"backend='cuda' needs a CUDA tensor, got {dev}")
+    return False
+
+
+def _chunks(n: int) -> int:
+    return -(-n // CHUNK)
+
+
+def _tiles(n: int, tile: int) -> int:
+    return -(-n // tile)
+
+
+def _run(symbol: str, like: torch.Tensor, *args) -> None:
+    """Launch ``symbol`` with ``args`` (tensors as pointers; ctypes converts
+    the rest by the symbol's argtypes) on ``like``'s device and current
+    stream; raise on a failed launch, count a good one."""
+    fn = getattr(_lib(), symbol)
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        err = fn(*vals, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+    _bp._count(symbol)
+
+
+# ------------------------------------------------------------ workspace --
+# each operator's scratch by name: (shape, dtype), a function of the
+# operator's arguments (``bitplane.WORKSPACE``)
+
+def huffman_pack_workspace(syms, lens_tab, codes_tab):
+    """The chunks' bit counts, which the row scan turns into offsets."""
+    b, s = syms.shape
+    return {"chunk_bits": ((b, _chunks(s)), torch.int64)}
+
+
+def rle_scan_workspace(syms):
+    """Each tile's run count and first run's slot."""
+    b, s = syms.shape
+    t = _tiles(s, RLE_BREAK)
+    return {"tile_runs": ((b, t), torch.int64),
+            "tile_base": ((b, t), torch.int64)}
+
+
+def rle_expand_workspace(values, lengths, n):
+    """Each tile's summed run lengths and first run's start, and every
+    run's end."""
+    b, r = values.shape
+    t = _tiles(r, EXPAND_TILE)
+    return {"tile_sums": ((b, t), torch.int64),
+            "tile_base": ((b, t), torch.int64),
+            "cum": ((b, r), torch.int64)}
+
+
+def _scratch(fn, *args):
+    like = args[0]
+    return [torch.empty(shape, dtype=dt, device=like.device)
+            for shape, dt in fn(*args).values()]
+
+
+# ------------------------------------------------- CUDA implementations --
+
+def _launch_stats(syms):
+    b, s = syms.shape
+    hist = torch.zeros((b, 256), dtype=torch.int64, device=syms.device)
+    nruns = torch.zeros((b,), dtype=torch.int64, device=syms.device)
+    if b and s:
+        _run("lossless_stats", syms, syms, b, s, hist, nruns)
+    return hist, nruns
+
+
+def _launch_pack(syms, lens_tab, codes_tab):
+    b, s = syms.shape
+    cap = s * ll.MAX_CODE_LEN // 32 + 2
+    words = torch.zeros((b, cap), dtype=torch.int32, device=syms.device)
+    total = torch.zeros((b,), dtype=torch.int64, device=syms.device)
+    offs = torch.empty((b, _chunks(s)), dtype=torch.int64, device=syms.device)
+    if b and s:
+        (bits,) = _scratch(huffman_pack_workspace, syms, lens_tab, codes_tab)
+        _run("huffman_pack", syms, syms, b, s, lens_tab, codes_tab, bits,
+             offs, total, words, cap)
+    return words, total, offs
+
+
+def _launch_decode(words, chunk_offs, lut_sym, lut_len, n_syms):
+    b, n_words = words.shape
+    out = torch.empty((b, n_syms), dtype=torch.uint8, device=words.device)
+    if b and n_syms:
+        _run("huffman_decode", words, words, b, n_words, chunk_offs,
+             chunk_offs.shape[1], lut_sym, lut_len, out, n_syms)
+    return out
+
+
+def _launch_rle_scan(syms):
+    b, s = syms.shape
+    values = torch.empty((b, s), dtype=torch.uint8, device=syms.device)
+    lengths = torch.empty((b, s), dtype=torch.int16, device=syms.device)
+    nruns = torch.zeros((b,), dtype=torch.int64, device=syms.device)
+    if b and s:
+        runs, base = _scratch(rle_scan_workspace, syms)
+        _run("rle_scan", syms, syms, b, s, runs, base, values, lengths,
+             nruns)
+    return values, lengths, nruns
+
+
+def _launch_rle_expand(values, lengths, n):
+    b, r = values.shape
+    out = torch.empty((b, n), dtype=torch.uint8, device=values.device)
+    if b and n:
+        sums, base, cum = _scratch(rle_expand_workspace, values, lengths, n)
+        _run("rle_expand", values, values, lengths, b, r, sums, base, cum,
+             out, n)
+    return out
+
+
+# ---------------------------------------------------------- CPU kernels --
+# the plain versions, at the operators' output types
+
+def _stats_plain(syms):
+    from repro_torch.core import lossless_batch as lb
+    return lb._group_stats_plain(syms)
+
+
+def _rle_scan_plain(syms):
+    b, s = syms.shape
+    if not s:
+        return (torch.empty((b, 0), dtype=torch.uint8),
+                torch.empty((b, 0), dtype=torch.int16),
+                torch.zeros((b,), dtype=torch.int64))
+    values, lengths, nruns = ll._rle_scan_plain(syms)
+    return values, lengths.to(torch.int16), nruns
+
+
+# -------------------------------------------------------------- operators --
+
+Tensor = torch.Tensor
+
+
+def _define():
+    ns = "repro_torch::"
+
+    @torch.library.custom_op(ns + "lossless_stats", mutates_args=(),
+                             device_types="cuda")
+    def stats_op(syms: Tensor) -> Tuple[Tensor, Tensor]:
+        return _launch_stats(syms)
+
+    @torch.library.custom_op(ns + "huffman_pack", mutates_args=(),
+                             device_types="cuda")
+    def pack_op(syms: Tensor, lens_tab: Tensor,
+                codes_tab: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        return _launch_pack(syms, lens_tab, codes_tab)
+
+    @torch.library.custom_op(ns + "huffman_decode", mutates_args=(),
+                             device_types="cuda")
+    def decode_op(words: Tensor, chunk_offs: Tensor, lut_sym: Tensor,
+                  lut_len: Tensor, n_syms: int) -> Tensor:
+        return _launch_decode(words, chunk_offs, lut_sym, lut_len, n_syms)
+
+    @torch.library.custom_op(ns + "rle_scan", mutates_args=(),
+                             device_types="cuda")
+    def rle_scan_op(syms: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        return _launch_rle_scan(syms)
+
+    @torch.library.custom_op(ns + "rle_expand", mutates_args=(),
+                             device_types="cuda")
+    def rle_expand_op(values: Tensor, lengths: Tensor, n: int) -> Tensor:
+        return _launch_rle_expand(values, lengths, n)
+
+    def new(like, shape, dtype):
+        return like.new_empty(shape, dtype=dtype)
+
+    stats_op.register_fake(lambda syms: (
+        new(syms, (syms.shape[0], 256), torch.int64),
+        new(syms, (syms.shape[0],), torch.int64)))
+    pack_op.register_fake(lambda syms, lens_tab, codes_tab: (
+        new(syms, (syms.shape[0], syms.shape[1] * ll.MAX_CODE_LEN // 32 + 2),
+            torch.int32),
+        new(syms, (syms.shape[0],), torch.int64),
+        new(syms, (syms.shape[0], _chunks(syms.shape[1])), torch.int64)))
+    decode_op.register_fake(lambda words, chunk_offs, lut_sym, lut_len,
+                            n_syms: new(words, (words.shape[0], n_syms),
+                                        torch.uint8))
+    rle_scan_op.register_fake(lambda syms: (
+        new(syms, tuple(syms.shape), torch.uint8),
+        new(syms, tuple(syms.shape), torch.int16),
+        new(syms, (syms.shape[0],), torch.int64)))
+    rle_expand_op.register_fake(lambda values, lengths, n: new(
+        values, (values.shape[0], n), torch.uint8))
+
+    stats_op.register_kernel("cpu")(_stats_plain)
+    pack_op.register_kernel("cpu")(
+        lambda *args: ll._huffman_pack_plain(*args))
+    decode_op.register_kernel("cpu")(
+        lambda *args: ll._huffman_unpack_plain(*args))
+    rle_scan_op.register_kernel("cpu")(_rle_scan_plain)
+    rle_expand_op.register_kernel("cpu")(
+        lambda *args: ll._rle_expand_plain(*args))
+    return {name: getattr(torch.ops.repro_torch, name).default
+            for name in SYMBOLS}
+
+
+_OPS = _define()
+_LAUNCH = {"lossless_stats": _launch_stats, "huffman_pack": _launch_pack,
+           "huffman_decode": _launch_decode, "rle_scan": _launch_rle_scan,
+           "rle_expand": _launch_rle_expand}
+_bp.add_workspace({_OPS["huffman_pack"]: huffman_pack_workspace,
+                   _OPS["rle_scan"]: rle_scan_workspace,
+                   _OPS["rle_expand"]: rle_expand_workspace})
+
+
+def _call(name: str, *args):
+    """Through the operator wherever something observes the dispatcher or
+    the tensors lie on the CPU; a CUDA call that nothing observes launches
+    directly (``bitplane._call``)."""
+    if args[0].device.type == "cuda" and _get_current_dispatch_mode() is None:
+        return _LAUNCH[name](*args)
+    with torch._C._AutoDispatchBelowADInplaceOrView():
+        return _OPS[name](*args)
+
+
+def _check(what: str, t: torch.Tensor, dtypes, ndim: int = 2) -> None:
+    if t.device.type not in ("cuda", "meta", "cpu"):
+        raise ValueError(f"{what}: expected a CUDA, meta or CPU tensor, got "
+                         f"{t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: expected one of {dtypes}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def _same_rows(what: str, first: torch.Tensor, *others, cols) -> None:
+    """``others`` on ``first``'s device with its rows, and ``cols[i]``
+    columns where that is not None."""
+    for t, c in zip(others, cols):
+        if t.device != first.device:
+            raise ValueError(f"{what}: tensors on {first.device} and "
+                             f"{t.device}")
+        if t.shape[0] != first.shape[0] or (c is not None
+                                            and t.shape[1] != c):
+            raise ValueError(f"{what}: shapes {tuple(first.shape)} and "
+                             f"{tuple(t.shape)}")
+
+
+# --------------------------------------------------------------- wrappers --
+
+def lossless_stats(syms: torch.Tensor):
+    """(B, S) uint8 rows -> (histograms (B, 256) int64, RLE run counts
+    (B,) int64), ``_group_stats_batch``'s."""
+    _check("lossless_stats", syms, (torch.uint8,))
+    return _call("lossless_stats", syms)
+
+
+def huffman_pack(syms: torch.Tensor, lens_tab: torch.Tensor,
+                 codes_tab: torch.Tensor):
+    """(B, S) uint8 symbols and (B, 256) int64 code lengths (0 .. 16) and
+    codes -> (words (B, S * 16 // 32 + 2) uint32 bits in int32 storage,
+    total_bits (B,) int64, chunk_offs (B, ceil(S / CHUNK)) int64)."""
+    _check("huffman_pack", syms, (torch.uint8,))
+    for t in (lens_tab, codes_tab):
+        _check("huffman_pack", t, (torch.int64,))
+    _same_rows("huffman_pack", syms, lens_tab, codes_tab, cols=(256, 256))
+    return _call("huffman_pack", syms, lens_tab, codes_tab)
+
+
+def huffman_decode(words: torch.Tensor, chunk_offs: torch.Tensor,
+                   lut_sym: torch.Tensor, lut_len: torch.Tensor,
+                   n_syms: int) -> torch.Tensor:
+    """(B, L) words (uint32 bits in int32 storage; a word past L reads as
+    zero), (B, C) int64 chunk start bits, C >= ceil(n_syms / CHUNK), and
+    (B, 2**16) uint8 peek tables -> (B, n_syms) uint8."""
+    _check("huffman_decode", words, (torch.int32,))
+    _check("huffman_decode", chunk_offs, (torch.int64,))
+    for t in (lut_sym, lut_len):
+        _check("huffman_decode", t, (torch.uint8,))
+    _same_rows("huffman_decode", words, chunk_offs, lut_sym, lut_len,
+               cols=(None, LUT_SIZE, LUT_SIZE))
+    if n_syms < 0 or chunk_offs.shape[1] < _chunks(n_syms):
+        raise ValueError(f"huffman_decode: {chunk_offs.shape[1]} chunk "
+                         f"offsets for {n_syms} symbols")
+    return _call("huffman_decode", words, chunk_offs, lut_sym, lut_len,
+                 int(n_syms))
+
+
+def rle_scan(syms: torch.Tensor):
+    """(B, S) uint8 -> (values (B, S) uint8, lengths (B, S) int16 holding
+    uint16 bits, nruns (B,) int64); a row's first nruns slots are its
+    runs."""
+    _check("rle_scan", syms, (torch.uint8,))
+    return _call("rle_scan", syms)
+
+
+def rle_expand(values: torch.Tensor, lengths: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """(B, R) uint8 run values and int32 lengths (zero-length runs allowed)
+    -> (B, n) uint8."""
+    _check("rle_expand", values, (torch.uint8,))
+    _check("rle_expand", lengths, (torch.int32,))
+    _same_rows("rle_expand", values, lengths, cols=(values.shape[1],))
+    if n < 0 or (n and not values.shape[1]):
+        raise ValueError(f"rle_expand: {values.shape[1]} runs for {n} "
+                         "symbols")
+    return _call("rle_expand", values, lengths, int(n))
+
+
+WRAPPERS = (lossless_stats, huffman_pack, huffman_decode, rle_scan,
+            rle_expand)
+_bp.add_counters(dict(zip(SYMBOLS, WRAPPERS)))
+
+
+# ------------------------------------------------------ tiled references --
+# each kernel's decomposition in torch, on the CPU (tests)
+
+def huffman_pack_tiled(syms, lens_tab, codes_tab):
+    """``huffman_pack`` as its passes compute it: each chunk's bits, the
+    row scan, then each chunk's codes placed in a tile of the words its
+    bits touch, the interior words stored and the first and last ORed into
+    zeroed words.  (words, total_bits, chunk_offs) as the operator's."""
+    b, s = syms.shape
+    cap = s * ll.MAX_CODE_LEN // 32 + 2
+    c = _chunks(s)
+    idx = syms.to(torch.int64)
+    lens = torch.gather(lens_tab.to(torch.int64), 1, idx)
+    codes = torch.gather(codes_tab.to(torch.int64), 1, idx) & _MASK32
+    chunk_bits = F.pad(lens, (0, c * CHUNK - s)).view(b, c, CHUNK).sum(2)
+    chunk_offs = torch.cumsum(chunk_bits, 1) - chunk_bits
+    total_bits = chunk_bits.sum(1)
+    words = torch.zeros((b, cap), dtype=torch.int64)
+    for r in range(b):
+        for k in range(c):
+            tot, o = int(chunk_bits[r, k]), int(chunk_offs[r, k])
+            if tot <= 0:
+                continue
+            f = o >> 5
+            ln = lens[r, k * CHUNK:(k + 1) * CHUNK]
+            cd = codes[r, k * CHUNK:(k + 1) * CHUNK]
+            pos = o + torch.cumsum(ln, 0) - ln
+            t, sh = (pos >> 5) - f, pos & 31
+            placed = (ln > 0) & (ln <= 32)
+            msb = torch.where(placed, (cd << (32 - ln.clamp(0, 32)))
+                              & _MASK32, 0)
+            spill = torch.where(sh > 0, (msb << (32 - sh)) & _MASK32, 0)
+            tile = torch.zeros(TILE_WORDS + 1, dtype=torch.int64)
+            tile.index_add_(0, t, msb >> sh)   # disjoint bits: add == OR
+            tile.index_add_(0, t + 1, spill)
+            nw = ((o + tot - 1) >> 5) - f + 1
+            words[r, f + 1:f + nw - 1] = tile[1:nw - 1]
+            words[r, f] |= tile[0]
+            words[r, f + nw - 1] |= tile[nw - 1]
+    return words.to(torch.int32), total_bits, chunk_offs
+
+
+def huffman_decode_stepwise(words, chunk_offs, lut_sym, lut_len, n_syms):
+    """A chunk walked code by code, every chunk in lock step: at bit p the
+    top 16 bits of the 32-bit window at p index the peek table, and p
+    advances by the code's length; words past a row's end read as zero.
+    The symbol-by-symbol formulation of ``huffman_decode`` and of the plain
+    version's pointer doubling (the port's decode until the store's serving
+    made its 4,096 rounds per bucket the read path's wall)."""
+    b = words.shape[0]
+    w = words.to(torch.int64) & _MASK32
+    pad = CHUNK * ll.MAX_CODE_LEN // 32 + 2
+    w = torch.cat([w, torch.zeros((b, pad), dtype=torch.int64)], dim=1)
+    pair = (w[:, :-1] << 32) | w[:, 1:]
+    lut = (lut_sym.to(torch.int64) & 0xFF) | (lut_len.to(torch.int64) << 8)
+    p = chunk_offs.to(torch.int64) & _MASK32
+    steps = min(CHUNK, n_syms)
+    out = torch.empty((b, p.shape[1], steps), dtype=torch.int64)
+    for k in range(steps):
+        v = torch.gather(pair, 1, p >> 5)
+        e = torch.gather(lut, 1, (v >> (48 - (p & 31))) & 0xFFFF)
+        out[:, :, k] = e
+        p = p + (e >> 8)
+    return (out.reshape(b, -1)[:, :n_syms] & 0xFF).to(torch.uint8)
+
+
+def rle_scan_tiled(syms):
+    """``rle_scan`` as its passes compute it: each tile's run starts
+    counted, the row scan to each tile's first slot, then each tile's runs
+    (value, and the next start or the tile's end less the start) written at
+    their slots.  Slots past a row's nruns are 0."""
+    b, s = syms.shape
+    t = _tiles(s, RLE_BREAK)
+    idx = torch.arange(s)
+    prev = torch.cat([syms[:, :1] ^ 255, syms[:, :-1]], dim=1)
+    starts = (syms != prev) | (idx % RLE_BREAK == 0)
+    tile_runs = F.pad(starts, (0, t * RLE_BREAK - s)).view(
+        b, t, RLE_BREAK).sum(2)
+    tile_base = torch.cumsum(tile_runs, 1) - tile_runs
+    values = torch.zeros((b, s), dtype=torch.uint8)
+    lengths = torch.zeros((b, s), dtype=torch.int16)
+    for r in range(b):
+        for k in range(t):
+            lo, hi = k * RLE_BREAK, min(s, (k + 1) * RLE_BREAK)
+            st = torch.nonzero(starts[r, lo:hi]).flatten()
+            ends = torch.cat([st[1:], torch.tensor([hi - lo])])
+            base = int(tile_base[r, k])
+            values[r, base:base + len(st)] = syms[r, lo + st]
+            lengths[r, base:base + len(st)] = (ends - st).to(torch.int16)
+    return values, lengths, tile_runs.sum(1)
+
+
+def rle_expand_tiled(values, lengths, n):
+    """``rle_expand`` as its passes compute it: each tile's run lengths
+    summed, the row scan, every run's end; then for each 4096-byte output
+    tile the runs at its first and last byte, and each byte's run searched
+    between them (clamped to the last run)."""
+    b, r = values.shape
+    t = _tiles(r, EXPAND_TILE)
+    ln = F.pad(lengths.to(torch.int64), (0, t * EXPAND_TILE - r)).view(
+        b, t, EXPAND_TILE)
+    tile_sums = ln.sum(2)
+    tile_base = torch.cumsum(tile_sums, 1) - tile_sums
+    cum = (torch.cumsum(ln, 2) + tile_base[:, :, None]).view(b, -1)[:, :r]
+    out = torch.empty((b, n), dtype=torch.uint8)
+    for p0 in range(0, n, EXPAND_TILE):
+        p1 = min(p0 + EXPAND_TILE, n) - 1
+        pos = torch.arange(p0, p1 + 1)
+        for row in range(b):
+            cr = cum[row].contiguous()
+            lo, hi = (int(torch.searchsorted(cr, torch.tensor([p]),
+                                             right=True)) for p in (p0, p1))
+            j = lo + torch.searchsorted(cr[lo:hi].contiguous(), pos,
+                                        right=True)
+            out[row, p0:p1 + 1] = values[row, j.clamp(max=r - 1)]
+    return out

@@ -159,11 +159,16 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _workspace_bytes(fn, args, kwargs) -> int:
-    """The bytes of a kernel operator's declared workspace for ``args``
-    (its buffers are of its first input's dtype)."""
-    shapes = fn(*args, **kwargs)
-    return sum(math.prod(shape) for shape in shapes.values()) * \
-        args[0].element_size()
+    """The bytes of a kernel operator's declared workspace for ``args``:
+    each buffer a shape (of its first input's dtype) or a (shape, dtype)
+    pair."""
+    total = 0
+    for spec in fn(*args, **kwargs).values():
+        shape, dtype = ((spec[0], spec[1]) if len(spec) == 2
+                        and isinstance(spec[1], torch.dtype)
+                        else (spec, args[0].dtype))
+        total += math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return total
 
 
 class OpAnalysis(TorchDispatchMode):

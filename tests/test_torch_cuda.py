@@ -1802,3 +1802,274 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         sc.wkv6_fwd(args[0].transpose(1, 2).contiguous().transpose(1, 2),
                     *args[1:], 64, False)
+
+
+# ------------------------------------------------ the lossless codec's kernels
+
+LOSSLESS_SIZES = (1, 2, 31, 4095, 4096, 4097, 32767, 32768, 32769, 65537)
+
+
+def _lossless_rows(kind, b, s, rng):
+    """(B, S) uint8 rows of one content: skewed, all-zero, uniform, runs,
+    or one symbol."""
+    if kind == "skewed":
+        return (rng.geometric(0.3, (b, s)) % 256).astype(np.uint8)
+    if kind == "zeros":
+        return np.zeros((b, s), np.uint8)
+    if kind == "uniform":
+        return rng.integers(0, 256, (b, s)).astype(np.uint8)
+    if kind == "runs":
+        reps = rng.integers(1, 300, (b, s // 20 + 2))
+        vals = rng.integers(0, 4, (b, s // 20 + 2))
+        return np.stack([np.repeat(v, r)[:s] for v, r in zip(vals, reps)]
+                        ).astype(np.uint8)
+    return np.full((b, s), 7 + b, np.uint8)
+
+
+def _lossless_inputs(x):
+    """Each row's codebook (from its histogram), the plain pack of ``x``
+    with them, the decode tables, and the plain RLE scan's runs: the
+    kernels' inputs, all on ``x``'s device."""
+    from repro_torch.core import lossless as ll
+    hist = lb._group_stats_plain(x.cpu())[0].numpy()
+    books = [ll.build_codebook(h) for h in hist]
+    lt, ct = (torch.from_numpy(np.stack([bk[i] for bk in books]
+                                        ).astype(np.int64)).to(x.device)
+              for i in (0, 1))
+    words, total, offs = ll._huffman_pack_plain(x, lt, ct)
+    luts = [ll._build_decode_lut(*bk) for bk in books]
+    ls, ln = (torch.from_numpy(np.stack([lu[i] for lu in luts])
+                               ).to(x.device) for i in (0, 1))
+    pv, pl, pn = ll._rle_scan_plain(x)
+    rr = int(pn.max())
+    return dict(lt=lt, ct=ct, words=words, total=total,
+                offs=offs.contiguous(), ls=ls, ln=ln, pv=pv, pl=pl, pn=pn,
+                rv=pv[:, :rr].contiguous(),
+                rl=pl[:, :rr].to(torch.int32).contiguous())
+
+
+def _lossless_match(x):
+    """Every lossless kernel against its plain version on ``x``, byte for
+    byte (rle_scan: nruns and each row's first nruns slots)."""
+    from repro_torch.core import lossless as ll
+    from repro_torch.kernels import lossless as kl
+    b, s = x.shape
+    a = _lossless_inputs(x)
+    for got, want in zip(kl.lossless_stats(x), lb._group_stats_plain(x)):
+        assert torch.equal(got, want)
+    for got, want in zip(kl.huffman_pack(x, a["lt"], a["ct"]),
+                         (a["words"], a["total"], a["offs"])):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    dec_args = (a["words"], a["offs"], a["ls"], a["ln"], s)
+    assert torch.equal(kl.huffman_decode(*dec_args), x)
+    vals, lens, nruns = kl.rle_scan(x)
+    assert torch.equal(nruns, a["pn"])
+    for r in range(b):
+        k = int(a["pn"][r])
+        assert torch.equal(vals[r, :k], a["pv"][r, :k])
+        assert torch.equal(lens[r, :k].to(torch.int64) & 0xFFFF,
+                           a["pl"][r, :k])
+    out = kl.rle_expand(a["rv"], a["rl"], s)
+    assert torch.equal(out, ll._rle_expand_plain(a["rv"], a["rl"], s))
+    assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", LOSSLESS_SIZES)
+def test_lossless_kernels_match_plain(cuda, s, b):
+    """Each of the five lossless kernels byte-identical to its plain
+    version at either side of a chunk (4096) and an RLE tile (32768), rows
+    of any length (unaligned rows past the first), five contents."""
+    rng = np.random.default_rng(s * 7 + b)
+    for kind in ("skewed", "zeros", "uniform", "runs", "one"):
+        _lossless_match(torch.from_numpy(_lossless_rows(kind, b, s, rng)
+                                         ).to(cuda))
+
+
+def test_lossless_kernels_split_rows_past_max_batch(cuda):
+    """A bucket of more rows than a grid's y extent (65,535) is split into
+    launches, and gives the plain versions' bytes (one codebook for every
+    row; the decode and the expand give the rows back)."""
+    from repro_torch.core import lossless as ll
+    from repro_torch.kernels import lossless as kl
+    b, s = bp.MAX_BATCH + 3, 20
+    rows = _lossless_rows("skewed", b, s, np.random.default_rng(5))
+    x = torch.from_numpy(rows).to(cuda)
+    for got, want in zip(kl.lossless_stats(x), lb._group_stats_plain(x)):
+        assert torch.equal(got, want)
+    book = ll.build_codebook(np.bincount(rows.reshape(-1), minlength=256))
+    lt, ct = (torch.from_numpy(t.astype(np.int64)).to(cuda).expand(b, 256)
+              .contiguous() for t in book)
+    want = ll._huffman_pack_plain(x, lt, ct)
+    for got, w in zip(kl.huffman_pack(x, lt, ct), want):
+        assert torch.equal(got, w)
+    ls, ln = (torch.from_numpy(t).to(cuda).expand(b, 1 << 16).contiguous()
+              for t in ll._build_decode_lut(*book))
+    assert torch.equal(kl.huffman_decode(want[0], want[2].contiguous(), ls,
+                                         ln, s), x)
+    vals, lens, nruns = kl.rle_scan(x)
+    pv, pl, pn = ll._rle_scan_plain(x)
+    assert torch.equal(nruns, pn)
+    live = torch.arange(s, device=cuda)[None, :] < pn[:, None]
+    assert torch.equal(vals[live], pv[live])
+    assert torch.equal(lens.to(torch.int64)[live] & 0xFFFF, pl[live])
+    rr = int(pn.max())
+    assert torch.equal(kl.rle_expand(pv[:, :rr].contiguous(),
+                                     pl[:, :rr].to(torch.int32).contiguous(),
+                                     s), x)
+
+
+def test_lossless_kernels_are_deterministic(cuda):
+    """Two calls give the same bits (the stats' and the pack's atomics add
+    and OR integers, exact in any order)."""
+    from repro_torch.kernels import lossless as kl
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(_lossless_rows("skewed", 3, 300_001, rng)).to(cuda)
+    a = _lossless_inputs(x)
+    calls = (lambda: kl.lossless_stats(x),
+             lambda: kl.huffman_pack(x, a["lt"], a["ct"]),
+             lambda: (kl.huffman_decode(a["words"], a["offs"], a["ls"],
+                                        a["ln"], x.shape[1]),),
+             lambda: kl.rle_scan(x)[2:],
+             lambda: (kl.rle_expand(a["rv"], a["rl"], x.shape[1]),))
+    for call in calls:
+        first, second = call(), call()
+        assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+BYTE_GUARD = 4096   # bytes of a known value either side of every buffer
+
+
+def _byte_guarded(numel, dtype, shift, like=None):
+    """(buffer, view): a contiguous ``dtype`` view of ``numel`` elements
+    ``shift`` elements past a guard of ``BYTE_GUARD`` bytes of 0xA5, with
+    a guard after it; the view holds ``like`` (an input) or 0xA5 bytes."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = numel * size
+    buf = torch.full((nbytes + 2 * BYTE_GUARD + shift * size + 16,), 0xA5,
+                     dtype=torch.uint8, device="cuda")
+    lo = BYTE_GUARD + shift * size
+    view = buf[lo:lo + nbytes].view(dtype)
+    if like is not None:
+        view.copy_(like.reshape(-1))
+    return buf, view, lo
+
+
+def _byte_guards_hold(buf, lo, nbytes):
+    return bool((buf[:lo] == 0xA5).all()) and bool(
+        (buf[lo + nbytes:] == 0xA5).all())
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,s", [(1, 4097), (3, 65537), (2, 31)])
+def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
+    """Every output and scratch buffer of the five kernels inside guards of
+    a known byte, every pointer 16-byte aligned (shift 0) or not (shift 1
+    element): the outputs are the plain versions' and no guard byte
+    changes, over three launches."""
+    from repro_torch.kernels import lossless as kl
+    rng = np.random.default_rng(b * s + shift)
+    x0 = torch.from_numpy(_lossless_rows("skewed", b, s, rng)).to(cuda)
+    a = _lossless_inputs(x0)
+    outs = []
+
+    def inp(t):
+        return _byte_guarded(t.numel(), t.dtype, shift, t)[1].view(t.shape)
+
+    def out(shape, dtype):
+        buf, view, lo = _byte_guarded(int(np.prod(shape)), dtype, shift)
+        outs.append((buf, lo, view.numel() * view.element_size()))
+        return view.view(shape)
+
+    x = inp(x0)
+    chunks, tiles = -(-s // kl.CHUNK), -(-s // kl.RLE_BREAK)
+    cap = a["words"].shape[1]
+    r = a["rv"].shape[1]
+    rt = -(-r // kl.EXPAND_TILE)
+    lt, ct, words, offs, ls, ln, rv, rl = (inp(a[k]) for k in (
+        "lt", "ct", "words", "offs", "ls", "ln", "rv", "rl"))
+    hist, nruns = out((b, 256), torch.int64), out((b,), torch.int64)
+    pw, pt, po, pbits = (out((b, cap), torch.int32), out((b,), torch.int64),
+                         out((b, chunks), torch.int64),
+                         out((b, chunks), torch.int64))
+    dec = out((b, s), torch.uint8)
+    vals, lens, rn, runs, base = (
+        out((b, s), torch.uint8), out((b, s), torch.int16),
+        out((b,), torch.int64), out((b, tiles), torch.int64),
+        out((b, tiles), torch.int64))
+    exp, sums, ebase, cum = (out((b, s), torch.uint8),
+                             out((b, rt), torch.int64),
+                             out((b, rt), torch.int64),
+                             out((b, r), torch.int64))
+    for _ in range(3):
+        hist.zero_(), nruns.zero_(), pw.zero_()
+        kl._run("lossless_stats", x, x, b, s, hist, nruns)
+        kl._run("huffman_pack", x, x, b, s, lt, ct, pbits, po, pt, pw, cap)
+        kl._run("huffman_decode", x, words, b, cap, offs, chunks, ls, ln,
+                dec, s)
+        kl._run("rle_scan", x, x, b, s, runs, base, vals, lens, rn)
+        kl._run("rle_expand", x, rv, rl, b, r, sums, ebase, cum, exp, s)
+        torch.cuda.synchronize()
+        for got, want in zip((hist, nruns), lb._group_stats_plain(x0)):
+            assert torch.equal(got, want)
+        assert torch.equal(pw, a["words"]) and torch.equal(pt, a["total"])
+        assert torch.equal(po, a["offs"])
+        assert torch.equal(dec, x0) and torch.equal(exp, x0)
+        assert torch.equal(rn, a["pn"])
+        for row in range(b):
+            k = int(a["pn"][row])
+            assert torch.equal(vals[row, :k], a["pv"][row, :k])
+    for buf, lo, nbytes in outs:
+        assert _byte_guards_hold(buf, lo, nbytes)
+
+
+@pytest.mark.parametrize("force", [None, "huffman", "rle", "dc"])
+def test_lossless_engine_on_the_card_equals_the_cpu(cuda, force):
+    """``encode_groups_stacked`` and ``decode_segments`` on the card (the
+    kernels) against the CPU (the plain passes) for every ``force`` mode:
+    the same segment bytes, the same decoded blobs, and the kernels
+    launched (none with ``backend="torch"``)."""
+    from repro_torch.core import lossless as ll
+    rng = np.random.default_rng(9)
+    cfg = ll.HybridConfig(force=force)
+    stacks = [np.stack([_lossless_rows(k, 1, 70_001, rng)[0] for k in
+                        ("skewed", "zeros", "uniform", "runs", "one")]),
+              _lossless_rows("skewed", 2, 4097, rng)]
+    want = lb.encode_groups_stacked([torch.from_numpy(st) for st in stacks],
+                                    cfg)
+    before = bp.launches()
+    got = lb.encode_groups_stacked(
+        [torch.from_numpy(st).to(cuda) for st in stacks], cfg)
+    assert [sg.to_bytes() for sg in got] == [sg.to_bytes() for sg in want]
+    mid = bp.launches()
+    assert mid["lossless_stats"] == before["lossless_stats"] + 2
+    dec = lb.decode_segments(got, device=cuda)
+    for d, row in zip(dec, [r for st in stacks for r in st]):
+        assert np.array_equal(d, row)
+    if force != "dc":
+        assert bp.launches() != mid
+    plain = bp.launches()
+    again = lb.encode_groups_stacked(
+        [torch.from_numpy(st).to(cuda) for st in stacks], cfg,
+        backend="torch")
+    assert [sg.to_bytes() for sg in again] == [sg.to_bytes() for sg in want]
+    lb.decode_segments(got, device=cuda, backend="torch")
+    assert bp.launches() == plain
+
+
+def test_corrupt_chunk_offset_raises_before_the_card(cuda):
+    """A Huffman segment whose chunk offset lies past its words raises
+    ``ValueError`` on the host, before anything is uploaded, and the card
+    goes on decoding."""
+    from repro_torch.core import lossless as ll
+    data = (np.random.default_rng(3).geometric(0.3, 9000) % 256
+            ).astype(np.uint8)
+    seg = ll.huffman_encode(data, device=cuda)
+    bad = ll.Segment.from_bytes(seg.to_bytes())
+    bad.payload["chunk_offs"][1] = 32 * bad.payload["words"].shape[0]
+    with pytest.raises(ValueError, match="chunk offset"):
+        lb.decode_segments([bad], device=cuda)
+    with pytest.raises(ValueError, match="chunk offset"):
+        ll.huffman_decode(bad, device=cuda)
+    torch.cuda.synchronize()
+    assert np.array_equal(lb.decode_segments([seg], device=cuda)[0], data)

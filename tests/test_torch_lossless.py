@@ -2,10 +2,11 @@
 its symbol-by-symbol formulation, on the CPU.
 
 ``_huffman_unpack`` finds every chunk's code positions by pointer doubling
-over a per-bit jump table; the stepwise form below (one round of ops per
-code, every chunk in lock step, the port's decode until the store's
-serving made its 4,096 rounds per bucket the read path's wall) is its
-oracle.  Tolerance: none.  Byte identity of whole segments with the JAX
+over a per-bit jump table; the stepwise form (one round of ops per code,
+every chunk in lock step, the port's decode until the store's serving
+made its 4,096 rounds per bucket the read path's wall, now
+``kernels.lossless.huffman_decode_stepwise``, the decode kernel's own
+formulation) is its oracle.  Tolerance: none.  Byte identity of whole segments with the JAX
 reference is tests/test_torch_core.py's.
 """
 import numpy as np
@@ -14,28 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import lossless as ll  # noqa: E402
+from repro_torch.kernels.lossless import huffman_decode_stepwise  # noqa: E402
 
 torch.set_num_threads(1)
-
-
-def _huffman_unpack_stepwise(words, chunk_offs, lut_sym, lut_len, n_syms):
-    """The symbol-by-symbol formulation of ``lossless._huffman_unpack`` (one
-    round of ops per code, every chunk in lock step), kept as its oracle."""
-    b = words.shape[0]
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    pad = ll.CHUNK * ll.MAX_CODE_LEN // 32 + 2
-    w = torch.cat([w, torch.zeros((b, pad), dtype=torch.int64)], dim=1)
-    pair = (w[:, :-1] << 32) | w[:, 1:]
-    lut = (lut_sym.to(torch.int64) & 0xFF) | (lut_len.to(torch.int64) << 8)
-    p = chunk_offs.to(torch.int64) & 0xFFFFFFFF
-    steps = min(ll.CHUNK, n_syms)
-    out = torch.empty((b, p.shape[1], steps), dtype=torch.int64)
-    for k in range(steps):
-        v = torch.gather(pair, 1, p >> 5)
-        e = torch.gather(lut, 1, (v >> (48 - (p & 31))) & 0xFFFF)
-        out[:, :, k] = e
-        p = p + (e >> 8)
-    return (out.reshape(b, -1)[:, :n_syms] & 0xFF).to(torch.uint8)
 
 
 @pytest.mark.parametrize("n_syms", [1, 5, 4095, 4096, 4097, 13000])
@@ -57,4 +39,4 @@ def test_huffman_unpack_matches_stepwise_decode(n_syms):
             torch.from_numpy(lut_len), n_syms)
     got = ll._huffman_unpack(*args)
     assert got.dtype == torch.uint8 and tuple(got.shape) == (b, n_syms)
-    assert torch.equal(got, _huffman_unpack_stepwise(*args))
+    assert torch.equal(got, huffman_decode_stepwise(*args))

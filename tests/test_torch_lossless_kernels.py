@@ -1,0 +1,307 @@
+"""The lossless codec's kernels (``kernels/lossless.py``) on the CPU.
+
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase 21).  Here, with numpy inputs from a seed:
+
+* each kernel's tiled reference, which follows its decomposition (the
+  chunks or tiles, the row scan, the edge words), is bit-identical to the
+  plain pass it replaces, at either side of a chunk (4096) and of an RLE
+  tile (32768), on five contents, on real plane groups that the port's
+  CPU write stacks, and over random sizes (hypothesis);
+* each plain pass equals the reference's jitted one on the same rows;
+* the operators' fakes on ``meta`` give the CPU outputs' shapes and
+  dtypes, and ``OpAnalysis`` sees one operator a call with its declared
+  workspace;
+* ``backend="torch"`` and ``"auto"`` give the same segment bytes on the
+  CPU, ``backend="cuda"`` on a CPU tensor raises, and a corrupt chunk
+  offset raises before any upload.
+
+Tolerance: none (integer outputs, byte for byte).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from hypothesis import given, settings, strategies as st
+
+torch = pytest.importorskip("torch")
+
+from repro.core import lossless as jll  # noqa: E402
+from repro.core import lossless_batch as jlb  # noqa: E402
+from repro_torch.core import lossless as ll  # noqa: E402
+from repro_torch.core import lossless_batch as lb  # noqa: E402
+from repro_torch.core import refactor as rf  # noqa: E402
+from repro_torch.data.fields import gaussian_field  # noqa: E402
+from repro_torch.kernels import bitplane as bp  # noqa: E402
+from repro_torch.kernels import lossless as kl  # noqa: E402
+from repro_torch.launch.op_analysis import OpAnalysis  # noqa: E402
+
+torch.set_num_threads(1)
+
+SIZES = (1, 2, 31, 4095, 4096, 4097, 32767, 32768, 32769, 65537)
+CONTENTS = ("skewed", "zeros", "uniform", "runs", "one")
+
+
+def _rows(kind, b, s, rng):
+    if kind == "skewed":
+        return (rng.geometric(0.3, (b, s)) % 256).astype(np.uint8)
+    if kind == "zeros":
+        return np.zeros((b, s), np.uint8)
+    if kind == "uniform":
+        return rng.integers(0, 256, (b, s)).astype(np.uint8)
+    if kind == "runs":
+        reps = rng.integers(1, 300, (b, s // 20 + 2))
+        vals = rng.integers(0, 4, (b, s // 20 + 2))
+        return np.stack([np.repeat(v, r)[:s] for v, r in zip(vals, reps)]
+                        ).astype(np.uint8)
+    return np.full((b, s), 7 + b, np.uint8)
+
+
+def _books(rows):
+    books = [ll.build_codebook(np.bincount(r, minlength=256)) for r in rows]
+    lt, ct = (torch.from_numpy(np.stack([bk[i] for bk in books]
+                                        ).astype(np.int64)) for i in (0, 1))
+    luts = [ll._build_decode_lut(*bk) for bk in books]
+    ls, ln = (torch.from_numpy(np.stack([lu[i] for lu in luts]))
+              for i in (0, 1))
+    return lt, ct, ls, ln
+
+
+def _tiled_match(rows):
+    """Each tiled reference against the plain pass it follows, on the
+    (B, S) rows."""
+    b, s = rows.shape
+    x = torch.from_numpy(rows)
+    lt, ct, ls, ln = _books(rows)
+    want = ll._huffman_pack_plain(x, lt, ct)
+    for got, w in zip(kl.huffman_pack_tiled(x, lt, ct), want):
+        assert got.dtype == w.dtype and torch.equal(got, w)
+    words, offs = want[0], want[2]
+    dec = ll._huffman_unpack_plain(words, offs, ls, ln, s)
+    assert torch.equal(dec, x)
+    assert torch.equal(kl.huffman_decode_stepwise(words, offs, ls, ln, s),
+                       dec)
+    pv, pl, pn = ll._rle_scan_plain(x)
+    tv, tl, tn = kl.rle_scan_tiled(x)
+    assert torch.equal(tn, pn)
+    for r in range(b):
+        k = int(pn[r])
+        assert torch.equal(tv[r, :k], pv[r, :k])
+        assert torch.equal(tl[r, :k].to(torch.int64) & 0xFFFF, pl[r, :k])
+    rr = int(pn.max())
+    rv, rl = pv[:, :rr].contiguous(), pl[:, :rr].to(torch.int32)
+    out = ll._rle_expand_plain(rv, rl, s)
+    assert torch.equal(out, x)
+    assert torch.equal(kl.rle_expand_tiled(rv, rl, s), out)
+
+
+@pytest.mark.parametrize("kind", CONTENTS)
+@pytest.mark.parametrize("s", SIZES)
+def test_tiled_references_equal_the_plain_passes(s, kind):
+    """At either side of a chunk and of an RLE tile, B = 1 or 3 rows."""
+    b = 3 if SIZES.index(s) % 2 else 1
+    _tiled_match(_rows(kind, b, s, np.random.default_rng(s)))
+
+
+def test_tiled_references_on_real_plane_groups():
+    """The buckets a CPU write of a small field stacks (every piece's sign
+    plane and plane groups), as the batched encoder gets them."""
+    seen = []
+    was = lb._encode_buckets
+
+    def rec(stacked, *args, **kw):
+        seen.extend(stacked.values())
+        return was(stacked, *args, **kw)
+    lb._encode_buckets = rec
+    try:
+        rf.refactor_array(gaussian_field((24, 40, 40), slope=-2.0, seed=3),
+                          "g", device="cpu")
+    finally:
+        lb._encode_buckets = was
+    assert len(seen) >= 4 and max(st_.shape[1] for st_ in seen) > 4096
+    for rows in seen:
+        _tiled_match(rows.numpy())
+
+
+@settings(max_examples=12, deadline=None)
+@given(s=st.integers(1, 70_000), b=st.integers(1, 3),
+       kind=st.sampled_from(CONTENTS), seed=st.integers(0, 2 ** 16))
+def test_tiled_references_over_random_sizes(s, b, kind, seed):
+    _tiled_match(_rows(kind, b, s, np.random.default_rng(seed)))
+
+
+@pytest.mark.parametrize("s", [1, 4097, 65537])
+def test_plain_passes_equal_the_jitted_reference(s):
+    """``_huffman_pack``, ``_huffman_unpack``, ``_rle_scan``,
+    ``_rle_expand`` (a row each) and ``_group_stats_batch`` (the bucket):
+    the port's plain passes against ``repro``'s jitted ones."""
+    rng = np.random.default_rng(s + 1)
+    rows = np.concatenate([_rows(k, 1, s, rng) for k in ("skewed", "runs")])
+    x = torch.from_numpy(rows)
+    lt, ct, ls, ln = _books(rows)
+    words, total, offs = ll._huffman_pack_plain(x, lt, ct)
+    pv, pl, pn = ll._rle_scan_plain(x)
+    for r in range(2):
+        j = jll._huffman_pack(jnp.asarray(rows[r]), jnp.asarray(lt[r]),
+                              jnp.asarray(ct[r]))
+        assert np.array_equal(words[r].numpy().view(np.uint32),
+                              np.asarray(j[0]))
+        assert int(total[r]) == int(j[1])
+        assert np.array_equal(offs[r].numpy(), np.asarray(j[2]))
+        dec = jll._huffman_unpack(jnp.asarray(np.asarray(j[0])),
+                                  jnp.asarray(np.asarray(j[2])),
+                                  jnp.asarray(ls[r]), jnp.asarray(ln[r]), s)
+        assert np.array_equal(ll._huffman_unpack_plain(
+            words[r:r + 1], offs[r:r + 1], ls[r:r + 1], ln[r:r + 1], s
+        )[0].numpy(), np.asarray(dec))
+        jv, jl, jn = jll._rle_scan(jnp.asarray(rows[r]))
+        assert int(pn[r]) == int(jn)
+        assert np.array_equal(pv[r].numpy(), np.asarray(jv))
+        assert np.array_equal(pl[r].numpy(), np.asarray(jl))
+        k = int(jn)
+        je = jll._rle_expand(jv[:k], jl[:k], s)
+        assert np.array_equal(ll._rle_expand_plain(
+            pv[r:r + 1, :k], pl[r:r + 1, :k], s)[0].numpy(),
+            np.asarray(je))
+    jh, jn = jlb._group_stats_batch(jnp.asarray(rows))
+    h, n = lb._group_stats_plain(x)
+    assert np.array_equal(h.numpy(), np.asarray(jh))
+    assert np.array_equal(n.numpy(), np.asarray(jn))
+
+
+def _op_args(device):
+    rng = np.random.default_rng(7)
+    rows = _rows("skewed", 3, 9000, rng)
+    lt, ct, ls, ln = _books(rows)
+    x = torch.from_numpy(rows)
+    words, _, offs = ll._huffman_pack_plain(x, lt, ct)
+    pv, pl, pn = ll._rle_scan_plain(x)
+    rr = int(pn.max())
+    args = {"lossless_stats": (x,), "huffman_pack": (x, lt, ct),
+            "huffman_decode": (words, offs.contiguous(), ls, ln, 9000),
+            "rle_scan": (x,),
+            "rle_expand": (pv[:, :rr].contiguous(),
+                           pl[:, :rr].to(torch.int32).contiguous(), 9000)}
+    return {k: tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                     for a in v) for k, v in args.items()}
+
+
+def _outs(res):
+    return res if isinstance(res, tuple) else (res,)
+
+
+@pytest.mark.parametrize("name", kl.SYMBOLS)
+def test_operators_on_the_cpu_and_on_meta(name):
+    """Each wrapper on CPU tensors runs its operator's CPU kernel (the
+    plain version, at the operator's types: ``rle_scan``'s lengths as
+    int16) and launches nothing; on ``meta`` its fake gives the same
+    shapes and dtypes, and ``OpAnalysis`` counts one operator whose temp
+    is its outputs and its declared workspace."""
+    fn = getattr(kl, name)
+    before = bp.launches()
+    cpu = _outs(fn(*_op_args("cpu")[name]))
+    assert bp.launches() == before
+    plain = {"lossless_stats": lb._group_stats_plain,
+             "huffman_pack": ll._huffman_pack_plain,
+             "huffman_decode": ll._huffman_unpack_plain,
+             "rle_scan": ll._rle_scan_plain,
+             "rle_expand": ll._rle_expand_plain}[name]
+    for got, want in zip(cpu, _outs(plain(*_op_args("cpu")[name]))):
+        assert torch.equal(got.to(torch.int64) & 0xFFFF
+                           if got.dtype == torch.int16 else got, want)
+    args = _op_args("meta")[name]
+    with OpAnalysis() as ana:
+        meta = _outs(fn(*args))
+    assert [(t.shape, t.dtype) for t in meta] == \
+        [(t.shape, t.dtype) for t in cpu]
+    assert all(t.device.type == "meta" for t in meta)
+    rec = ana.summary()
+    assert rec["ops_by_name"][f"repro_torch.{name}.default"]["count"] == 1
+    op = getattr(torch.ops.repro_torch, name).default
+    ws = sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+             for shape, dt in bp.WORKSPACE[op](*args).values()) \
+        if op in bp.WORKSPACE else 0
+    assert rec["temp_bytes"] == sum(t.numel() * t.element_size()
+                                    for t in meta) + ws
+    assert bp.launches() == before
+
+
+def test_declared_workspaces():
+    x = torch.empty((3, 70_000), dtype=torch.uint8, device="meta")
+    t = torch.empty((3, 256), dtype=torch.int64, device="meta")
+    assert kl.huffman_pack_workspace(x, t, t) == {
+        "chunk_bits": ((3, 18), torch.int64)}
+    assert kl.rle_scan_workspace(x) == {
+        "tile_runs": ((3, 3), torch.int64),
+        "tile_base": ((3, 3), torch.int64)}
+    v = torch.empty((2, 5000), dtype=torch.uint8, device="meta")
+    assert kl.rle_expand_workspace(v, v, 9) == {
+        "tile_sums": ((2, 2), torch.int64),
+        "tile_base": ((2, 2), torch.int64),
+        "cum": ((2, 5000), torch.int64)}
+    assert (kl.CHUNK, kl.RLE_BREAK) == (ll.CHUNK, ll.RLE_BREAK) == \
+        (jll.CHUNK, jll.RLE_BREAK)
+
+
+@pytest.mark.parametrize("force", [None, "huffman", "rle", "dc"])
+def test_backends_give_the_same_bytes_on_the_cpu(force):
+    """``backend="torch"`` and ``"auto"`` (the plain passes on the CPU)
+    give the same segments, per group and batched, and the same decoded
+    blobs; the reference's bytes too."""
+    rng = np.random.default_rng(11)
+    blobs = [_rows(k, 1, 6000, rng)[0] for k in CONTENTS]
+    cfg = ll.HybridConfig(force=force)
+    want = [s.to_bytes() for s in jlb.encode_groups(
+        [jnp.asarray(b) for b in blobs], jll.HybridConfig(force=force))]
+    for backend in ("auto", "torch"):
+        segs = lb.encode_groups(blobs, cfg, device="cpu", backend=backend)
+        assert [s.to_bytes() for s in segs] == want
+        assert [ll.compress_group(b, cfg, device="cpu",
+                                  backend=backend).to_bytes()
+                for b in blobs] == want
+        for d, b in zip(lb.decode_segments(segs, device="cpu",
+                                           backend=backend), blobs):
+            assert np.array_equal(d, b)
+        for s_, b in zip(segs, blobs):
+            assert np.array_equal(ll.decompress_group(
+                s_, device="cpu", backend=backend), b)
+
+
+def test_backend_cuda_on_the_cpu_raises():
+    blob = _rows("skewed", 1, 6000, np.random.default_rng(1))[0]
+    seg = ll.huffman_encode(blob, device="cpu")
+    x = torch.from_numpy(blob)[None]
+    calls = (
+        lambda: lb.encode_groups([blob], device="cpu", backend="cuda"),
+        lambda: lb.encode_groups_stacked([x], backend="cuda"),
+        lambda: lb.decode_segments([seg], device="cpu", backend="cuda"),
+        lambda: ll.compress_group(blob, device="cpu", backend="cuda"),
+        lambda: ll.decompress_group(seg, device="cpu", backend="cuda"),
+        lambda: ll._rle_scan(x, "cuda"),
+        lambda: lb._group_stats_batch(x, "cuda"))
+    for call in calls:
+        with pytest.raises(ValueError, match="cuda"):
+            call()
+    with pytest.raises(ValueError, match="unknown backend"):
+        lb.decode_segments([seg], device="cpu", backend="pallas")
+
+
+@pytest.mark.parametrize("where", ["past the words", "one too few"])
+def test_a_corrupt_chunk_offset_raises_on_the_host(where):
+    """A Huffman segment whose chunk offset lies at or past its words' end
+    (or that lacks one) raises ``ValueError`` before any upload, per group
+    and batched; an offset inside the words still decodes as before."""
+    blob = _rows("skewed", 1, 9000, np.random.default_rng(2))[0]
+    seg = ll.huffman_encode(blob, device="cpu")
+    bad = ll.Segment.from_bytes(seg.to_bytes())
+    if where == "past the words":
+        bad.payload["chunk_offs"][2] = 32 * bad.payload["words"].shape[0]
+    else:
+        bad.payload["chunk_offs"] = bad.payload["chunk_offs"][:2]
+    for call in (lambda: lb.decode_segments([bad], device="cpu"),
+                 lambda: ll.decompress_group(bad, device="cpu")):
+        with pytest.raises(ValueError, match="chunk offset"):
+            call()
+    inside = ll.Segment.from_bytes(seg.to_bytes())
+    inside.payload["chunk_offs"][2] = 32 * inside.payload["words"].shape[0] - 1
+    got = lb.decode_segments([inside], device="cpu")[0]
+    assert np.array_equal(got[:2 * ll.CHUNK], blob[:2 * ll.CHUNK])
