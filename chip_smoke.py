@@ -249,7 +249,13 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    4-plane group and sign plane, phase 8's and phase 9's largest), timed
    there (wrapper, replayed graph past the L2, plain pass, bound,
    ``torch.bincount`` beside the histogram, ``torch.repeat_interleave``
-   beside the expand); Isabel written and read with
+   beside the expand); on those groups the read side's kernels also give
+   the decode's walks over one call (chunks, none walked serially,
+   synchronisation rounds), its device time at 32, 64, 128 and 256 lanes a
+   chunk, the largest expand tile's share of the bytes, and each kernel's
+   device activities a call (the expand's at most two); the edge cases and
+   every engine decode of phases 3-12 walk no chunk serially; Isabel
+   written and read with
    RLE forced (the RLE kernels' main path; the default picks none there),
    counters zeroed before, no plain pass, the blob ``backend="torch"``'s;
    (b) phase 3's write and ladder and phase 8's pipelined write and read
@@ -4109,11 +4115,13 @@ def lossless_case(torch, x):
 
 def lossless_edges(torch):
     """Phase 21 (a)'s sizes and contents: every kernel byte-identical to
-    its plain version; returns the cases checked and the largest
-    differences (0)."""
+    its plain version, and no chunk of these streams decoded serially;
+    returns the cases checked and the largest differences (0)."""
     import numpy as np
+    from repro_torch.kernels import lossless as kl
     rng = np.random.default_rng(21)
     n, errs = 0, {}
+    kl.reset_decode_walks()
     for s in LOSSLESS_SIZES:
         for b in (1, 3):
             for kind in LOSSLESS_CONTENTS:
@@ -4122,7 +4130,18 @@ def lossless_edges(torch):
                     errs[k] = max(errs.get(k, 0), v)
                 n += 1
     torch.cuda.synchronize()
+    check_walks(kl, "phase 21's edge cases")
     return n, errs
+
+
+def check_walks(kl, what):
+    """The decode's walks since the last reset: printed, none serial."""
+    walks = kl.decode_walks()
+    check(walks["serial"] == 0, f"{what}: {walks['serial']} chunks decoded "
+          "serially")
+    print(f"{what}: the decode walked {walks['chunks']} chunks, none "
+          f"serially, {walks['rounds']} synchronisation rounds (at most "
+          f"{walks['max_rounds']} a chunk)", flush=True)
 
 
 class _Buckets:
@@ -4220,11 +4239,12 @@ def lossless_timings(torch, c, what):
         "rle_expand": (lambda *a: kl.rle_expand(*a, s),
                        lambda *a: ll._rle_expand_plain(*a, s),
                        (c["rv"], c["rl"]))}
-    rows = {}
+    rows, copied = {}, {}
     for name, (fn, plain, args) in calls.items():
         nbytes = _lossless_bytes(name, c)
         copies = [args] + [tuple(a.clone() for a in args) for _ in range(
             -(-2 * L2_BYTES // max(nbytes, 1)) - 1)]
+        copied[name] = copies
         it = itertools.cycle(copies)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = LOSSLESS_OPS[name] * s / INT32_OPS_PER_S * 1e3
@@ -4244,12 +4264,12 @@ def lossless_timings(torch, c, what):
           f"torch.repeat_interleave on {what} is not the group")
     rows["rle_expand"]["library_ms"] = time_ms(
         lambda: torch.repeat_interleave(rv, rl, output_size=s))
+    read_side(torch, c, what, rows, copied)
     for name, r in rows.items():
         extra = ""
         if name == "huffman_decode":
-            extra = (f"; the chain: "
-                     f"{r['device_ms'] * 1e6 / min(kl.CHUNK, s):.1f} ns "
-                     f"a code over {min(kl.CHUNK, s)} dependent codes")
+            extra = (f"; {r['device_ms'] * 1e6 / min(kl.CHUNK, s):.1f} ns "
+                     f"a chunk's code")
         elif name == "lossless_stats":
             extra = f"; torch.bincount {r['library_ms'] * 1e3:.1f} us"
         elif name == "rle_expand":
@@ -4263,6 +4283,65 @@ def lossless_timings(torch, c, what):
               f"{r['bytes'] / 1e6:.2f} MB), device / bound "
               f"{r['device_ms'] / r['bound_ms']:.1f}{extra}", flush=True)
     return rows
+
+
+def _device_activities(torch, fn) -> dict:
+    """The device activities (kernels, sets, copies) of one call of
+    ``fn``, by name, as torch.profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.key != "Activity Buffer Request"}
+
+
+def read_side(torch, c, what, rows, copied):
+    """The read side's kernels at the group ``c``: the decode's walks over
+    one call (none serial on an engine-made group), its device time at each
+    lane count (graph replay over the timing's input copies), and each
+    kernel's device activities a call (the expand's: at most two)."""
+    from repro_torch.kernels import lossless as kl
+    s = c["x"].shape[1]
+    args = (c["words"], c["offs"], c["ls"], c["ln"])
+    kl.reset_decode_walks()
+    kl.huffman_decode(*args, s)
+    walks = kl.decode_walks()
+    check(walks["serial"] == 0 and walks["chunks"] == -(-s // kl.CHUNK),
+          f"huffman_decode on {what}: walks {walks}")
+    it = itertools.cycle(copied["huffman_decode"])
+    lanes_ms = {m: time_ms(lambda: kl._launch_decode(*next(it), s, lanes=m),
+                           graph=True) for m in kl.LANES}
+    acts = {"huffman_decode": _device_activities(
+        torch, lambda: kl.huffman_decode(*args, s)),
+            "rle_expand": _device_activities(
+        torch, lambda: kl.rle_expand(c["rv"], c["rl"], s))}
+    n_exp = sum(acts["rle_expand"].values())
+    check(0 < n_exp <= 2, f"rle_expand on {what}: device activities "
+          f"{acts['rle_expand']}")
+    rows["huffman_decode"].update(walks=walks, lanes_ms=lanes_ms,
+                                  activities=acts["huffman_decode"])
+    rows["rle_expand"]["activities"] = acts["rle_expand"]
+    rl = c["rl"][0].to(torch.int64)
+    tiles = torch.nn.functional.pad(rl, (0, -rl.numel() % kl.EXPAND_TILE))
+    heaviest = int(tiles.view(-1, kl.EXPAND_TILE).sum(1).max())
+    print(f"huffman_decode on {what}: one call walks {walks['chunks']} "
+          f"chunks, {walks['serial']} serially, {walks['rounds']} "
+          f"synchronisation rounds ({walks['rounds'] / walks['chunks']:.2f} "
+          f"a chunk, at most {walks['max_rounds']}); device at "
+          + " / ".join(f"{m}" for m in kl.LANES) + " lanes "
+          + " / ".join(f"{v * 1e3:.1f}" for v in lanes_ms.values())
+          + f" us; device activities a call "
+          f"{sum(acts['huffman_decode'].values())} "
+          f"({', '.join(acts['huffman_decode'])})", flush=True)
+    print(f"rle_expand on {what}: device activities a call {n_exp} "
+          f"({', '.join(acts['rle_expand'])}); {rl.numel()} runs in "
+          f"{-(-rl.numel() // kl.EXPAND_TILE)} tiles, the largest tile "
+          f"{heaviest} of the {s} bytes", flush=True)
 
 
 def _peak_base(torch) -> int:
@@ -4477,6 +4556,8 @@ def main(argv) -> int:
     done(t0, "phase 2")
 
     t0 = phase("3 main path at full size")
+    from repro_torch.kernels import lossless as kl
+    kl.reset_decode_walks()     # read after phase 12: every engine decode
     x_np = gaussian_field(ISABEL_SHAPE, slope=-2.0, seed=0)
     print(f"field {ISABEL_SHAPE}: {time.perf_counter() - t0:.2f} s to make")
     launches, blob = main_path(torch, bp, rf, rt, x_np)
@@ -4525,6 +4606,7 @@ def main(argv) -> int:
 
     t0 = phase("12 exact codec (float64 Miranda) and checkpoints")
     ckpt_phase(torch, bp)
+    check_walks(kl, "phases 3-12")
     done(t0, "phase 12")
 
     t0 = phase("13 serve: the LLM path (smoke archs, qwen2-7b, "

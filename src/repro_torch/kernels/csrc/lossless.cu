@@ -15,7 +15,8 @@
 // Rows.  Every operator takes a bucket: B rows of one length, row b at
 // b * (row length) of a contiguous buffer.  Chunks or tiles of a row go on
 // gridDim.x, rows on gridDim.y, at most kMaxRows rows a launch (the C
-// entry points split larger buckets).  A row need not start 16-byte
+// entry points split larger buckets); rle_expand's blocks take tickets
+// over all rows instead.  A row need not start 16-byte
 // aligned (its length need not be a multiple of 16): 16-byte loads and
 // stores are taken where the address is so aligned and the bytes lie in
 // the row, bytes one at a time elsewhere.
@@ -29,7 +30,7 @@
 // The row-scan helper (row_scan_kernel) is one block a row over that
 // row's tile totals: the exclusive prefix sums (int64) and the row's
 // total.  The Huffman pack scans its chunks' bit counts with it, the RLE
-// scan its tiles' run counts, the RLE expand its tiles' run lengths.
+// scan its tiles' run counts.
 //
 // --- lossless_stats --------------------------------------------------------
 //
@@ -62,20 +63,57 @@
 //
 // --- huffman_decode ----------------------------------------------------------
 //
-// What the reference computes, as a kernel: a thread walks one chunk's
-// min(CHUNK, n - c * CHUNK) codes in order.  At bit p it takes the top 16
-// bits of the 32-bit window at p (a funnel shift of two words held in
-// registers, with four more loaded ahead), looks up (symbol, length) in the
-// row's 2^16-entry peek table and advances p by the length, which may be
-// 0, as the reference does.  A word past the row's L reads as zero, as
-// the plain version's padding does; nothing outside the buffers is read.
-// Each block loads the row's table into shared memory, packed as uint16
-// sym | len << 8 (128 KB of dynamic shared memory); a decode that read the
-// two uint8 tables through the read-only cache instead was slower on the
-// card (PERF.md).
-// Bound: bytes (the words, the tables, n written); but each chunk is one
-// dependent chain of 4,096 steps (a shift, a table load, an add), and with
-// a thread a chunk that chain's latency, not the bytes, sets the time.
+// What the reference computes: chunk c's min(CHUNK, n - c * CHUNK) codes
+// walked in order from bit off[c].  At bit p the top 16 bits of the 32-bit
+// window at p peek the row's 2^16-entry table for (symbol, length), and p
+// advances by the length, which may be 0, as the reference's does.  A word
+// past the row's L reads as zero, as the plain version's padding does;
+// nothing outside the buffers is read.  Two launches a call:
+//   1. huff_primary_kernel builds each row's primary table: entry q of
+//      2^kPrimBits is the peek table's (sym | len << 8) for the 32 peeks
+//      q << 5 .. that it covers, where all 32 agree and len <= kPrimBits
+//      (`_build_decode_lut` fills every peek under a code that short alike),
+//      else kLong: such a peek (a longer code) is read from the row's full
+//      tables through the read-only cache.  4 KB a row, not 128 KB.
+//   2. huff_decode_kernel: a block of M lanes (32 to 256, decode_lanes: 256
+//      while a launch has at most ~4,200 chunks) a chunk.  One bulk copy
+//      (cp.async.bulk on an mbarrier) stages the chunk's words and the
+//      primary table in shared memory, so no walk waits on a global load.
+//      The chunk's bits [off[c], E) are split into M spans: E is off[c + 1]
+//      (the chunks are packed back to back), for the row's last chunk off +
+//      16 * count, capped at the row's words.  The staged words' zero tail
+//      (a row's padding, where every code is the table's entry 0) goes to
+//      the last lane, which counts its codes there rather than walking
+//      them; a span is kLaneBits at least (a shorter one could hold no
+//      whole code, and each round would right one lane only), so a short
+//      chunk keeps its first lanes idle at its start; span starts are
+//      multiples of a codebook's one code length where it has one (8-bit
+//      codes of noise planes), so that the first walk is already in step.
+//      Lane j walks from its span's start until it passes the span's end,
+//      counting codes; lane j + 1 restarts where lane j stopped; until no
+//      lane's start moves (lane 0 starts on a true boundary, so by
+//      induction every start then is one).  A lane that meets a zero length
+//      advances one bit, so that its walk ends.  A chunk still moving at
+//      round kTableRound (a codebook of nearly one length, 7, 8 and 9 bits,
+//      falls into step seldom, and would take a round a lane) takes entry
+//      tables instead: each lane walks its span from every entry a true
+//      start can have (its nominal start plus 0 .. the longest code - 1),
+//      one lane chains the exits from the chunk's start, and each lane
+//      walks once more from its own.  An exclusive scan of the
+//      counts gives each lane its first symbol's slot, and a second walk
+//      writes the symbols into a 4 KB shared tile, stored with 16-byte
+//      stores.  The result is kept only where it must equal the serial
+//      walk: no zero length on the synchronised path, the counts summing
+//      to the chunk's count and the last code ending at off[c + 1] (the
+//      last chunk: at least count codes).  Any other chunk (a corrupt or
+//      hand-made stream, an offset past 2^16 bits on) is walked serially
+//      by one lane through global loads, as the reference walks it.
+//   `walks` (4 uint64, the wrapper's per-device record) gets each chunk,
+//   each serially walked chunk, the synchronisation rounds (walks after
+//   the first) and their most in one chunk.
+// Bound: bytes (the words, the tables, n written).  A chunk's codes are
+// M chains of about 4,096 / M dependent look-ups, walked twice, once more
+// a round, and at most kTableRound - 1 + the longest code + 2 times.
 //
 // --- rle_scan -----------------------------------------------------------------
 //
@@ -94,23 +132,39 @@
 //
 // --- rle_expand ---------------------------------------------------------------
 //
-//   1. rle_len_sums_kernel sums each tile of 4096 run lengths;
-//   2. the row-scan helper gives each tile its first run's start;
-//   3. rle_cum_kernel writes every run's inclusive end, cum (int64);
-//   4. rle_expand_kernel: each output byte at position pos takes
-//      values[min(upper_bound(cum, pos), R - 1)], the plain version's
-//      searchsorted(cum, pos, right=True).clamp(max=R - 1), zero-length
-//      runs and a sum short of n included.  A block of 256 threads covers
-//      4096 bytes; two threads search the whole row for the runs at the
-//      block's first and last byte, each thread searches that range for
-//      its first byte and walks on for its 16.
-// Bound: bytes, the runs read once and n written.
+// One pass with a decoupled look-back, plus the zeroing of its status
+// words (two launches a call).  Tiles of 4096 runs; a block takes a
+// ticket from an atomic counter (so a ticket's predecessors have all
+// started, and tiles of a row are scanned in order), stages its tile's
+// int32 lengths and uint8 values in shared memory with a bulk copy on an
+// mbarrier, turns them so that a thread reads its own 16 runs without
+// bank conflicts, scans the lengths, publishes its tile's sum (flag and
+// sum in one 64-bit status word a tile), and sums its predecessors' words
+// back to the nearest inclusive one, 256 words a step: the tile's first
+// byte.  It then writes its bytes [prefix, prefix + sum) of [0, n) (the
+// row's last tile on to n):
+//   - few bytes (a tile's whole range fits in shared memory): each thread
+//     spells out its own runs there, aligned as the output, and the block
+//     stores whole 16-byte granules;
+//   - many bytes (long runs, the row's tail past its total, a slice's
+//     share): each thread takes 16-byte granules, finds the run of a
+//     granule's first byte in the tile's ends (a cursor, then a binary
+//     search; upper bound, so zero-length runs are skipped as
+//     searchsorted(right=True) skips them), fills a granule one run covers
+//     at once and walks the others byte by byte.
+// Bytes past the row's total take values[r - 1] (the plain version's
+// clamp); a row whose lengths sum past n is cut at n.  Where a row's tiles
+// average many bytes, `slices` blocks share each tile: each stages and
+// scans it, the first publishes and looks back, the others wait for its
+// inclusive word and write their share.  Bound: bytes, the runs read once
+// and n written.  A block of many bytes writes them at a few GB/s
+// (PERF.md), so a row whose bytes sit in a few tiles waits on those.
 //
 // Launches: every kernel runs on the caller's stream and allocates
 // nothing; the wrapper allocates the outputs and the scratch (the tile
-// totals and bases, and rle_expand's cum), declared in
-// kernels/bitplane.py WORKSPACE.  Each C entry point returns the first
-// non-zero cudaGetLastError() of its launches.
+// totals and bases, the decode's primary tables, rle_expand's status
+// words), declared in kernels/bitplane.py WORKSPACE.  Each C entry point
+// returns the first non-zero error of its launches.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -129,13 +183,30 @@ constexpr int kStatsSegs = 4;           // 16-symbol segments a thread
 constexpr int kStatsTile = kStatsThreads * 16 * kStatsSegs;
 constexpr int kPackThreads = 256;       // 16 symbols a thread: a chunk
 constexpr int kTileWords = kChunk * 16 / 32 + 2;
-constexpr int kDecThreads = 32;         // a chunk a thread
 constexpr int kRleThreads = 1024;       // 32 symbols a thread: a tile
+constexpr int kPrimBits = 11;           // the decode's primary table
+constexpr int kPrim = 1 << kPrimBits;
+constexpr int kPrimSub = 16 - kPrimBits;   // 32 peeks a primary entry
+constexpr uint32_t kLong = 0xFFFFu;     // a primary entry: read the full table
+constexpr int kMaxLanes = 256;          // a decode block's lanes, at most
+constexpr int kStageWords = kChunk * 16 / 32 + 4;   // a chunk's words, staged
+constexpr long long kChunkBits = kChunk * 16LL;     // a chunk's bits, at most
+constexpr int kLaneTarget = 8192;       // decode threads an SM, at least
+constexpr int kLaneBits = 64;           // a decode lane's span, at least
+constexpr int kTableRound = 4;          // a decode's entry tables from here
 constexpr int kExpThreads = 256;        // 16 runs or bytes a thread
 constexpr int kExpTile = kExpThreads * 16;
+constexpr long long kSliceBytes = 16384;   // an expand block's bytes, about
+constexpr int kMaxSlices = 256;
+// an expand tile's status word: the flag in the top two bits, a sum in
+// the other 62
+constexpr unsigned long long kAgg = 1ull << 62, kInc = 2ull << 62;
+constexpr unsigned long long kValBits = (1ull << 62) - 1;
 
 static_assert(kPackThreads * 16 == kChunk, "a pack block is a chunk");
 static_assert(kRleThreads * 32 == kRleBreak, "an RLE block is a tile");
+static_assert(kPrim % 256 == 0, "a primary block is 256 entries");
+static_assert(16 * kMaxLanes <= kChunk, "a decode's entry exits fit its tile");
 
 // ------------------------------------------------------------- helpers --
 
@@ -177,20 +248,6 @@ __device__ __forceinline__ Sym16 load16(const uint8_t* __restrict__ row,
   return v;
 }
 
-// the first `cnt` (<= 16) bytes of `v` to dst[0, cnt)
-__device__ __forceinline__ void store16(uint8_t* __restrict__ dst,
-                                        const Sym16& v, int cnt) {
-  if (cnt == 16 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(v.w[0], v.w[1], v.w[2],
-                                                v.w[3]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      if (k < cnt) dst[k] = static_cast<uint8_t>(sym_at(v, k));
-    }
-  }
-}
-
 __device__ __forceinline__ int seg_count(long long s, long long q) {
   const long long c = s - q;
   return c <= 0 ? 0 : (c >= 16 ? 16 : static_cast<int>(c));
@@ -223,6 +280,83 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* scratch, T& total) {
   __syncthreads();
   total = scratch[warps - 1];
   return (warp ? scratch[warp - 1] : T(0)) + x - v;
+}
+
+// ------------------------------------------------- staging, mbarriers --
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(1u) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The one arrival of the barrier's phase, expecting `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits for the barrier's first phase; a wait of ~8 s (2^34 cycles) traps,
+// so that a fault ends the launch with an error rather than holding the
+// card.
+__device__ __forceinline__ void mbar_wait0(uint64_t* bar) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(0u) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// `bytes` bytes of global memory at `src` staged at dst + lead in shared
+// memory (dst 16-byte aligned, lead + bytes of room): lead = src % 16, so
+// that the two are 16-byte aligned alike; the aligned body goes by one bulk
+// copy, the head and tail (< 16 bytes each) by plain loads.
+struct Stage {
+  const uint8_t* src;
+  int bytes, lead, head, body;
+};
+
+__device__ __forceinline__ Stage stage_plan(const void* src, int bytes) {
+  Stage s;
+  s.src = static_cast<const uint8_t*>(src);
+  s.bytes = bytes > 0 ? bytes : 0;
+  s.lead = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  const int h = (16 - s.lead) & 15;
+  s.head = h < s.bytes ? h : s.bytes;
+  s.body = (s.bytes - s.head) & ~15;
+  return s;
+}
+
+// One thread, after mbar_arrive_tx of every stage's body on `bar`.
+__device__ __forceinline__ void stage_body(uint8_t* dst, const Stage& s,
+                                           uint64_t* bar) {
+  if (s.body > 0) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(dst + s.lead + s.head)), "l"(s.src + s.head),
+          "r"(s.body), "r"(smem_u32(bar)) : "memory");
+  }
+}
+
+// Every thread: its share of the head and tail bytes.
+__device__ __forceinline__ void stage_edges(uint8_t* dst, const Stage& s) {
+  const int tail = s.head + s.body;
+  const int edges = s.bytes - s.body;
+  for (int i = threadIdx.x; i < edges; i += blockDim.x) {
+    const int k = i < s.head ? i : tail + (i - s.head);
+    dst[s.lead + k] = __ldg(s.src + k);
+  }
 }
 
 // ------------------------------------------------------ the row scan --
@@ -402,11 +536,49 @@ huff_pack_kernel(const uint8_t* __restrict__ syms, long long s,
 
 // ---------------------------------------------------- huffman decode --
 
-// A chunk's walk: the 32-bit window at the position is w0:w1 shifted left
-// by `sh` (< 32), and w2 .. w5 are the next words, loaded ahead.  The
-// chain from one code to the next is a funnel shift, a table load, an add
-// to `sh` and a compare; a step past w0 moves the words down and loads
-// one more, off the chain.
+// (sym | len << 8) of the 16-bit peek: the primary table's entry where it
+// holds one, else the row's full tables
+__device__ __forceinline__ uint32_t lookup(uint32_t peek, const uint16_t* prim,
+                                           const uint8_t* ls,
+                                           const uint8_t* ll) {
+  uint32_t e = prim[peek >> kPrimSub];
+  if ((e >> 8) > kPrimBits) {
+    e = __ldg(ls + peek) | static_cast<uint32_t>(__ldg(ll + peek)) << 8;
+  }
+  return e;
+}
+
+// Entry q of a row's primary table from its 32 peeks q << 5 ...: their
+// common (sym | len << 8) if all agree and len <= kPrimBits, else kLong.
+__global__ void __launch_bounds__(256)
+huff_primary_kernel(const uint8_t* __restrict__ lut_sym,
+                    const uint8_t* __restrict__ lut_len,
+                    uint16_t* __restrict__ prim) {
+  const long long b = blockIdx.y;
+  const int q = blockIdx.x * 256 + threadIdx.x;
+  const long long at = b * kLut + (static_cast<long long>(q) << kPrimSub);
+  uint32_t same = 1, sym = 0, len = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const Sym16 sv = load16(lut_sym + at, 32, 16 * h);
+    const Sym16 lv = load16(lut_len + at, 32, 16 * h);
+    if (h == 0) {
+      sym = sym_at(sv, 0);
+      len = sym_at(lv, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      same &= (sv.w[k] == sym * 0x01010101u) & (lv.w[k] == len * 0x01010101u);
+    }
+  }
+  prim[b * kPrim + q] = static_cast<uint16_t>(
+      same && len <= kPrimBits ? sym | len << 8 : kLong);
+}
+
+// A serial walk through global loads, as the reference's: the 32-bit
+// window at the position is w0:w1 shifted left by `sh` (< 32), w2 .. w5
+// the next words, loaded ahead.  A step past w0 moves the words down and
+// loads one more, off the chain.
 struct Walker {
   const uint32_t* w;
   long long n_words;
@@ -429,11 +601,12 @@ struct Walker {
     w5 = ld(i + 5);
   }
 
-  // the symbol at the position, which advances by its code's length;
-  // `lut`: the packed table in shared memory
-  __device__ __forceinline__ uint32_t next(const uint16_t* lut) {
-    const uint32_t peek = __funnelshift_l(w1, w0, sh) >> 16;
-    const uint32_t e = lut[peek];
+  // the symbol at the position, which advances by its code's length
+  __device__ __forceinline__ uint32_t next(const uint16_t* prim,
+                                           const uint8_t* ls,
+                                           const uint8_t* ll) {
+    const uint32_t e = lookup(__funnelshift_l(w1, w0, sh) >> 16, prim, ls,
+                              ll);
     sh += e >> 8;
     if (sh >= 32) {
       if (sh < 64) {            // one word on: a code is at most 16 bits
@@ -453,57 +626,270 @@ struct Walker {
   }
 };
 
-__global__ void __launch_bounds__(kDecThreads)
+__device__ __forceinline__ uint32_t staged(const uint32_t* sw, int nw, int k) {
+  return k < nw ? sw[k] : 0u;
+}
+
+// The staged words' zero tail: from bit `from` on every window is zero,
+// so every code is (sym0, len0), the peek table's entry 0.
+struct Tail {
+  int from;
+  uint32_t sym0, len0;
+};
+
+// A lane's walk over the staged words `sw` (nw of them; positions in bits
+// from the first): from `pos` while the position is before `stop`.  Gives
+// the first position at or past `stop`, the codes walked, and whether a
+// zero length was met (walked over as one bit).  In the zero tail the
+// codes are counted, not walked.  kWrite: the symbols go to tile[slot
+// ...], the first `limit - slot` of them.  The window's two words are
+// read from shared memory at every step: a window kept in registers and
+// moved down a word at a time, as the serial walk keeps it, gave codes
+// other than the host's on the card here (PERF.md).
+template <bool kWrite>
+__device__ __forceinline__ int walk(const uint32_t* sw, int nw, int pos,
+                                    int stop, const Tail& tail,
+                                    const uint16_t* prim, const uint8_t* ls,
+                                    const uint8_t* ll, int& count, bool& zero,
+                                    uint8_t* tile, int slot, int limit) {
+  int p = pos, cnt = 0;
+  bool z = false;
+  while (p < stop) {
+    if (kWrite && slot + cnt >= limit) break;
+    if (p >= tail.from && tail.len0 > 0) {
+      const int len0 = static_cast<int>(tail.len0);
+      int more = (stop - p + len0 - 1) / len0;
+      if (kWrite) {
+        const int room = limit - slot - cnt;
+        if (more > room) more = room;
+        for (int i = 0; i < more; ++i) {
+          tile[slot + cnt + i] = static_cast<uint8_t>(tail.sym0);
+        }
+      }
+      cnt += more;
+      p += more * len0;
+      break;
+    }
+    const int k = p >> 5;
+    const uint32_t e = lookup(
+        __funnelshift_l(staged(sw, nw, k + 1), staged(sw, nw, k),
+                        static_cast<uint32_t>(p) & 31u) >> 16,
+        prim, ls, ll);
+    const int len = static_cast<int>(e >> 8);
+    if (kWrite) tile[slot + cnt] = static_cast<uint8_t>(e);
+    ++cnt;
+    if (len == 0) z = true;
+    p += len == 0 ? 1 : len;
+  }
+  count = cnt;
+  zero = z;
+  return p;
+}
+
+__global__ void __launch_bounds__(kMaxLanes)
 huff_decode_kernel(const uint32_t* __restrict__ words, long long n_words,
                    const long long* __restrict__ chunk_offs, int chunks,
+                   int used, const uint16_t* __restrict__ primary,
                    const uint8_t* __restrict__ lut_sym,
                    const uint8_t* __restrict__ lut_len,
+                   unsigned long long* __restrict__ walks,
                    uint8_t* __restrict__ out, long long n) {
-  extern __shared__ uint32_t lut_s[];   // kLut / 2 words
+  __shared__ __align__(16) uint8_t words_s[kStageWords * 4 + 16];
+  __shared__ __align__(16) uint8_t prim_s[kPrim * 2 + 16];
+  __shared__ __align__(16) uint8_t tile[kChunk + 16];   // or entry exits
+  __shared__ int end_s[kMaxLanes];
+  __shared__ int scratch[32];
+  // least and most length of a direct entry; the last non-zero word + 1
+  __shared__ int quantum[3];
+  __shared__ __align__(8) uint64_t bar;
+  const int lane = threadIdx.x, lanes = blockDim.x;
   const long long b = blockIdx.y;
+  const int c = blockIdx.x;
+  const long long first = static_cast<long long>(c) * kChunk;
+  const int count = static_cast<int>(n - first < kChunk ? n - first : kChunk);
+  const uint32_t* wrow = words + b * n_words;
+  const long long* orow = chunk_offs + b * chunks;
+  const long long off = static_cast<uint32_t>(orow[c]);
+  const bool last = c + 1 == used;
+  long long end = off + 16LL * count;   // count codes of at most 16 bits
+  if (end > 32 * n_words) end = 32 * n_words;
+  if (!last) end = static_cast<uint32_t>(orow[c + 1]);
+  const bool parallel = end > off && end - off <= kChunkBits;
+  const long long wlo = off >> 5;
+  const int nstage = parallel
+      ? static_cast<int>(((end - 1) >> 5) - wlo + 4) : 0;
+  long long avail = n_words - wlo;
+  if (avail > nstage) avail = nstage;
+  if (avail < 0) avail = 0;
+  const Stage sw_plan = stage_plan(wrow + wlo, static_cast<int>(4 * avail));
+  const Stage sp_plan = stage_plan(primary + b * kPrim, 2 * kPrim);
+  if (lane == 0) {
+    mbar_init(&bar);
+    quantum[0] = 255;
+    quantum[1] = 0;
+    quantum[2] = 0;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    mbar_arrive_tx(&bar, sw_plan.body + sp_plan.body);
+    stage_body(words_s, sw_plan, &bar);
+    stage_body(prim_s, sp_plan, &bar);
+  }
+  stage_edges(words_s, sw_plan);
+  stage_edges(prim_s, sp_plan);
+  uint32_t* sw = reinterpret_cast<uint32_t*>(words_s + sw_plan.lead);
+  for (int k = static_cast<int>(avail) + lane; k < nstage; k += lanes) {
+    sw[k] = 0;                  // past the row's words
+  }
+  mbar_wait0(&bar);
+  __syncthreads();
+  const uint16_t* prim = reinterpret_cast<const uint16_t*>(prim_s
+                                                           + sp_plan.lead);
   const uint8_t* ls = lut_sym + b * kLut;
   const uint8_t* ll = lut_len + b * kLut;
-#pragma unroll 4
-  for (int e = threadIdx.x * 16; e < kLut; e += blockDim.x * 16) {
-    const Sym16 sv = load16(ls, kLut, e);
-    const Sym16 lv = load16(ll, kLut, e);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      lut_s[(e >> 1) + k] =
-          (sym_at(sv, 2 * k) | sym_at(lv, 2 * k) << 8)
-          | (sym_at(sv, 2 * k + 1) | sym_at(lv, 2 * k + 1) << 8) << 16;
+  uint8_t* dst = out + b * n + first;
+  const int toff = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  uint8_t* tl = tile + toff;    // tile[16 g] lies as dst[16 g - toff]
+  bool ok = false;
+  int rounds = 0;
+  if (parallel) {
+    // the spans' quantum: a codebook's one code length, where it has one;
+    // and the zero tail, which the last lane takes
+    int lmin = 255, lmax = 0, nz = 0;
+    for (int q = lane; q < kPrim; q += lanes) {
+      const int len = prim[q] >> 8;
+      if (len > 0) {
+        lmin = len < lmin ? len : lmin;
+        lmax = len > lmax ? len : lmax;
+      }
+    }
+    for (int k = lane; k < nstage; k += lanes) {
+      if (sw[k] != 0) nz = k + 1;
+    }
+    lmin = __reduce_min_sync(kFull, lmin);
+    lmax = __reduce_max_sync(kFull, lmax);
+    nz = __reduce_max_sync(kFull, nz);
+    if ((lane & 31) == 0) {
+      atomicMin(&quantum[0], lmin);
+      atomicMax(&quantum[1], lmax);
+      atomicMax(&quantum[2], nz);
+    }
+    __syncthreads();
+    const int g = quantum[0] == quantum[1] && quantum[1] <= kPrimBits
+        ? quantum[0] : 1;
+    const uint32_t e0 = lookup(0, prim, ls, ll);
+    const Tail tail = {32 * quantum[2], e0 & 0xFFu, e0 >> 8};
+    const int base_rel = static_cast<int>(off - 32 * wlo);
+    const int stop_all = static_cast<int>(end - 32 * wlo);
+    int split = tail.from < stop_all ? tail.from : stop_all;
+    if (split < base_rel) split = base_rel;
+    // the last `act` lanes share the spans, kLaneBits at least each; the
+    // others hold empty spans at the chunk's start, a true boundary
+    const int units = (split - base_rel) / g;
+    int act = units * g / kLaneBits;
+    act = act < 1 ? 1 : (act > lanes ? lanes : act);
+    const int i = lane - (lanes - act);
+    int start = base_rel, stop = base_rel;
+    if (i >= 0) {
+      start += (units * i / act) * g;
+      stop = i + 1 == act ? stop_all : base_rel + (units * (i + 1) / act) * g;
+    }
+    const int nominal = start;
+    int cnt;
+    bool zero;
+    int p = walk<false>(sw, nstage, start, stop, tail, prim, ls, ll, cnt,
+                        zero, nullptr, 0, 0);
+    bool lost = false;          // a lane's start past its entry table
+    while (true) {              // until no lane's start moves
+      end_s[lane] = p;
+      __syncthreads();
+      const int ns = lane ? end_s[lane - 1] : start;
+      const bool moved = ns != start;
+      if (!__syncthreads_or(moved)) break;
+      if (++rounds == kTableRound) {
+        // Still moving: a codebook of nearly one length, which falls into
+        // step seldom, would take a round a lane.  Each lane walks its span
+        // from every entry a true start can have (its nominal start plus
+        // 0 .. lm - 1, lm the longest code), one lane chains the exits from
+        // lane 0's true start, and each lane walks once from its own.
+        const int lm = quantum[1] == 0 ? 1
+            : (quantum[1] <= kPrimBits ? quantum[1] : 16);
+        uint8_t* exits = tile;  // lm x kMaxLanes, before any symbol lands
+        for (int f = 0; f < lm; ++f) {
+          int x = nominal + f - stop;   // a span too short to enter
+          if (x < 0) {
+            int c;
+            bool z;
+            x = walk<false>(sw, nstage, nominal + f, stop, tail, prim, ls,
+                            ll, c, z, nullptr, 0, 0) - stop;
+          }
+          exits[f * kMaxLanes + lane] = static_cast<uint8_t>(x < lm ? x
+                                                                    : 0xFF);
+        }
+        __syncthreads();
+        if (lane == 0) {
+          int f = 0;
+          for (int l = 0; l < lanes; ++l) {
+            end_s[l] = f;
+            if (f != 0xFF) f = exits[f * kMaxLanes + l];
+          }
+        }
+        __syncthreads();
+        const int f = end_s[lane];
+        lost = __syncthreads_or(f == 0xFF);
+        start = nominal + (f == 0xFF ? 0 : f);
+        p = walk<false>(sw, nstage, start, stop, tail, prim, ls, ll, cnt,
+                        zero, nullptr, 0, 0);
+        end_s[lane] = p;        // read after the scan's barriers
+        break;
+      }
+      if (moved) {
+        start = ns;
+        p = walk<false>(sw, nstage, start, stop, tail, prim, ls, ll, cnt,
+                        zero, nullptr, 0, 0);
+      }
+    }
+    int total;
+    const int base = block_exclusive_scan(cnt, scratch, total);
+    const bool zany = __syncthreads_or(zero);
+    ok = !zany && !lost
+         && (last ? total >= count
+                  : total == count && end_s[lanes - 1] == stop_all);
+    if (ok && base < count) {
+      walk<true>(sw, nstage, start, stop, tail, prim, ls, ll, cnt, zero, tl,
+                 base, count);
+    }
+  }
+  if (!ok && lane == 0) {       // the reference's serial walk
+    Walker wk;
+    wk.w = wrow;
+    wk.n_words = n_words;
+    wk.seek(off);
+    for (int k = 0; k < count; ++k) {
+      tl[k] = static_cast<uint8_t>(wk.next(prim, ls, ll));
     }
   }
   __syncthreads();
-  const long long c = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  const long long first = c * kChunk;
-  if (c >= chunks || first >= n) return;
-  const int count = static_cast<int>(n - first < kChunk ? n - first
-                                                         : kChunk);
-  const uint16_t* lut = reinterpret_cast<const uint16_t*>(lut_s);
-  Walker wk;
-  wk.w = words + b * n_words;
-  wk.n_words = n_words;
-  wk.seek(static_cast<long long>(
-      static_cast<uint32_t>(chunk_offs[b * chunks + c])));
-  uint8_t* dst = out + b * n + first;
-  int k = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    for (; k + 16 <= count; k += 16) {
-      Sym16 v;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t x = wk.next(lut);
-        x |= wk.next(lut) << 8;
-        x |= wk.next(lut) << 16;
-        x |= wk.next(lut) << 24;
-        v.w[j] = x;
-      }
-      store16(dst + k, v, 16);
+  // the tile's 16-byte granules: whole ones at once, the edges by bytes
+  const int granules = (toff + count + 15) >> 4;
+  for (int gi = lane; gi < granules; gi += lanes) {
+    const int lo = gi == 0 ? toff : 16 * gi;
+    const int hi = 16 * gi + 16 < toff + count ? 16 * gi + 16 : toff + count;
+    if (lo == 16 * gi && hi == 16 * gi + 16) {
+      *reinterpret_cast<uint4*>(dst - toff + 16 * gi) =
+          *reinterpret_cast<const uint4*>(tile + 16 * gi);
+    } else {
+      for (int k = lo; k < hi; ++k) dst[k - toff] = tile[k];
     }
   }
-  for (; k < count; ++k) dst[k] = static_cast<uint8_t>(wk.next(lut));
+  if (lane == 0 && walks != nullptr) {
+    atomicAdd(walks, 1ull);
+    if (!ok) atomicAdd(walks + 1, 1ull);
+    if (rounds) {
+      atomicAdd(walks + 2, static_cast<unsigned long long>(rounds));
+      atomicMax(walks + 3, static_cast<unsigned long long>(rounds));
+    }
+  }
 }
 
 // ----------------------------------------------------------- rle scan --
@@ -586,64 +972,58 @@ rle_emit_kernel(const uint8_t* __restrict__ syms, long long s,
 
 // --------------------------------------------------------- rle expand --
 
-// the 16 lengths (as int64) at run indices [j, j + 16) of a row of r
-__device__ __forceinline__ void load_lengths(const int32_t* __restrict__ row,
-                                             long long r, long long j,
-                                             long long (&x)[16]) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    x[k] = j + k < r ? static_cast<long long>(__ldg(row + j + k)) : 0;
+__device__ __forceinline__ unsigned long long status_load(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void status_store(unsigned long long* p,
+                                             unsigned long long flag,
+                                             long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) =
+      flag | (static_cast<unsigned long long>(v) & kValBits);
+}
+
+__device__ __forceinline__ long long status_value(unsigned long long s) {
+  return static_cast<long long>(s << 2) >> 2;
+}
+
+// The status word at `p` once its flag is at least `flag`; a wait of ~8 s
+// (2^34 cycles) traps.  Every word waited on is a lower ticket's, whose
+// block has started and waits on no higher one.
+__device__ __forceinline__ unsigned long long status_wait(
+    const unsigned long long* p, unsigned long long flag) {
+  const long long t0 = clock64();
+  unsigned long long s;
+  while (((s = status_load(p)) & ~kValBits) < flag) {
+    if (clock64() - t0 > (1ll << 34)) __trap();
+    __nanosleep(64);
   }
+  return s;
 }
 
-__global__ void __launch_bounds__(kExpThreads)
-rle_len_sums_kernel(const int32_t* __restrict__ lengths, long long r,
-                    long long* __restrict__ tile_sums, int tiles) {
-  __shared__ long long scratch[32];
-  const long long b = blockIdx.y;
-  const long long j = static_cast<long long>(blockIdx.x) * kExpTile
-                      + threadIdx.x * 16;
-  long long x[16];
-  load_lengths(lengths + b * r, r, j, x);
-  long long sum = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) sum += x[k];
-  long long total;
-  block_exclusive_scan(sum, scratch, total);
-  if (threadIdx.x == 0) tile_sums[b * tiles + blockIdx.x] = total;
+// A tile's run j in shared memory where a thread reads its own 16 runs
+// (j = 16 t + m) a step at a time: at [m * stride + t], so that a warp's
+// threads touch consecutive entries at each step; `stride` 257 for the
+// int32 lengths and 260 for the byte values, whose natural-order writes
+// then spread over the banks.
+template <int kStride>
+__device__ __forceinline__ int col(int j) {
+  return (j & 15) * kStride + (j >> 4);
 }
 
-__global__ void __launch_bounds__(kExpThreads)
-rle_cum_kernel(const int32_t* __restrict__ lengths, long long r,
-               const long long* __restrict__ tile_base, int tiles,
-               long long* __restrict__ cum) {
-  __shared__ long long scratch[32];
-  const long long b = blockIdx.y;
-  const long long j = static_cast<long long>(blockIdx.x) * kExpTile
-                      + threadIdx.x * 16;
-  long long x[16];
-  load_lengths(lengths + b * r, r, j, x);
-  long long sum = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) sum += x[k];
-  long long total;
-  long long run = tile_base[b * tiles + blockIdx.x]
-                  + block_exclusive_scan(sum, scratch, total);
-  long long* row = cum + b * r;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    run += x[k];
-    if (j + k < r) row[j + k] = run;
-  }
-}
+// A tile's run end j where neighbouring threads read neighbouring runs:
+// in order, one slot skipped every 16, so that a thread's 16 writes of its
+// own runs spread over the banks.
+__device__ __forceinline__ int slot(int j) { return j + (j >> 4); }
 
-// the first index j in [lo, hi) with cum[j] > x, or hi
-__device__ __forceinline__ long long first_above(const long long* cum,
-                                                 long long lo, long long hi,
-                                                 long long x) {
+// the first run in [lo, cnt) whose inclusive end is past x, or cnt
+__device__ __forceinline__ int first_past(const long long* ends, int lo,
+                                          int cnt, long long x) {
+  int hi = cnt;
   while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    if (cum[mid] > x) {
+    const int mid = (lo + hi) >> 1;
+    if (ends[slot(mid)] > x) {
       hi = mid;
     } else {
       lo = mid + 1;
@@ -652,41 +1032,209 @@ __device__ __forceinline__ long long first_above(const long long* cum,
   return lo;
 }
 
+// the bytes [p0, p1) of the 16-byte granule at q of `orow` (16-byte
+// aligned): the whole granule at once, else byte by byte
+__device__ __forceinline__ void put16(uint8_t* orow, long long q,
+                                      long long p0, long long p1,
+                                      const Sym16& v) {
+  if (p0 == q && p1 == q + 16) {
+    *reinterpret_cast<uint4*>(orow + q) = make_uint4(v.w[0], v.w[1], v.w[2],
+                                                     v.w[3]);
+  } else {
+    for (long long pos = p0; pos < p1; ++pos) {
+      orow[pos] = static_cast<uint8_t>(sym_at(v, static_cast<int>(pos - q)));
+    }
+  }
+}
+
+constexpr int kLenStage = 16 * 257 * 4 + 16;   // col<257> lengths, aligned
+constexpr int kBig = kExpTile * 17 / 16 * 8 + 16;   // slot() ends
+constexpr int kOutBytes = kBig - 32;          // a tile's bytes in shared
+static_assert(kBig >= kLenStage + kExpTile * 4 + 16,
+              "the lengths are staged where the ends go");
+
 __global__ void __launch_bounds__(kExpThreads)
 rle_expand_kernel(const uint8_t* __restrict__ values,
-                  const long long* __restrict__ cum, long long r,
+                  const int32_t* __restrict__ lengths, long long r, int tiles,
+                  int slices, long long tickets,
+                  unsigned long long* __restrict__ status,
+                  unsigned long long* __restrict__ ticket,
                   uint8_t* __restrict__ out, long long n) {
-  __shared__ long long bounds[2];
-  const long long b = blockIdx.y;
-  const long long* cr = cum + b * r;
-  const long long p0 = static_cast<long long>(blockIdx.x) * kExpTile;
-  const long long p1 = (p0 + kExpTile < n ? p0 + kExpTile : n) - 1;
-  if (threadIdx.x < 2) {
-    bounds[threadIdx.x] = first_above(cr, 0, r, threadIdx.x ? p1 : p0);
+  // big: the staged lengths (after kLenStage) and their col<257> copy,
+  // both read out before it holds the tile's inclusive run ends (int64, by
+  // slot()) or its bytes
+  __shared__ __align__(16) uint8_t big[kBig];
+  __shared__ __align__(16) uint8_t vals_s[kExpTile + 16];
+  __shared__ uint8_t vals_c[16 * 260];
+  __shared__ long long scratch[32];
+  __shared__ int first_s[kExpThreads / 32];
+  __shared__ long long ticket_s, prefix_s;
+  __shared__ __align__(8) uint64_t bar;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    ticket_s = static_cast<long long>(atomicAdd(ticket, 1ull));
+    mbar_init(&bar);
   }
   __syncthreads();
-  const long long q = p0 + threadIdx.x * 16;
-  const int cnt = seg_count(n, q);
-  if (cnt == 0) return;
-  const long long hi = bounds[1];
-  long long j = first_above(cr, bounds[0], hi, q);
-  const uint8_t* vrow = values + b * r;
-  Sym16 v;
+  const long long tk = ticket_s;
+  if (tk >= tickets) return;
+  const int slice = static_cast<int>(tk % slices);
+  const long long row_tile = tk / slices;
+  const int t = static_cast<int>(row_tile % tiles);
+  const long long b = row_tile / tiles;
+  const long long j0 = static_cast<long long>(t) * kExpTile;
+  const int cnt = static_cast<int>(r - j0 < kExpTile ? r - j0 : kExpTile);
+  const Stage sl = stage_plan(lengths + b * r + j0, 4 * cnt);
+  const Stage sv = stage_plan(values + b * r + j0, cnt);
+  uint8_t* len_dst = big + kLenStage;
+  if (tid == 0) {
+    mbar_arrive_tx(&bar, sl.body + sv.body);
+    stage_body(len_dst, sl, &bar);
+    stage_body(vals_s, sv, &bar);
+  }
+  stage_edges(len_dst, sl);
+  stage_edges(vals_s, sv);
+  mbar_wait0(&bar);
+  __syncthreads();
+  // natural order in, col order out: each step a warp's consecutive runs
+  const int32_t* lens = reinterpret_cast<const int32_t*>(len_dst + sl.lead);
+  int32_t* lens_c = reinterpret_cast<int32_t*>(big);
+  for (int i = tid; i < cnt; i += kExpThreads) {
+    lens_c[col<257>(i)] = lens[i];
+    vals_c[col<260>(i)] = vals_s[sv.lead + i];
+  }
+  __syncthreads();
+  int x[16];
+  uint32_t vw[4] = {0, 0, 0, 0};  // the thread's 16 values, 4 a word
+  long long sum = 0;
 #pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    uint32_t x = 0;
+  for (int k = 0; k < 16; ++k) {
+    const bool in = tid * 16 + k < cnt;
+    x[k] = in ? lens_c[k * 257 + tid] : 0;
+    if (in) vw[k >> 2] |= static_cast<uint32_t>(vals_c[k * 260 + tid])
+                           << (8 * (k & 3));
+    sum += x[k];
+  }
+  long long tile_sum;
+  const long long ex = block_exclusive_scan(sum, scratch, tile_sum);
+  unsigned long long* srow = status + b * tiles;
+  if (slice == 0) {             // publish, then look back a block's width
+    if (t > 0 && tid == 0) status_store(srow + t, kAgg, tile_sum);
+    long long acc = 0;
+    for (long long look = t - 1; look >= 0; look -= kExpThreads) {
+      const long long tj = look - tid;
+      // before the row's first tile: an inclusive 0
+      const unsigned long long s = tj >= 0 ? status_wait(srow + tj, kAgg)
+                                           : kInc;
+      const unsigned inc = __ballot_sync(kFull, (s & ~kValBits) == kInc);
+      if (lane == 0) first_s[warp] = inc ? tid + __ffs(inc) - 1 : kExpThreads;
+      __syncthreads();
+      int nearest = kExpThreads;    // the nearest inclusive word's thread
+      for (int w = 0; w < kExpThreads / 32; ++w) {
+        nearest = first_s[w] < nearest ? first_s[w] : nearest;
+      }
+      long long part;
+      block_exclusive_scan(tid <= nearest ? status_value(s) : 0LL, scratch,
+                           part);
+      acc += part;
+      __syncthreads();          // first_s and scratch free again
+      if (nearest < kExpThreads) break;
+    }
+    if (tid == 0) {
+      status_store(srow + t, kInc, acc + tile_sum);
+      prefix_s = acc;
+    }
+  } else if (tid == 0) {        // the tile's first slice publishes it
+    prefix_s = status_value(status_wait(srow + t, kInc)) - tile_sum;
+  }
+  __syncthreads();
+  const long long prefix = prefix_s;
+  long long lo = prefix < 0 ? 0 : prefix;
+  long long hi = t + 1 == tiles ? n : prefix + tile_sum;
+  if (hi > n) hi = n;
+  if (hi <= lo) return;
+  uint8_t* orow = out + b * n;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(orow);
+  if (slices == 1 && prefix >= 0 && hi <= prefix + tile_sum
+      && hi - lo <= kOutBytes) {
+    // a tile of few bytes: each thread spells out its own runs into shared
+    // memory (aligned as the output), then the block stores whole granules
+    uint8_t* obuf = big;
+    const long long g0 = static_cast<long long>((base + lo) & ~uintptr_t(15))
+                         - static_cast<long long>(base);
+    long long pos = prefix + ex;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int k = 4 * w + m;
-      if (k < cnt) {
-        while (j < hi && cr[j] <= q + k) ++j;
-        x |= static_cast<uint32_t>(__ldg(vrow + (j < r - 1 ? j : r - 1)))
-             << (8 * m);
+    for (int k = 0; k < 16; ++k) {
+      const long long from = pos > lo ? pos : lo;
+      const long long to = pos + x[k] < hi ? pos + x[k] : hi;
+      const uint8_t v = static_cast<uint8_t>(vw[k >> 2] >> (8 * (k & 3)));
+      for (long long q = from; q < to; ++q) obuf[q - g0] = v;
+      pos += x[k];
+    }
+    __syncthreads();
+    const long long granules = (hi - g0 + 15) >> 4;
+    for (long long gi = tid; gi < granules; gi += kExpThreads) {
+      const long long q = g0 + 16 * gi;
+      const uint4 u = *reinterpret_cast<const uint4*>(obuf + 16 * gi);
+      Sym16 v;
+      v.w[0] = u.x;
+      v.w[1] = u.y;
+      v.w[2] = u.z;
+      v.w[3] = u.w;
+      put16(orow, q, q > lo ? q : lo, q + 16 < hi ? q + 16 : hi, v);
+    }
+    return;
+  }
+  // many bytes (long runs, a slice's share, the row's tail past its total):
+  // every byte's run found among the tile's ends
+  long long* ends = reinterpret_cast<long long*>(big);
+  long long run = ex;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    run += x[k];
+    if (tid * 16 + k < cnt) ends[slot(tid * 16 + k)] = run;
+  }
+  __syncthreads();
+  const long long span = hi - lo;
+  const long long s_lo = lo + span * slice / slices;
+  const long long s_hi = lo + span * (slice + 1) / slices;
+  if (s_hi <= s_lo) return;
+  const long long g0 = static_cast<long long>((base + s_lo) & ~uintptr_t(15))
+                       - static_cast<long long>(base);
+  const long long granules = (s_hi - g0 + 15) >> 4;
+  const uint8_t* vals = vals_s + sv.lead;
+  int j = 0;                    // the run of this thread's last byte so far
+  for (long long gi = tid; gi < granules; gi += kExpThreads) {
+    const long long q = g0 + 16 * gi;   // the granule's first position
+    const long long p0 = q > s_lo ? q : s_lo;
+    const long long p1 = q + 16 < s_hi ? q + 16 : s_hi;
+    // runs before j end at or before an earlier byte of this thread
+    if (j < cnt && ends[slot(j)] <= p0 - prefix) {
+      j = first_past(ends, j + 1, cnt, p0 - prefix);
+    }
+    Sym16 v;
+    if (j == cnt || ends[slot(j)] >= p1 - prefix) {
+      // one value covers it
+      v.w[0] = v.w[1] = v.w[2] = v.w[3] =
+          vals[j < cnt ? j : cnt - 1] * 0x01010101u;
+    } else {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const long long pos = q + 4 * w + m;
+          if (pos >= p0 && pos < p1) {
+            while (j < cnt && ends[slot(j)] <= pos - prefix) ++j;
+            word |= static_cast<uint32_t>(vals[j < cnt ? j : cnt - 1])
+                    << (8 * m);
+          }
+        }
+        v.w[w] = word;
       }
     }
-    v.w[w] = x;
+    put16(orow, q, p0, p1, v);
   }
-  store16(out + b * n + q, v, cnt);
 }
 
 // ------------------------------------------------------------ launches --
@@ -730,6 +1278,29 @@ int allow_smem(K kernel, int bytes, bool* ready) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (err == 0 && dev >= 0 && dev < kMaxDevices) ready[dev] = true;
   return err;
+}
+
+// the decode's lanes a chunk for `blocks` chunks: 32, doubled while the
+// grid would give the SMs fewer than kLaneTarget threads each
+int decode_lanes(long long blocks) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int lanes = 32;
+  while (lanes < kMaxLanes
+         && blocks * lanes < static_cast<long long>(sms) * kLaneTarget) {
+    lanes *= 2;
+  }
+  return lanes;
+}
+
+// rle_expand's blocks a tile: one for every kSliceBytes of a tile's
+// bytes on average, at most kMaxSlices
+int expand_slices(long long n, long long tiles) {
+  const long long per = tiles > 0 ? n / tiles : 0;
+  const long long s = (per + kSliceBytes - 1) / kSliceBytes;
+  return static_cast<int>(s < 1 ? 1 : (s > kMaxSlices ? kMaxSlices : s));
 }
 
 }  // namespace
@@ -790,30 +1361,37 @@ int huffman_pack(const void* syms, long long rows, long long s,
 }
 
 // words: (rows, n_words) uint32 bits; chunk_offs: (rows, chunks) int64;
-// lut_sym, lut_len: (rows, 65536) uint8; out: (rows, n) uint8
+// lut_sym, lut_len: (rows, 65536) uint8; primary: (rows, kPrim) uint16
+// scratch; walks: 4 uint64 added to (or null); lanes: a chunk's lanes, a
+// multiple of 32 up to kMaxLanes, or 0 for decode_lanes'; out: (rows, n)
 int huffman_decode(const void* words, long long rows, long long n_words,
                    const void* chunk_offs, int chunks, const void* lut_sym,
-                   const void* lut_len, void* out, long long n,
-                   void* stream) {
+                   const void* lut_len, void* primary, void* walks, int lanes,
+                   void* out, long long n, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long used = blocks_for(n, kChunk);
-  const unsigned grid_x = blocks_for(used < chunks ? used : chunks,
-                                     kDecThreads);
-  const int smem = kLut * 2;
-  static bool ready[kMaxDevices] = {};
-  int err = allow_smem(huff_decode_kernel, smem, ready);
-  if (err != 0) return err;
+  long long used = blocks_for(n, kChunk);
+  if (used > chunks) used = chunks;
+  if (lanes == 0) lanes = decode_lanes(used * rows);
+  if (lanes < 32 || lanes > kMaxLanes || lanes % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint8_t* ls = static_cast<const uint8_t*>(lut_sym);
+  const uint8_t* ll = static_cast<const uint8_t*>(lut_len);
+  uint16_t* prim = static_cast<uint16_t*>(primary);
+  int err = 0;
   for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
     const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    const dim3 grid(grid_x, static_cast<unsigned>(nr));
-    const uint32_t* w = static_cast<const uint32_t*>(words) + r0 * n_words;
-    const long long* o = static_cast<const long long*>(chunk_offs)
-                         + r0 * chunks;
-    const uint8_t* ls = static_cast<const uint8_t*>(lut_sym) + r0 * kLut;
-    const uint8_t* ll = static_cast<const uint8_t*>(lut_len) + r0 * kLut;
-    uint8_t* dst = static_cast<uint8_t*>(out) + r0 * n;
-    huff_decode_kernel<<<grid, kDecThreads, smem, st>>>(
-        w, n_words, o, chunks, ls, ll, dst, n);
+    const unsigned y = static_cast<unsigned>(nr);
+    huff_primary_kernel<<<dim3(kPrim / 256, y), 256, 0, st>>>(
+        ls + r0 * kLut, ll + r0 * kLut, prim + r0 * kPrim);
+    err = first_error(err);
+    huff_decode_kernel<<<dim3(static_cast<unsigned>(used), y), lanes, 0,
+                         st>>>(
+        static_cast<const uint32_t*>(words) + r0 * n_words, n_words,
+        static_cast<const long long*>(chunk_offs) + r0 * chunks, chunks,
+        static_cast<int>(used), prim + r0 * kPrim, ls + r0 * kLut,
+        ll + r0 * kLut, static_cast<unsigned long long*>(walks),
+        static_cast<uint8_t*>(out) + r0 * n, n);
     err = first_error(err);
   }
   return err;
@@ -852,37 +1430,34 @@ int rle_scan(const void* syms, long long rows, long long s, void* tile_runs,
   return err;
 }
 
-// values: (rows, r) uint8; lengths: (rows, r) int32; tile_sums, tile_base:
-// (rows, ceil(r / 4096)) scratch; cum: (rows, r) scratch; out: (rows, n)
+// values: (rows, r) uint8; lengths: (rows, r) int32; status: (rows *
+// ceil(r / kExpTile) + 1) uint64 scratch (the tiles' words, then the
+// ticket counter), zeroed here; slices: blocks a tile, or 0 for
+// expand_slices'; out: (rows, n).  Two launches (more only past 2^31 - 1
+// blocks).
 int rle_expand(const void* values, const void* lengths, long long rows,
-               long long r, void* tile_sums, void* tile_base, void* cum,
-               void* out, long long n, void* stream) {
+               long long r, void* status, int slices, void* out, long long n,
+               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = static_cast<int>(blocks_for(r, kExpTile));
-  const int32_t* ln = static_cast<const int32_t*>(lengths);
-  long long* sums = static_cast<long long*>(tile_sums);
-  long long* base = static_cast<long long*>(tile_base);
-  long long* cm = static_cast<long long*>(cum);
-  int err = 0;
-  for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
-    const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    rle_len_sums_kernel<<<dim3(tiles, static_cast<unsigned>(nr)),
-                          kExpThreads, 0, st>>>(ln + r0 * r, r,
-                                                sums + r0 * tiles, tiles);
-    err = first_error(err);
+  const long long tiles = blocks_for(r, kExpTile);
+  if (slices == 0) slices = expand_slices(n, tiles);
+  if (slices < 1 || slices > kMaxSlices) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = keep(err, row_scan(sums, base, nullptr, rows, tiles, st));
-  for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
-    const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    const unsigned y = static_cast<unsigned>(nr);
-    rle_cum_kernel<<<dim3(tiles, y), kExpThreads, 0, st>>>(
-        ln + r0 * r, r, base + r0 * tiles, tiles, cm + r0 * r);
+  unsigned long long* words = static_cast<unsigned long long*>(status);
+  const long long tickets = rows * tiles * slices;
+  int err = static_cast<int>(cudaMemsetAsync(
+      words, 0, (rows * tiles + 1) * sizeof(unsigned long long), st));
+  for (long long done = 0; done < tickets;) {
+    const long long grid = tickets - done < 0x7FFFFFFFLL ? tickets - done
+                                                          : 0x7FFFFFFFLL;
+    rle_expand_kernel<<<static_cast<unsigned>(grid), kExpThreads, 0, st>>>(
+        static_cast<const uint8_t*>(values),
+        static_cast<const int32_t*>(lengths), r, static_cast<int>(tiles),
+        slices, tickets, words, words + rows * tiles,
+        static_cast<uint8_t*>(out), n);
     err = first_error(err);
-    rle_expand_kernel<<<dim3(blocks_for(n, kExpTile), y), kExpThreads, 0,
-                        st>>>(static_cast<const uint8_t*>(values) + r0 * r,
-                              cm + r0 * r, r,
-                              static_cast<uint8_t*>(out) + r0 * n, n);
-    err = first_error(err);
+    done += grid;
   }
   return err;
 }

@@ -3,11 +3,22 @@
 The kernels live in ``csrc/lossless.cu`` (the note there says which of the
 reference's jitted passes each replaces, what bounds it and what its design
 does about it): ``lossless_stats`` (a bucket's histograms and RLE run
-counts), ``huffman_pack``, ``huffman_decode`` (a thread walks a chunk's
-codes), ``rle_scan`` and ``rle_expand``.  They are built with the other
-kernels (``bitplane.load``: ``nvcc`` for ``sm_90a`` at first use, every
-source at once) and loaded with ``ctypes``.  Nothing is compiled or loaded
-when this module is imported.
+counts), ``huffman_pack``, ``huffman_decode``, ``rle_scan`` and
+``rle_expand``.  They are built with the other kernels (``bitplane.load``:
+``nvcc`` for ``sm_90a`` at first use, every source at once) and loaded
+with ``ctypes``.  Nothing is compiled or loaded when this module is
+imported.
+
+The read side's two kernels work in parallel within a chunk or a tile:
+``huffman_decode`` splits each chunk's bits among up to 256 lanes that
+walk their spans, resynchronise (a lane restarts where its left
+neighbour stopped; a chunk still moving after a few rounds takes entry
+tables) and write their symbols after a scan of the counts, with a serial
+walk in the same kernel for any chunk whose parallel result cannot be
+proved right; ``rle_expand`` is one pass with a decoupled look-back over
+tiles of runs.  Each decode launch adds its chunks, its serially walked
+chunks and its synchronisation rounds to a per-device record
+(``decode_walks()``).
 
 Five operators of the dispatcher, ``torch.ops.repro_torch.<name>``
 (``torch.library.custom_op``s), as the other kernels are: the CUDA
@@ -36,7 +47,8 @@ with ``backend="torch"``.
 Beside each multi-pass kernel, a small torch reference that follows its
 decomposition (``huffman_pack_tiled``, ``huffman_decode_stepwise``,
 ``rle_scan_tiled``, ``rle_expand_tiled``), so that the CPU tests reach the
-tiling's edges.
+tiling's edges; the read side's take the kernels' lanes, primary-table
+bits, tile and slices as parameters.
 """
 from __future__ import annotations
 
@@ -57,6 +69,11 @@ RLE_BREAK = ll.RLE_BREAK         # kRleBreak
 LUT_SIZE = 1 << ll.MAX_CODE_LEN  # kLut
 EXPAND_TILE = 4096               # kExpTile: runs a tile of rle_expand
 TILE_WORDS = CHUNK * ll.MAX_CODE_LEN // 32 + 2   # kTileWords
+PRIMARY_BITS = 11                # kPrimBits: the decode's primary table
+LONG = 0xFFFF                    # kLong: a primary entry to look past
+LANES = (32, 64, 128, 256)       # a decode block's lanes (kMaxLanes 256)
+LANE_BITS = 64                   # kLaneBits: a decode lane's span, at least
+TABLE_ROUND = 4                  # kTableRound: entry tables from this round
 SYMBOLS = ("lossless_stats", "huffman_pack", "huffman_decode", "rle_scan",
            "rle_expand")
 _MASK32 = 0xFFFFFFFF
@@ -75,10 +92,9 @@ def _lib() -> ctypes.CDLL:
             lib.huffman_pack.argtypes = [vp, ll_, ll_, vp, vp, vp, vp, vp,
                                          vp, ll_, vp]
             lib.huffman_decode.argtypes = [vp, ll_, ll_, vp, i, vp, vp, vp,
-                                           ll_, vp]
+                                           vp, i, vp, ll_, vp]
             lib.rle_scan.argtypes = [vp, ll_, ll_, vp, vp, vp, vp, vp, vp]
-            lib.rle_expand.argtypes = [vp, vp, ll_, ll_, vp, vp, vp, vp, ll_,
-                                       vp]
+            lib.rle_expand.argtypes = [vp, vp, ll_, ll_, vp, i, vp, ll_, vp]
             for name in SYMBOLS:
                 getattr(lib, name).restype = i
             _ready = True
@@ -146,14 +162,15 @@ def rle_scan_workspace(syms):
             "tile_base": ((b, t), torch.int64)}
 
 
+def huffman_decode_workspace(words, chunk_offs, lut_sym, lut_len, n_syms):
+    """Each row's primary table (uint16 bits in int16 storage)."""
+    return {"primary": ((words.shape[0], 1 << PRIMARY_BITS), torch.int16)}
+
+
 def rle_expand_workspace(values, lengths, n):
-    """Each tile's summed run lengths and first run's start, and every
-    run's end."""
+    """Each tile's status word, then the blocks' ticket counter."""
     b, r = values.shape
-    t = _tiles(r, EXPAND_TILE)
-    return {"tile_sums": ((b, t), torch.int64),
-            "tile_base": ((b, t), torch.int64),
-            "cum": ((b, r), torch.int64)}
+    return {"status": ((b * _tiles(r, EXPAND_TILE) + 1,), torch.int64)}
 
 
 def _scratch(fn, *args):
@@ -186,12 +203,56 @@ def _launch_pack(syms, lens_tab, codes_tab):
     return words, total, offs
 
 
-def _launch_decode(words, chunk_offs, lut_sym, lut_len, n_syms):
+# ----------------------------------------------------------- the walks --
+# each device's record of the decode's walks: chunks, chunks walked
+# serially, synchronisation rounds (walks after a lane's first), the most
+# rounds of one chunk; one int64 tensor of four a device, added to by
+# every launch there
+
+WALKS = ("chunks", "serial", "rounds", "max_rounds")
+_walks_lock = threading.Lock()
+_WALKS = {}
+
+
+def _walks(device: torch.device) -> torch.Tensor:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    with _walks_lock:
+        if index not in _WALKS:
+            _WALKS[index] = torch.zeros(len(WALKS), dtype=torch.int64,
+                                        device=torch.device("cuda", index))
+        return _WALKS[index]
+
+
+def decode_walks() -> dict:
+    """The decode's walks on every device since the last reset (waits for
+    the devices' work): {"chunks", "serial", "rounds", "max_rounds"}."""
+    with _walks_lock:
+        recs = [t.cpu() for t in _WALKS.values()]
+    got = dict.fromkeys(WALKS, 0)
+    for rec in recs:
+        for i, k in enumerate(WALKS):
+            got[k] = max(got[k], int(rec[i])) if k == "max_rounds" else \
+                got[k] + int(rec[i])
+    return got
+
+
+def reset_decode_walks() -> None:
+    with _walks_lock:
+        for t in _WALKS.values():
+            t.zero_()
+
+
+def _launch_decode(words, chunk_offs, lut_sym, lut_len, n_syms, lanes=0):
+    """``lanes``: a chunk's lanes (``LANES``), 0 for the kernel's rule."""
     b, n_words = words.shape
     out = torch.empty((b, n_syms), dtype=torch.uint8, device=words.device)
     if b and n_syms:
+        (prim,) = _scratch(huffman_decode_workspace, words, chunk_offs,
+                           lut_sym, lut_len, n_syms)
         _run("huffman_decode", words, words, b, n_words, chunk_offs,
-             chunk_offs.shape[1], lut_sym, lut_len, out, n_syms)
+             chunk_offs.shape[1], lut_sym, lut_len, prim,
+             _walks(words.device), lanes, out, n_syms)
     return out
 
 
@@ -207,12 +268,13 @@ def _launch_rle_scan(syms):
     return values, lengths, nruns
 
 
-def _launch_rle_expand(values, lengths, n):
+def _launch_rle_expand(values, lengths, n, slices=0):
+    """``slices``: blocks a tile (1 .. 256), 0 for the kernel's rule."""
     b, r = values.shape
     out = torch.empty((b, n), dtype=torch.uint8, device=values.device)
     if b and n:
-        sums, base, cum = _scratch(rle_expand_workspace, values, lengths, n)
-        _run("rle_expand", values, values, lengths, b, r, sums, base, cum,
+        (status,) = _scratch(rle_expand_workspace, values, lengths, n)
+        _run("rle_expand", values, values, lengths, b, r, status, slices,
              out, n)
     return out
 
@@ -308,6 +370,7 @@ _LAUNCH = {"lossless_stats": _launch_stats, "huffman_pack": _launch_pack,
            "huffman_decode": _launch_decode, "rle_scan": _launch_rle_scan,
            "rle_expand": _launch_rle_expand}
 _bp.add_workspace({_OPS["huffman_pack"]: huffman_pack_workspace,
+                   _OPS["huffman_decode"]: huffman_decode_workspace,
                    _OPS["rle_scan"]: rle_scan_workspace,
                    _OPS["rle_expand"]: rle_expand_workspace})
 
@@ -456,28 +519,229 @@ def huffman_pack_tiled(syms, lens_tab, codes_tab):
     return words.to(torch.int32), total_bits, chunk_offs
 
 
-def huffman_decode_stepwise(words, chunk_offs, lut_sym, lut_len, n_syms):
-    """A chunk walked code by code, every chunk in lock step: at bit p the
-    top 16 bits of the 32-bit window at p index the peek table, and p
-    advances by the code's length; words past a row's end read as zero.
-    The symbol-by-symbol formulation of ``huffman_decode`` and of the plain
-    version's pointer doubling (the port's decode until the store's serving
-    made its 4,096 rounds per bucket the read path's wall)."""
-    b = words.shape[0]
-    w = words.to(torch.int64) & _MASK32
-    pad = CHUNK * ll.MAX_CODE_LEN // 32 + 2
-    w = torch.cat([w, torch.zeros((b, pad), dtype=torch.int64)], dim=1)
-    pair = (w[:, :-1] << 32) | w[:, 1:]
-    lut = (lut_sym.to(torch.int64) & 0xFF) | (lut_len.to(torch.int64) << 8)
-    p = chunk_offs.to(torch.int64) & _MASK32
-    steps = min(CHUNK, n_syms)
-    out = torch.empty((b, p.shape[1], steps), dtype=torch.int64)
-    for k in range(steps):
-        v = torch.gather(pair, 1, p >> 5)
-        e = torch.gather(lut, 1, (v >> (48 - (p & 31))) & 0xFFFF)
-        out[:, :, k] = e
-        p = p + (e >> 8)
-    return (out.reshape(b, -1)[:, :n_syms] & 0xFF).to(torch.uint8)
+def decode_primary(lut_sym, lut_len, k=PRIMARY_BITS):
+    """The decode's primary tables (B, 2**k) int64: entry q is the peek
+    table's ``sym | len << 8`` where its 2**(16 - k) peeks q << (16 - k)
+    ... all agree and len <= k, else ``LONG`` (look the peek up in the full
+    table)."""
+    b = lut_sym.shape[0]
+    sub = 1 << (ll.MAX_CODE_LEN - k)
+    s = lut_sym.to(torch.int64).view(b, 1 << k, sub)
+    n = lut_len.to(torch.int64).view(b, 1 << k, sub)
+    s0, n0 = s[:, :, 0], n[:, :, 0]
+    same = ((s == s0[..., None]).all(2) & (n == n0[..., None]).all(2)
+            & (n0 <= k))
+    return torch.where(same, s0 | n0 << 8, torch.full_like(s0, LONG))
+
+
+class _Stream:
+    """A bucket's words as the decode reads them (zero past a row's L),
+    with its primary and full tables."""
+
+    def __init__(self, words, lut_sym, lut_len, k):
+        b = words.shape[0]
+        self.w = torch.cat([words.to(torch.int64) & _MASK32,
+                            torch.zeros((b, 2), dtype=torch.int64)], dim=1)
+        self.last = self.w.shape[1] - 1
+        self.k = k
+        self.prim = decode_primary(lut_sym, lut_len, k)
+        # the longest code a row's walk can meet: its longest direct entry,
+        # or 16 where a longer code is read from the full table
+        top = (self.prim >> 8).max(1).values
+        self.longest = torch.where(top > k, 16, top.clamp(min=1))
+        self.full = (lut_sym.to(torch.int64) & 0xFF) | (
+            lut_len.to(torch.int64) << 8)
+
+    def entry(self, row, pos):
+        """(sym | len << 8) of the code at bit ``pos`` of ``row``."""
+        i = pos >> 5
+        pair = (self.w[row, i.clamp(max=self.last)] << 32) | self.w[
+            row, (i + 1).clamp(max=self.last)]
+        peek = (pair >> (48 - (pos & 31))) & 0xFFFF
+        e = self.prim[row, peek >> (ll.MAX_CODE_LEN - self.k)]
+        return torch.where((e >> 8) > self.k, self.full[row, peek], e)
+
+    def walk(self, row, pos, stop, tail, out=None, dest=None, slot=None,
+             limit=None):
+        """Lanes walking from ``pos`` while before ``stop`` (a zero length
+        walked over as one bit): (end, codes, met a zero length).  From bit
+        ``tail[i]`` on, lane i's words are zero: every code there is the
+        table's entry 0, counted rather than walked where its length is
+        not 0.  With ``out``: lane i's symbols at out[dest[i], slot[i]
+        ...] while below ``limit[i]``."""
+        pos, cnt = pos.clone(), torch.zeros_like(pos)
+        zero = torch.zeros_like(pos, dtype=torch.bool)
+        e0 = self.entry(row, torch.full_like(pos, 1 << 40))
+        len0 = e0 >> 8
+        act = pos < stop
+        if out is not None:
+            act &= slot < limit
+        while bool(act.any()):
+            jump = act & (pos >= tail) & (len0 > 0)
+            for i in jump.nonzero().squeeze(1).tolist():
+                more = -(-int(stop[i] - pos[i]) // int(len0[i]))
+                if out is not None:
+                    more = min(more, int(limit[i] - slot[i] - cnt[i]))
+                    at = int(slot[i] + cnt[i])
+                    out[dest[i], at:at + more] = e0[i] & 0xFF
+                cnt[i] += more
+                pos[i] += more * len0[i]
+                act[i] = False
+            idx = act.nonzero().squeeze(1)
+            if not len(idx):
+                break
+            e = self.entry(row[idx], pos[idx])
+            ln = e >> 8
+            zero[idx] |= ln == 0
+            if out is not None:
+                out[dest[idx], slot[idx] + cnt[idx]] = e & 0xFF
+            cnt[idx] += 1
+            pos[idx] += ln.clamp(min=1)
+            act[idx] = pos[idx] < stop[idx]
+            if out is not None:
+                act[idx] &= slot[idx] + cnt[idx] < limit[idx]
+        return pos, cnt, zero
+
+    def serial(self, row, pos, count):
+        """The reference's walk of ``count`` codes a chunk from ``pos``
+        (a zero length stays), as (chunks, max count) symbols."""
+        steps = int(count.max())
+        out = torch.zeros((len(pos), steps), dtype=torch.int64)
+        pos = pos.clone()
+        for j in range(steps):
+            e = self.entry(row, pos)
+            out[:, j] = e & 0xFF
+            pos = pos + (e >> 8)
+        return out
+
+
+def huffman_decode_stepwise(words, chunk_offs, lut_sym, lut_len, n_syms,
+                            lanes=32, k=PRIMARY_BITS, stats=False):
+    """``huffman_decode`` as its kernel computes it, every chunk's lanes in
+    lock step.  The primary table of the top ``k`` bits (``decode_primary``)
+    and the full table past it; chunk c's bits [off[c], E) split into
+    ``lanes`` spans (E: off[c + 1]; the last chunk's off + 16 * count,
+    capped at the row's words; the staged words' zero tail all the last
+    lane's; spans of ``LANE_BITS`` at least, the first lanes idle where
+    they would be shorter; spans start at multiples of a codebook's one
+    length); each lane walks its span, restarts where its left neighbour
+    stopped until no start moves (a chunk still moving at round
+    ``TABLE_ROUND`` takes entry tables instead: each lane's exits from
+    every entry its true start can have, chained from the chunk's start),
+    and writes its symbols at the exclusive scan of the counts.  A chunk
+    whose synchronised walk met a zero length, or whose counts or last
+    code miss (for the last chunk: fewer than its count) is walked
+    serially, code by code.  Words past a row's end read as zero.  With
+    ``stats``: also {"rounds": (B, chunks) synchronisation rounds,
+    "serial": (B, chunks) bool}."""
+    b, n_words = words.shape
+    used = min(_chunks(n_syms), chunk_offs.shape[1])
+    st = _Stream(words, lut_sym, lut_len, k)
+    offs = chunk_offs[:, :used + 1].to(torch.int64) & _MASK32
+    off = offs[:, :used]
+    c_idx = torch.arange(used, dtype=torch.int64)
+    count = (n_syms - c_idx * CHUNK).clamp(max=CHUNK).expand(b, used)
+    last = (c_idx == used - 1).expand(b, used)
+    end = torch.where(last, torch.minimum(off + 16 * count,
+                                          torch.tensor(32 * n_words)),
+                      F.pad(offs[:, 1:], (0, used + 1 - offs.shape[1])))
+    parallel = (end > off) & (end - off <= CHUNK * ll.MAX_CODE_LEN)
+    lens = st.prim >> 8
+    present = lens > 0
+    qmin = torch.where(present, lens, 255).min(1).values
+    qmax = torch.where(present, lens, 0).max(1).values
+    quantum = torch.where((qmin == qmax) & (qmax <= k), qmin, 1)
+    rounds = torch.zeros((b, used), dtype=torch.int64)
+    ok = torch.zeros((b, used), dtype=torch.bool)
+    out = torch.zeros((b, used, CHUNK), dtype=torch.int64)
+    lane = torch.arange(lanes, dtype=torch.int64)
+    rq, cq = parallel.nonzero(as_tuple=True)
+    q = len(rq)
+    if q:
+        g = quantum[rq][:, None]
+        o, e = off[rq, cq][:, None], end[rq, cq][:, None]
+        # the zero tail: from the word after the staged words' last non-zero
+        wlo = o >> 5
+        k_at = wlo + torch.arange(CHUNK * ll.MAX_CODE_LEN // 32 + 4)
+        nstage = ((e - 1) >> 5) - wlo + 4
+        staged = st.w[rq[:, None], k_at.clamp(max=st.last)]
+        nz = torch.where((staged != 0) & (k_at - wlo < nstage), k_at + 1,
+                         wlo).max(1, keepdim=True).values
+        tail = 32 * nz
+        split = torch.maximum(torch.minimum(tail, e), o)
+        units = (split - o) // g
+        # the last ``act`` lanes share the spans, LANE_BITS at least each;
+        # the others hold empty spans at the chunk's start
+        act = (units * g // LANE_BITS).clamp(1, lanes)
+        i = lane - (lanes - act)
+        start = torch.where(i >= 0, o + units * i // act * g, o)
+        stop = torch.where(i + 1 == act, e, torch.where(
+            i >= 0, o + units * (i + 1) // act * g, o))
+        row = rq[:, None].expand(-1, lanes).reshape(-1)
+        tail = tail.expand(-1, lanes).reshape(-1)
+        start, stop = start.reshape(-1), stop.reshape(-1)
+        p, cnt, zero = st.walk(row, start, stop, tail)
+        nominal = start.clone()
+        lm = st.longest[rq]
+        done = torch.zeros(q, dtype=torch.bool)
+        lost = torch.zeros(q, dtype=torch.bool)
+        while True:               # until no lane's start moves
+            s2, p2 = start.view(q, lanes), p.view(q, lanes)
+            ns = torch.cat([s2[:, :1], p2[:, :-1]], dim=1).reshape(-1)
+            moved = (ns != start) & ~done[:, None].expand(-1, lanes
+                                                          ).reshape(-1)
+            chunk_moved = moved.view(q, lanes).any(1)
+            if not bool(chunk_moved.any()):
+                break
+            rounds[rq, cq] += chunk_moved.to(torch.int64)
+            table = chunk_moved & (rounds[rq, cq] == TABLE_ROUND)
+            for c in table.nonzero().flatten().tolist():
+                # still moving: every lane's exits from each entry its true
+                # start can have, chained from the chunk's start
+                sl = slice(c * lanes, (c + 1) * lanes)
+                m = int(lm[c])
+                exits = torch.stack([st.walk(
+                    row[sl], nominal[sl] + f, stop[sl], tail[sl])[0]
+                    - stop[sl] for f in range(m)])
+                entry, f = [], 0
+                for j in range(lanes):
+                    entry.append(f)
+                    if f >= 0:
+                        f = int(exits[f, j]) if int(exits[f, j]) < m else -1
+                entry = torch.tensor(entry)
+                lost[c] = bool((entry < 0).any())
+                start[sl] = nominal[sl] + entry.clamp(min=0)
+                p[sl], cnt[sl], zero[sl] = st.walk(row[sl], start[sl],
+                                                   stop[sl], tail[sl])
+                done[c] = True
+            moved &= ~table[:, None].expand(-1, lanes).reshape(-1)
+            start = torch.where(moved, ns, start)
+            idx = moved.nonzero().squeeze(1)
+            p[idx], cnt[idx], zero[idx] = st.walk(row[idx], start[idx],
+                                                  stop[idx], tail[idx])
+        c2 = cnt.view(q, lanes)
+        total = c2.sum(1)
+        want = count[rq, cq]
+        good = ~zero.view(q, lanes).any(1) & ~lost & torch.where(
+            last[rq, cq], total >= want,
+            (total == want) & (p.view(q, lanes)[:, -1] == e[:, 0]))
+        ok[rq, cq] = good
+        base = (torch.cumsum(c2, 1) - c2).reshape(-1)
+        lim = want[:, None].expand(-1, lanes).reshape(-1)
+        wr = good[:, None].expand(-1, lanes).reshape(-1) & (base < lim)
+        idx = wr.nonzero().squeeze(1)
+        tile = torch.zeros((q, CHUNK), dtype=torch.int64)
+        st.walk(row[idx], start[idx], stop[idx], tail[idx], tile,
+                idx // lanes, base[idx], lim[idx])
+        out[rq[good], cq[good]] = tile[good]
+    rs, cs = (~ok).nonzero(as_tuple=True)
+    if len(rs):
+        sym = st.serial(rs, off[rs, cs], count[rs, cs])
+        out[rs, cs, :sym.shape[1]] = sym
+    dec = (out.reshape(b, -1)[:, :n_syms] & 0xFF).to(torch.uint8)
+    if stats:
+        return dec, {"rounds": rounds, "serial": ~ok}
+    return dec
 
 
 def rle_scan_tiled(syms):
@@ -506,27 +770,47 @@ def rle_scan_tiled(syms):
     return values, lengths, tile_runs.sum(1)
 
 
-def rle_expand_tiled(values, lengths, n):
-    """``rle_expand`` as its passes compute it: each tile's run lengths
-    summed, the row scan, every run's end; then for each 4096-byte output
-    tile the runs at its first and last byte, and each byte's run searched
-    between them (clamped to the last run)."""
+def rle_expand_tiled(values, lengths, n, tile=EXPAND_TILE, slices=1,
+                     lag=2):
+    """``rle_expand`` as its kernel computes it: blocks take tickets in
+    order (row, tile, slice); a tile's first slice publishes its summed
+    lengths, sums its predecessors' status words back to the nearest
+    inclusive one (a tile's inclusive word here lands ``lag`` tickets
+    late, so that look-backs cross aggregates) and publishes its inclusive
+    sum; each slice writes its share of the tile's bytes [prefix, prefix +
+    sum) of [0, n) (the row's last tile on to n), each byte's run found in
+    the tile's ends (upper bound, clamped to the tile's last run)."""
     b, r = values.shape
-    t = _tiles(r, EXPAND_TILE)
-    ln = F.pad(lengths.to(torch.int64), (0, t * EXPAND_TILE - r)).view(
-        b, t, EXPAND_TILE)
-    tile_sums = ln.sum(2)
-    tile_base = torch.cumsum(tile_sums, 1) - tile_sums
-    cum = (torch.cumsum(ln, 2) + tile_base[:, :, None]).view(b, -1)[:, :r]
-    out = torch.empty((b, n), dtype=torch.uint8)
-    for p0 in range(0, n, EXPAND_TILE):
-        p1 = min(p0 + EXPAND_TILE, n) - 1
-        pos = torch.arange(p0, p1 + 1)
-        for row in range(b):
-            cr = cum[row].contiguous()
-            lo, hi = (int(torch.searchsorted(cr, torch.tensor([p]),
-                                             right=True)) for p in (p0, p1))
-            j = lo + torch.searchsorted(cr[lo:hi].contiguous(), pos,
-                                        right=True)
-            out[row, p0:p1 + 1] = values[row, j.clamp(max=r - 1)]
+    tiles = _tiles(r, tile)
+    lens = lengths.to(torch.int64)
+    out = torch.zeros((b, n), dtype=torch.uint8)
+    for row in range(b):
+        status, late = {}, []      # tile: ("agg" | "inc", value)
+        for t in range(tiles):
+            j0 = t * tile
+            ends = torch.cumsum(lens[row, j0:j0 + tile], 0)
+            tsum = int(ends[-1])
+            status[t] = ("agg", tsum)
+            acc, look = 0, t - 1
+            while look >= 0:
+                flag, v = status[look]
+                acc += v
+                if flag == "inc":
+                    break
+                look -= 1
+            late.append((t, acc + tsum))
+            while len(late) > lag:
+                done, v = late.pop(0)
+                status[done] = ("inc", v)
+            lo = max(acc, 0)
+            hi = min(n, n if t + 1 == tiles else acc + tsum)
+            for s in range(slices):
+                s_lo = lo + (hi - lo) * s // slices
+                s_hi = lo + (hi - lo) * (s + 1) // slices
+                if s_hi <= s_lo:
+                    continue
+                pos = torch.arange(s_lo, s_hi, dtype=torch.int64) - acc
+                j = torch.searchsorted(ends, pos, right=True).clamp(
+                    max=len(ends) - 1)
+                out[row, s_lo:s_hi] = values[row, j0 + j]
     return out

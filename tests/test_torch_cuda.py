@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _lossless_cases as cases  # noqa: E402
 from repro_torch.core import lossless_batch as lb  # noqa: E402
 from repro_torch.core import pipeline as pl  # noqa: E402
 from repro_torch.core import qoi as qq  # noqa: E402
@@ -1872,6 +1873,47 @@ def _lossless_match(x):
     out = kl.rle_expand(a["rv"], a["rl"], s)
     assert torch.equal(out, ll._rle_expand_plain(a["rv"], a["rl"], s))
     assert torch.equal(out, x)
+    # the read side at every lane count and at more slices than its own
+    stored = int(((a["total"] + 31) // 32 + 1).max())
+    for words in (a["words"], a["words"][:, :stored].contiguous()):
+        for lanes in kl.LANES:
+            assert torch.equal(kl._launch_decode(
+                words, a["offs"], a["ls"], a["ln"], s, lanes=lanes), x)
+    for slices in (1, 3):
+        assert torch.equal(kl._launch_rle_expand(a["rv"], a["rl"], s,
+                                                 slices=slices), x)
+
+
+def _on(cuda, args):
+    return [t.to(cuda) if isinstance(t, torch.Tensor) else t for t in args]
+
+
+def _lossless_edges_match(cuda):
+    """The read side's hand-made edges (``tests/_lossless_cases.py``): the
+    decode at every lane count and at its own, the expand at 1 and 3
+    slices and at its own, each the plain pass's bytes; the decode walks
+    serially the chunks that must be so walked and no other."""
+    from repro_torch.core import lossless as ll
+    from repro_torch.kernels import lossless as kl
+    for name, args in cases.decode_cases().items():
+        args = _on(cuda, args)
+        want = ll._huffman_unpack_plain(*args)
+        for lanes in (0,) + kl.LANES:
+            kl.reset_decode_walks()
+            got = kl._launch_decode(*args, lanes=lanes)
+            walks = kl.decode_walks()
+            assert torch.equal(got, want), (name, lanes)
+            assert (walks["serial"] > 0) == (name in cases.SERIAL), (
+                name, lanes, walks)
+            if name == cases.ROUNDS:
+                assert walks["max_rounds"] >= 2, (lanes, walks)
+    for name, args in cases.expand_cases().items():
+        values, lengths, n = _on(cuda, args)
+        want = ll._rle_expand_plain(values, lengths, n)
+        for slices in (0, 1, 3):
+            assert torch.equal(kl._launch_rle_expand(values, lengths, n,
+                                                     slices=slices),
+                               want), (name, slices)
 
 
 @pytest.mark.parametrize("b", [1, 3])
@@ -1879,11 +1921,16 @@ def _lossless_match(x):
 def test_lossless_kernels_match_plain(cuda, s, b):
     """Each of the five lossless kernels byte-identical to its plain
     version at either side of a chunk (4096) and an RLE tile (32768), rows
-    of any length (unaligned rows past the first), five contents."""
+    of any length (unaligned rows past the first), five contents; the
+    decode at every lane count, words at the pack's width and cut to the
+    stored one, the expand at 1 and 3 slices; and (B = 1) the read side's
+    hand-made edges."""
     rng = np.random.default_rng(s * 7 + b)
     for kind in ("skewed", "zeros", "uniform", "runs", "one"):
         _lossless_match(torch.from_numpy(_lossless_rows(kind, b, s, rng)
                                          ).to(cuda))
+    if b == 1:
+        _lossless_edges_match(cuda)
 
 
 def test_lossless_kernels_split_rows_past_max_batch(cuda):
@@ -1921,17 +1968,26 @@ def test_lossless_kernels_split_rows_past_max_batch(cuda):
 
 def test_lossless_kernels_are_deterministic(cuda):
     """Two calls give the same bits (the stats' and the pack's atomics add
-    and OR integers, exact in any order)."""
+    and OR integers, exact in any order; the expand's tiles take tickets
+    in any order), the read side's hand-made edges too."""
     from repro_torch.kernels import lossless as kl
     rng = np.random.default_rng(6)
     x = torch.from_numpy(_lossless_rows("skewed", 3, 300_001, rng)).to(cuda)
     a = _lossless_inputs(x)
-    calls = (lambda: kl.lossless_stats(x),
+    calls = [lambda: kl.lossless_stats(x),
              lambda: kl.huffman_pack(x, a["lt"], a["ct"]),
              lambda: (kl.huffman_decode(a["words"], a["offs"], a["ls"],
                                         a["ln"], x.shape[1]),),
              lambda: kl.rle_scan(x)[2:],
-             lambda: (kl.rle_expand(a["rv"], a["rl"], x.shape[1]),))
+             lambda: (kl.rle_expand(a["rv"], a["rl"], x.shape[1]),)]
+    # the read side's hand-made edges, at 32 and 128 lanes and 3 slices
+    for args in cases.decode_cases().values():
+        for lanes in (32, 128):
+            calls.append(lambda args=_on(cuda, args), lanes=lanes: (
+                kl._launch_decode(*args, lanes=lanes),))
+    for args in cases.expand_cases().values():
+        calls.append(lambda args=_on(cuda, args): (
+            kl._launch_rle_expand(*args, slices=3),))
     for call in calls:
         first, second = call(), call()
         assert all(torch.equal(p, q) for p, q in zip(first, second))
@@ -1966,7 +2022,9 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
     """Every output and scratch buffer of the five kernels inside guards of
     a known byte, every pointer 16-byte aligned (shift 0) or not (shift 1
     element): the outputs are the plain versions' and no guard byte
-    changes, over three launches."""
+    changes, over three launches (the decode at 32, 128 and its own lanes,
+    the expand at 1, 3 and its own slices); then the read side's hand-made
+    edges, guarded alike."""
     from repro_torch.kernels import lossless as kl
     rng = np.random.default_rng(b * s + shift)
     x0 = torch.from_numpy(_lossless_rows("skewed", b, s, rng)).to(cuda)
@@ -1997,18 +2055,18 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
         out((b, s), torch.uint8), out((b, s), torch.int16),
         out((b,), torch.int64), out((b, tiles), torch.int64),
         out((b, tiles), torch.int64))
-    exp, sums, ebase, cum = (out((b, s), torch.uint8),
-                             out((b, rt), torch.int64),
-                             out((b, rt), torch.int64),
-                             out((b, r), torch.int64))
-    for _ in range(3):
+    prim = out((b, 1 << kl.PRIMARY_BITS), torch.int16)
+    walks = out((len(kl.WALKS),), torch.int64)
+    exp, status = out((b, s), torch.uint8), out((b * rt + 1,), torch.int64)
+    walks.zero_()
+    for lanes, slices in ((32, 1), (128, 3), (0, 0)):
         hist.zero_(), nruns.zero_(), pw.zero_()
         kl._run("lossless_stats", x, x, b, s, hist, nruns)
         kl._run("huffman_pack", x, x, b, s, lt, ct, pbits, po, pt, pw, cap)
         kl._run("huffman_decode", x, words, b, cap, offs, chunks, ls, ln,
-                dec, s)
+                prim, walks, lanes, dec, s)
         kl._run("rle_scan", x, x, b, s, runs, base, vals, lens, rn)
-        kl._run("rle_expand", x, rv, rl, b, r, sums, ebase, cum, exp, s)
+        kl._run("rle_expand", x, rv, rl, b, r, status, slices, exp, s)
         torch.cuda.synchronize()
         for got, want in zip((hist, nruns), lb._group_stats_plain(x0)):
             assert torch.equal(got, want)
@@ -2019,8 +2077,81 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
         for row in range(b):
             k = int(a["pn"][row])
             assert torch.equal(vals[row, :k], a["pv"][row, :k])
+    assert int(walks[1]) == 0 and int(walks[0]) == 3 * b * chunks
+    from repro_torch.core import lossless as ll
+    for args in cases.decode_cases().values():
+        words, offs, ls, ln = (inp(t.to(cuda)) for t in args[:4])
+        n = args[4]
+        dec = out((words.shape[0], n), torch.uint8)
+        prim = out((words.shape[0], 1 << kl.PRIMARY_BITS), torch.int16)
+        for lanes in (32, 128):
+            kl._run("huffman_decode", words, words, words.shape[0],
+                    words.shape[1], offs, offs.shape[1], ls, ln, prim, walks,
+                    lanes, dec, n)
+            assert torch.equal(dec, ll._huffman_unpack_plain(
+                words, offs, ls, ln, n))
+    for values, lengths, n in cases.expand_cases().values():
+        values, lengths = inp(values.to(cuda)), inp(lengths.to(cuda))
+        rows, r = values.shape
+        exp = out((rows, n), torch.uint8)
+        status = out((rows * -(-r // kl.EXPAND_TILE) + 1,), torch.int64)
+        for slices in (1, 3):
+            kl._run("rle_expand", values, values, lengths, rows, r, status,
+                    slices, exp, n)
+            assert torch.equal(exp, ll._rle_expand_plain(values, lengths, n))
     for buf, lo, nbytes in outs:
         assert _byte_guards_hold(buf, lo, nbytes)
+
+
+def test_engine_groups_walk_no_chunk_serially(cuda):
+    """The plane groups of a write on the card, encoded with Huffman forced
+    and decoded by ``decode_segments``: every chunk on the decode's lanes,
+    none walked serially, the blobs back."""
+    from repro_torch.core import lossless as ll
+    from repro_torch.kernels import lossless as kl
+    seen = []
+    was = lb._encode_buckets
+
+    def rec(stacked, *args, **kw):
+        seen.extend(stacked.values())
+        return was(stacked, *args, **kw)
+    lb._encode_buckets = rec
+    try:
+        rf.refactor_array(gaussian_field((50, 100, 100), slope=-2.0, seed=7),
+                          "g", device=cuda)
+    finally:
+        lb._encode_buckets = was
+    segs = lb.encode_groups_stacked(seen, ll.HybridConfig(force="huffman"))
+    chunks = sum(-(-st.shape[1] // kl.CHUNK) * st.shape[0] for st in seen)
+    kl.reset_decode_walks()
+    got = lb.decode_segments(segs, device=cuda)
+    walks = kl.decode_walks()
+    rows = [r for st in seen for r in st.cpu().numpy()]
+    assert all(np.array_equal(d, r) for d, r in zip(got, rows))
+    assert walks["chunks"] == chunks and walks["serial"] == 0, walks
+
+
+def test_rle_expand_launches_at_most_two_a_call(cuda):
+    """One ``rle_expand`` call is at most two device activities, the status
+    words' zeroing and the one pass (the profiler's view), and gives the
+    plain pass's bytes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import lossless as ll
+    from repro_torch.kernels import lossless as kl
+    for values, lengths, n in cases.expand_cases().values():
+        values, lengths = values.to(cuda), lengths.to(cuda)
+        kl.rle_expand(values, lengths, n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = kl.rle_expand(values, lengths, n)
+            torch.cuda.synchronize()
+        acts = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.key != "Activity Buffer Request"}
+        assert any("rle_expand_kernel" in k for k in acts), acts
+        assert sum(acts.values()) <= 2, acts
+        assert torch.equal(got, ll._rle_expand_plain(values, lengths, n))
 
 
 @pytest.mark.parametrize("force", [None, "huffman", "rle", "dc"])

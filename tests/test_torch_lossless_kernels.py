@@ -8,6 +8,14 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
   plain pass it replaces, at either side of a chunk (4096) and of an RLE
   tile (32768), on five contents, on real plane groups that the port's
   CPU write stacks, and over random sizes (hypothesis);
+* the read side's references (the decode's self-synchronising lanes at 32
+  and 128 a chunk, the expand's look-back tiles and slices) give the plain
+  passes' and the reference's bytes on hand-made edges
+  (``tests/_lossless_cases.py``: a one-symbol codebook, 16-bit codes,
+  chunks that need two or more synchronisation rounds, a chunk that misses
+  its end and one whose codes run past the words, which must be walked
+  serially, padded rows; run lengths short of n and past it, zero-length
+  runs, long runs), and real plane groups walk no chunk serially;
 * each plain pass equals the reference's jitted one on the same rows;
 * the operators' fakes on ``meta`` give the CPU outputs' shapes and
   dtypes, and ``OpAnalysis`` sees one operator a call with its declared
@@ -25,6 +33,7 @@ from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
+import _lossless_cases as cases  # noqa: E402
 from repro.core import lossless as jll  # noqa: E402
 from repro.core import lossless_batch as jlb  # noqa: E402
 from repro_torch.core import lossless as ll  # noqa: E402
@@ -233,11 +242,13 @@ def test_declared_workspaces():
     assert kl.rle_scan_workspace(x) == {
         "tile_runs": ((3, 3), torch.int64),
         "tile_base": ((3, 3), torch.int64)}
+    w = torch.empty((3, 900), dtype=torch.int32, device="meta")
+    assert kl.huffman_decode_workspace(w, t, x, x, 9000) == {
+        "primary": ((3, 1 << kl.PRIMARY_BITS), torch.int16)}
     v = torch.empty((2, 5000), dtype=torch.uint8, device="meta")
+    # each tile's status word (two tiles a row) and the ticket counter
     assert kl.rle_expand_workspace(v, v, 9) == {
-        "tile_sums": ((2, 2), torch.int64),
-        "tile_base": ((2, 2), torch.int64),
-        "cum": ((2, 5000), torch.int64)}
+        "status": ((2 * 2 + 1,), torch.int64)}
     assert (kl.CHUNK, kl.RLE_BREAK) == (ll.CHUNK, ll.RLE_BREAK) == \
         (jll.CHUNK, jll.RLE_BREAK)
 
@@ -305,3 +316,100 @@ def test_a_corrupt_chunk_offset_raises_on_the_host(where):
     inside.payload["chunk_offs"][2] = 32 * inside.payload["words"].shape[0] - 1
     got = lb.decode_segments([inside], device="cpu")[0]
     assert np.array_equal(got[:2 * ll.CHUNK], blob[:2 * ll.CHUNK])
+
+
+# ------------------------------------- the read side's kernels, redesigned
+
+def _jax_decode(words, offs, ls, ln, n):
+    return np.stack([np.asarray(jll._huffman_unpack(
+        jnp.asarray(words[r].numpy().view(np.uint32)),
+        jnp.asarray(offs[r].numpy()), jnp.asarray(ls[r].numpy()),
+        jnp.asarray(ln[r].numpy()), n)) for r in range(words.shape[0])])
+
+
+DECODE_CASES = cases.decode_cases()
+EXPAND_CASES = cases.expand_cases()
+
+
+@pytest.mark.parametrize("lanes", [32, 128])
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_decode_reference_at_the_edges(name, lanes):
+    """The decode's lanes (``huffman_decode_stepwise``) give the plain
+    pass's bytes and the reference's; a chunk that misses its end or runs
+    past the words is walked serially, and no other; the near-fixed-length
+    codebook needs two or more synchronisation rounds."""
+    args = DECODE_CASES[name]
+    want = ll._huffman_unpack_plain(*args)
+    got, walks = kl.huffman_decode_stepwise(*args, lanes=lanes, stats=True)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.numpy(), _jax_decode(*args))
+    assert bool(walks["serial"].any()) == (name in cases.SERIAL)
+    if name == cases.ROUNDS:
+        assert int(walks["rounds"].max()) >= 2
+
+
+@pytest.mark.parametrize("tiling", [(kl.EXPAND_TILE, 1), (64, 3), (7, 2)])
+@pytest.mark.parametrize("name", list(EXPAND_CASES))
+def test_expand_reference_at_the_edges(name, tiling):
+    """The expand's look-back tiles and slices (``rle_expand_tiled``) give
+    the plain pass's bytes and the reference's: lengths that sum short of
+    n (the tail takes the last value) and past it (cut at n), zero-length
+    runs at tile edges, long runs shared among slices."""
+    values, lengths, n = EXPAND_CASES[name]
+    tile, slices = tiling
+    got = kl.rle_expand_tiled(values, lengths, n, tile=tile, slices=slices)
+    assert torch.equal(got, ll._rle_expand_plain(values, lengths, n))
+    for r in range(values.shape[0]):
+        assert np.array_equal(got[r].numpy(), np.asarray(jll._rle_expand(
+            jnp.asarray(values[r].numpy()), jnp.asarray(lengths[r].numpy()),
+            n)))
+
+
+@pytest.mark.parametrize("lanes", [32, 128])
+def test_real_plane_groups_walk_no_chunk_serially(lanes):
+    """The buckets a CPU write stacks, packed and cut to their stored
+    width as ``decode_segments`` uploads them: every chunk decodes on the
+    lanes, none serially, with the plain pass's bytes."""
+    seen = []
+    was = lb._encode_buckets
+
+    def rec(stacked, *args, **kw):
+        seen.extend(stacked.values())
+        return was(stacked, *args, **kw)
+    lb._encode_buckets = rec
+    try:
+        rf.refactor_array(gaussian_field((24, 40, 40), slope=-2.0, seed=3),
+                          "g", device="cpu")
+    finally:
+        lb._encode_buckets = was
+    for rows in seen:
+        x = rows.contiguous()
+        lt, ct, ls, ln = _books(x.numpy())
+        words, total, offs = ll._huffman_pack_plain(x, lt, ct)
+        words = words[:, :int(((total + 31) // 32 + 1).max())].contiguous()
+        got, walks = kl.huffman_decode_stepwise(words, offs, ls, ln,
+                                                x.shape[1], lanes=lanes,
+                                                stats=True)
+        assert torch.equal(got, x)
+        assert not bool(walks["serial"].any())
+
+
+def test_decode_primary_table():
+    """Entry q of the primary table is the peek table's entry at q << 5
+    where its 32 peeks agree and the code is at most ``PRIMARY_BITS``
+    long; ``LONG`` elsewhere (a random table: nearly everywhere)."""
+    rows = _rows("skewed", 2, 20_000, np.random.default_rng(4))
+    _, _, ls, ln = _books(rows)
+    prim = kl.decode_primary(ls, ln)
+    sub = 1 << (16 - kl.PRIMARY_BITS)
+    at = torch.arange(1 << kl.PRIMARY_BITS) * sub
+    short = ln[:, at].to(torch.int64) <= kl.PRIMARY_BITS
+    assert torch.equal(prim[short], (ls[:, at].to(torch.int64)
+                                     | ln[:, at].to(torch.int64) << 8)[short])
+    assert bool((prim[~short] == kl.LONG).all()) and bool(short.any())
+    rng = np.random.default_rng(5)
+    noise = [torch.from_numpy(rng.integers(0, 256, (1, 1 << 16)
+                                           ).astype(np.uint8))
+             for _ in range(2)]
+    assert float((kl.decode_primary(*noise) == kl.LONG).float().mean()) \
+        > 0.99
