@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port runs its main path on a GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --write-side SRC   # phase 21 (c) alone, SRC's port
 
 needs one CUDA card, ``nvcc`` and the checkout's ``src/repro_torch``; it
 imports nothing of JAX and nothing of the JAX package.  Phases, in order
@@ -244,13 +245,20 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
 21. the lossless codec's kernels (``kernels/csrc/lossless.cu``): (a)
    ``lossless_stats``, ``huffman_pack``, ``huffman_decode``, ``rle_scan``
    and ``rle_expand`` byte-identical to their plain passes at S in {1, 2, 31,
-   4095, 4096, 4097, 32767, 32768, 32769, 65537}, B 1 and 3, five
+   4095, 4096, 4097, 32767, 32768, 32769, 65537}, B 1 and 3, and on
+   buckets of many short rows, either side of the stats' tile rule and
+   the pack's tickets of two and four chunks ((B, S) in {(64, 4096), (64,
+   65537), (263, 16384), (264, 16384), (199, 16385), (400, 16384)}), five
    contents, and on groups taken from real writes (Isabel's finest-piece
    4-plane group and sign plane, phase 8's and phase 9's largest), timed
    there (wrapper, replayed graph past the L2, plain pass, bound,
    ``torch.bincount`` beside the histogram, ``torch.repeat_interleave``
-   beside the expand); on those groups the read side's kernels also give
-   the decode's walks over one call (chunks, none walked serially,
+   beside the expand; the pack's bound also with the whole cap written,
+   the floor of a byte-identical output); the write side's kernels at most
+   two device activities a call (the kernel, copy and memset nodes of a
+   CUDA graph of one call), the pack with no bit-count pass and no row
+   scan; on those groups the read side's kernels also give the
+   decode's walks over one call (chunks, none walked serially,
    synchronisation rounds), its device time at 32, 64, 128 and 256 lanes a
    chunk, the largest expand tile's share of the bytes, and each kernel's
    device activities a call (the expand's at most two); the edge cases and
@@ -258,6 +266,14 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    written and read with
    RLE forced (the RLE kernels' main path; the default picks none there),
    counters zeroed before, no plain pass, the blob ``backend="torch"``'s;
+   (c) every ``lossless_stats`` and ``huffman_pack`` call of one phase-8
+   pipelined write and of phase 9's store write recorded: their (B, S)
+   spread, both kernels timed at phase 9's median bucket, and their calls
+   replayed under ``torch.profiler``, the summed device time of their
+   activities (memsets included) a phase and kernel, or their replayed
+   graph's time where the profile holds nothing (``--write-side SRC``
+   runs this part alone with the port under SRC, such as a parent tree's
+   ``src``, to compare two trees on one card);
    (b) phase 3's write and ladder and phase 8's pipelined write and read
    with ``backend="torch"``, the kernels, the kernels, ``"torch"``: the
    same blobs and values, the walls, the ``encode.finish`` /
@@ -4011,6 +4027,12 @@ LOSSLESS_REPLACES = {"lossless_stats": "src/repro/core/lossless_batch.py:163",
                      "rle_expand": "src/repro/core/lossless.py:280"}
 LOSSLESS_SIZES = (1, 2, 31, 4095, 4096, 4097, 32767, 32768, 32769, 65537)
 LOSSLESS_CONTENTS = ("skewed", "zeros", "uniform", "runs", "one")
+# (B, S) buckets of short rows (phase 9's kind), either side of the stats'
+# tile rule (kernels.lossless.stats_tiling) and the pack's tickets of two
+# and four chunks (kernels.lossless.pack_group)
+LOSSLESS_BUCKETS = ((64, 4096), (64, 65537), (263, 16384), (264, 16384),
+                    (199, 16385), (400, 16384))
+WRITE_SIDE = ("lossless_stats", "huffman_pack")
 # the least integer operations a symbol (of S, or of n decoded) each
 # function needs: a bin's add and a neighbour's compare; a length's add
 # to the offset, two shifts and an OR; a window's shift, a look-up, an add
@@ -4054,7 +4076,7 @@ def _lossless_rows(kind, b, s, rng):
         vals = rng.integers(0, 4, (b, s // 20 + 2))
         return np.stack([np.repeat(v, r)[:s] for v, r in zip(vals, reps)]
                         ).astype(np.uint8)
-    return np.full((b, s), 7 + b, np.uint8)
+    return np.full((b, s), (7 + b) % 256, np.uint8)
 
 
 def lossless_case(torch, x):
@@ -4114,21 +4136,22 @@ def lossless_case(torch, x):
 
 
 def lossless_edges(torch):
-    """Phase 21 (a)'s sizes and contents: every kernel byte-identical to
-    its plain version, and no chunk of these streams decoded serially;
-    returns the cases checked and the largest differences (0)."""
+    """Phase 21 (a)'s sizes, buckets and contents: every kernel
+    byte-identical to its plain version, and no chunk of these streams
+    decoded serially; returns the cases checked and the largest
+    differences (0)."""
     import numpy as np
     from repro_torch.kernels import lossless as kl
     rng = np.random.default_rng(21)
     n, errs = 0, {}
     kl.reset_decode_walks()
-    for s in LOSSLESS_SIZES:
-        for b in (1, 3):
-            for kind in LOSSLESS_CONTENTS:
-                x = torch.from_numpy(_lossless_rows(kind, b, s, rng)).cuda()
-                for k, v in lossless_case(torch, x)["errs"].items():
-                    errs[k] = max(errs.get(k, 0), v)
-                n += 1
+    shapes = [(b, s) for s in LOSSLESS_SIZES for b in (1, 3)]
+    for b, s in shapes + list(LOSSLESS_BUCKETS):
+        for kind in LOSSLESS_CONTENTS:
+            x = torch.from_numpy(_lossless_rows(kind, b, s, rng)).cuda()
+            for k, v in lossless_case(torch, x)["errs"].items():
+                errs[k] = max(errs.get(k, 0), v)
+            n += 1
     torch.cuda.synchronize()
     check_walks(kl, "phase 21's edge cases")
     return n, errs
@@ -4198,14 +4221,17 @@ def main_path_groups(torch, rf, x_np, pipe, nyx):
     return groups
 
 
-def _lossless_bytes(name, c):
+def _lossless_bytes(name, c, cap=False):
     """The bytes each function must move at ``c``'s inputs: inputs read
-    once, outputs written once (rle_scan's: this data's runs)."""
+    once, outputs written once (rle_scan's: this data's runs; the pack's
+    stored words, or with ``cap`` its whole (B, S * 16 / 32 + 2) words,
+    the floor of a byte-identical output)."""
     b, s = c["x"].shape
     if name == "lossless_stats":
         return b * s + 8 * 257 * b
     if name == "huffman_pack":
-        return b * s + 16 * 256 * b + 4 * c["words"].numel() + 8 * b \
+        words = b * (s * 16 // 32 + 2) if cap else c["words"].numel()
+        return b * s + 16 * 256 * b + 4 * words + 8 * b \
             + 8 * c["offs"].numel()
     if name == "huffman_decode":   # each row's stored words
         words = int(((c["total_bits"] + 31) // 32 + 1).sum())
@@ -4259,6 +4285,7 @@ def lossless_timings(torch, c, what):
             copies=len(copies))
     rows["lossless_stats"]["library_ms"] = time_ms(
         lambda: torch.bincount(x[0], minlength=256))
+    write_side_at(torch, c, what, rows)
     rv, rl = c["rv"][0], c["rl"][0]
     check(torch.equal(torch.repeat_interleave(rv, rl, output_size=s), x[0]),
           f"torch.repeat_interleave on {what} is not the group")
@@ -4272,6 +4299,11 @@ def lossless_timings(torch, c, what):
                      f"a chunk's code")
         elif name == "lossless_stats":
             extra = f"; torch.bincount {r['library_ms'] * 1e3:.1f} us"
+        elif name == "huffman_pack":
+            extra = (f"; with the whole cap written: bound "
+                     f"{r['floor_ms'] * 1e3:.2f} us "
+                     f"({r['floor_bytes'] / 1e6:.2f} MB), device / that "
+                     f"{r['device_ms'] / r['floor_ms']:.1f}")
         elif name == "rle_expand":
             extra = (f"; torch.repeat_interleave "
                      f"{r['library_ms'] * 1e3:.1f} us")
@@ -4285,19 +4317,183 @@ def lossless_timings(torch, c, what):
     return rows
 
 
-def _device_activities(torch, fn) -> dict:
-    """The device activities (kernels, sets, copies) of one call of
-    ``fn``, by name, as torch.profiler records them."""
+def write_side_at(torch, c, what, rows):
+    """The write side's kernels at the group ``c``: the pack's bound with
+    its whole cap written, and each kernel's device activities a call: at
+    most two, the pack's with no bit-count pass and no row scan."""
+    from repro_torch.kernels import lossless as kl
+    floor = _lossless_bytes("huffman_pack", c, cap=True)
+    rows["huffman_pack"].update(floor_bytes=floor,
+                                floor_ms=floor / HBM_BYTES_PER_S * 1e3)
+    args = {"lossless_stats": (c["x"],),
+            "huffman_pack": (c["x"], c["lt"], c["ct"])}
+    for name in WRITE_SIDE:
+        fn = getattr(kl, name)
+        acts = _device_activities(torch, lambda: fn(*args[name]))
+        check(0 < sum(acts.values()) <= 2
+              and not any("huff_bits" in k or "row_scan" in k for k in acts),
+              f"{name} on {what}: device activities {acts}")
+        rows[name]["activities"] = acts
+        print(f"{name} on {what}: device activities a call "
+              f"{sum(acts.values())} ({', '.join(acts)})", flush=True)
+
+
+class _WriteCalls:
+    """Records every ``lossless_stats`` and ``huffman_pack`` launch (their
+    CUDA implementations, ``kernels.lossless._LAUNCH``) while active: each
+    call's inputs, cloned, by kernel."""
+
+    def __enter__(self):
+        from repro_torch.kernels import lossless as kl
+        self.kl = kl
+        self.was = {n: kl._LAUNCH[n] for n in WRITE_SIDE}
+        self.calls = {n: [] for n in WRITE_SIDE}
+
+        def rec(name):
+            def call(*args):
+                self.calls[name].append(tuple(a.clone() for a in args))
+                return self.was[name](*args)
+            return call
+        for n in WRITE_SIDE:
+            kl._LAUNCH[n] = rec(n)
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.kl._LAUNCH.update(self.was)
+
+
+
+def _spread(calls):
+    """The (B, S) spread of recorded calls: count, B and S least /
+    median / most, symbols, and the median call by B * S."""
+    shapes = sorted((int(a[0].shape[0]) * int(a[0].shape[1]),
+                     tuple(a[0].shape), i) for i, a in enumerate(calls))
+    bs = sorted(sh[1][0] for sh in shapes)
+    ss = sorted(sh[1][1] for sh in shapes)
+    mid = shapes[len(shapes) // 2]
+    return dict(calls=len(calls), b=(bs[0], bs[len(bs) // 2], bs[-1]),
+                s=(ss[0], ss[len(ss) // 2], ss[-1]),
+                symbols=sum(sh[0] for sh in shapes), median=mid[1],
+                median_call=mid[2])
+
+
+def write_side(torch, nyx):
+    """Phase 21 (c): every ``lossless_stats`` and ``huffman_pack`` call of
+    one phase-8 pipelined write of ``nyx`` and of phase 9's store write of
+    Isabel's U, V, W, recorded; their (B, S) spread; both kernels at phase
+    9's median bucket (the median call by B * S: wrapper, replayed graph
+    past the L2, bound); and the calls replayed under torch.profiler: the
+    summed device time of each kernel's activities, memsets included, a
+    phase.  Uses only what the port had before the write side's redesign,
+    so that ``--write-side`` runs it on another tree."""
+    import shutil
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.data.fields import velocity_field
+    from repro_torch.kernels import lossless as kl
+    from repro_torch.store import DatasetWriter
+    rec = {}
+    with _WriteCalls() as calls:
+        pipe.ChunkedRefactorPipeline(
+            pipelined=True, chunk_elems=PIPE_CHUNK, levels=PIPE_LEVELS,
+            design="shuffle", use_tune_cache=False,
+            device="cuda").refactor(nyx, "nyx")
+        torch.cuda.synchronize()
+    rec["phase 8"] = calls
+    root = os.path.join(REPO, "build", "write_side_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    vs = dict(zip(STORE_NAMES, velocity_field(ISABEL_SHAPE, seed=0)))
+    try:
+        with _WriteCalls() as calls, DatasetWriter(root, device="cuda") as w:
+            for n in STORE_NAMES:
+                w.write(n, vs[n])
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["phase 9"] = calls
+    del vs
+    out = {}
+    for phase, calls in rec.items():
+        for name in WRITE_SIDE:
+            sp = _spread(calls[name])
+
+            def every(fn=kl._LAUNCH[name], args=calls[name]):
+                return [fn(*a) for a in args]
+            prof = _device_profile(torch, every)
+            by = {k: us for k, (_, us) in prof.items()} or {
+                "graph replay (the profile held nothing)":
+                time_ms(every, reps=3, inner=1, warmup=1, graph=True) * 1e3}
+            total = sum(by.values())
+            out[(phase, name)] = dict(sp, device_us=total, by=by)
+            print(f"{phase} write, {name}: {sp['calls']} calls, B "
+                  f"{sp['b'][0]} / {sp['b'][1]} / {sp['b'][2]} (least / "
+                  f"median / most), S {sp['s'][0]} / {sp['s'][1]} / "
+                  f"{sp['s'][2]}, {sp['symbols']} symbols, median bucket "
+                  f"(B, S) = {sp['median']}; summed device time "
+                  f"{total:.1f} us (" + ", ".join(
+                      f"{k[:40]} {v:.1f}" for k, v in by.items()) + ")",
+                  flush=True)
+    for name in WRITE_SIDE:
+        sp = out[("phase 9", name)]
+        args = rec["phase 9"][name][sp["median_call"]]
+        b, s = args[0].shape
+        res = kl._LAUNCH[name](*args)
+        if name == "lossless_stats":
+            nbytes = b * s + 8 * 257 * b
+        else:
+            stored = int(((res[1] + 31) // 32 + 1).sum())
+            nbytes = b * s + 16 * 256 * b + 4 * stored + 8 * b \
+                + 8 * res[2].numel()
+        copies = [args] + [tuple(a.clone() for a in args) for _ in range(
+            -(-2 * L2_BYTES // max(nbytes, 1)) - 1)]
+        it = itertools.cycle(copies)
+        fn = getattr(kl, name)
+        sp.update(ms=time_ms(lambda: fn(*args)),
+                  device_ms=time_ms(lambda: fn(*next(it)), graph=True),
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+        print(f"{name} at phase 9's median bucket (B, S) = ({b}, {s}): "
+              f"kernel {sp['ms'] * 1e3:.1f} us through the wrapper back to "
+              f"back, device {sp['device_ms'] * 1e3:.1f} us (graph replay "
+              f"over {len(copies)} input copies), bound "
+              f"{sp['bound_ms'] * 1e3:.3f} us (bytes, {nbytes / 1e6:.3f} "
+              f"MB)", flush=True)
+        del copies
+    for phase in rec:
+        both = sum(out[(phase, n)]["device_us"] for n in WRITE_SIDE)
+        print(f"{phase} write: the write side's summed device time "
+              f"{both:.1f} us", flush=True)
+    return out
+
+
+def _device_profile(torch, fn) -> dict:
+    """``fn()`` once, warm, then once under torch.profiler: its device
+    activities (kernels, sets, copies) by name, as (count, device us).  A
+    profile that holds no activity at all (the tracer's buffer lost; every
+    call here launches something) is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.key != "Activity Buffer Request"}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        acts = {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.key != "Activity Buffer Request"}
+        if acts:
+            break
+    return acts
+
+
+def _device_activities(torch, fn) -> dict:
+    """The device activities of one call of ``fn``: {name: count}, from a
+    CUDA graph of the call (``kernels.bitplane.device_activities``).  A
+    profile of one short call can lose activities: it showed the stats'
+    kernel without its memset, and once nothing at all."""
+    from repro_torch.kernels import bitplane as bp
+    return bp.device_activities(fn)
 
 
 def read_side(torch, c, what, rows, copied):
@@ -4471,23 +4667,47 @@ def rle_main_path(torch, bp, rf, rt, x_np):
 
 def lossless_phase(torch, bp, rf, rt, x_np, nyx):
     """Phase 21: (a) the lossless kernels against their plain versions at
-    the edge sizes and on real groups, timed there; the forced-RLE main
-    path; (b) the stage walls, kernels against plain, in turns.  Returns
+    the edge sizes and buckets and on real groups, timed there; the
+    forced-RLE main path; (c) the write side over phases 8's and 9's
+    writes; (b) the stage walls, kernels against plain, in turns.  Returns
     the timing rows by group and the forced-RLE path's launches.  ``nyx``:
     phase 8's field."""
     from repro_torch.core import pipeline as pipe
     n, errs = lossless_edges(torch)
-    print(f"{n} lossless cases (S in {LOSSLESS_SIZES}, B 1 and 3, "
-          f"{', '.join(LOSSLESS_CONTENTS)}): every kernel byte-identical to "
-          f"its plain version", flush=True)
+    print(f"{n} lossless cases (S in {LOSSLESS_SIZES}, B 1 and 3; (B, S) in "
+          f"{LOSSLESS_BUCKETS}; {', '.join(LOSSLESS_CONTENTS)}): every "
+          f"kernel byte-identical to its plain version", flush=True)
     rows = {}
     for what, g in main_path_groups(torch, rf, x_np, pipe, nyx).items():
         rows[what] = lossless_timings(torch, lossless_case(torch, g), what)
         _free(torch)
     rle = rle_main_path(torch, bp, rf, rt, x_np)
     _free(torch)
+    write_side(torch, nyx)
+    _free(torch)
     lossless_stage_walls(torch, rf, rt, pipe, x_np, nyx)
     return rows, rle
+
+
+def write_side_main(torch, src) -> int:
+    """``--write-side SRC``: phase 21 (c) alone with SRC's port; prints
+    the card and the summed device times as a JSON line."""
+    import repro_torch
+    from repro_torch.data.fields import gaussian_field
+    from repro_torch.kernels import bitplane as bp
+    where = os.path.dirname(os.path.abspath(repro_torch.__file__))
+    check(where.startswith(os.path.abspath(src)),
+          f"repro_torch imported from {where}, not from {src}")
+    bp.load()
+    card = card_line()
+    print(f"write side of {where} on {card}", flush=True)
+    nyx = gaussian_field(NYX_SHAPE, slope=-1.8, seed=0)
+    out = write_side(torch, nyx)
+    print(json.dumps({"write_side": src, "card": card, "device_us": {
+        f"{p}, {n}": r["device_us"] for (p, n), r in out.items()},
+        "median_device_ms": {n: out[("phase 9", n)]["device_ms"]
+                             for n in WRITE_SIDE}}))
+    return 0
 
 
 def main(argv) -> int:
@@ -4497,11 +4717,19 @@ def main(argv) -> int:
                     help="add phase 6, the torch.profiler pass, and "
                          "profiled passes over qwen2-7b's decode steps and "
                          "a danube training step")
+    ap.add_argument("--write-side", metavar="SRC",
+                    help="run only phase 21 (c), the write side's kernels "
+                         "over phases 8's and 9's writes, with the port "
+                         "under SRC (a tree's src directory)")
     args = ap.parse_args(argv)
+    if args.write_side:
+        sys.path.insert(0, os.path.abspath(args.write_side))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.write_side:
+        return write_side_main(torch, args.write_side)
     from repro_torch.core import refactor as rf
     from repro_torch.core import retrieve as rt
     from repro_torch.core.refactor_fused import piece_sizes

@@ -357,6 +357,7 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
 
     # stage 3: dispatch one pack/scan per (bucket, codec), ONE payload sync
     pend: List[Tuple[str, int, List[int], object]] = []
+    want_bits: Dict[int, int] = {}
     for k, idxs in buckets.items():
         s, dev = k
         st = stacked[k]
@@ -366,6 +367,9 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
         d = [i for i in idxs if methods[i] == "dc"]
 
         def rows_for(sel_idx: List[int]) -> torch.Tensor:
+            if sel_idx == idxs:       # the whole bucket, in order: no gather
+                return torch.from_numpy(rows_host[k]) if k in rows_host \
+                    else st
             sel = [pos[i] for i in sel_idx]
             if k in rows_host:
                 return torch.from_numpy(rows_host[k][np.asarray(sel)])
@@ -376,10 +380,17 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
                 np.stack([books[i][0] for i in h]).astype(np.int64)).to(dev)
             codes_tab = torch.from_numpy(
                 np.stack([books[i][1] for i in h]).astype(np.int64)).to(dev)
+            # each stream's bits, known on the host: only the words up to
+            # the bucket's longest stored stream cross
+            hists = stats_host[k][0]
+            for i in h:
+                want_bits[i] = int(np.dot(hists[pos[i]].astype(np.int64),
+                                          books[i][0].astype(np.int64)))
+            n_words = (max(want_bits[i] for i in h) + 31) // 32 + 1
             STATS.add(huffman_pack_batches=1)
-            pend.append(("huffman", s, h,
-                         _huffman_pack_batch(rows_for(h), lens_tab,
-                                             codes_tab, backend)))
+            words, bits, offs = _huffman_pack_batch(rows_for(h), lens_tab,
+                                                    codes_tab, backend)
+            pend.append(("huffman", s, h, (words[:, :n_words], bits, offs)))
         if r:
             STATS.add(rle_scan_batches=1)
             pend.append(("rle", s, r, _rle_scan_batch(rows_for(r),
@@ -400,6 +411,11 @@ def _encode_buckets(stacked: Dict[tuple, torch.Tensor],
             words_b, bits_b, offs_b = mat
             for j, i in enumerate(idxs):
                 total_bits = int(bits_b[j])
+                if total_bits != want_bits[i]:
+                    raise RuntimeError(
+                        f"huffman_pack gave {total_bits} bits for a group "
+                        f"whose histogram and code lengths give "
+                        f"{want_bits[i]}")
                 n_words = (total_bits + 31) // 32 + 1
                 segs[i] = ll.Segment(
                     "huffman", s,

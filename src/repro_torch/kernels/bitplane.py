@@ -374,3 +374,81 @@ def reset_launches() -> None:
 
 
 reset_launches()
+
+
+# ------------------------------------------------------ device activities --
+# what one call puts on the device, read off a CUDA graph captured from it
+# through the driver API: its kernel, copy and memset nodes (CUgraphNodeType
+# 0, 1 and 2), so that no activity is lost as a profiler's buffer can lose it
+
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_KERNEL_PARAMS_BYTES = 128   # CUDA_KERNEL_NODE_PARAMS_v2 is 72
+_KERNEL_PARAMS_KERN = 56     # its CUkernel's offset
+
+
+def demangle(name: str) -> str:
+    """``ns::name`` of an Itanium-mangled function name (its nested
+    identifiers, without arguments), else ``name``."""
+    if not name.startswith("_Z"):
+        return name
+    i, parts = 3 if name[2:3] == "N" else 2, []
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while j < len(name) and name[j].isdigit():
+            j += 1
+        n = int(name[i:j])
+        parts.append(name[j:j + n])
+        i = j + n
+    return "::".join("(anonymous namespace)" if p.startswith("_GLOBAL__N")
+                     else p for p in parts) or name
+
+
+def _kernel_name(cu: ctypes.CDLL, node: int) -> str:
+    """A kernel node's function name, "kernel" where the driver cannot
+    name it."""
+    params = (ctypes.c_byte * _KERNEL_PARAMS_BYTES)()
+    name = ctypes.c_char_p()
+    if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0:
+        func = ctypes.c_void_p.from_buffer(params, 0).value
+        kern = ctypes.c_void_p.from_buffer(params, _KERNEL_PARAMS_KERN).value
+        for getter, handle in (("cuFuncGetName", func),
+                               ("cuKernelGetName", kern)):
+            if handle and hasattr(cu, getter) and getattr(cu, getter)(
+                    ctypes.byref(name), ctypes.c_void_p(handle)) == 0:
+                return demangle(name.value.decode())
+    return "kernel"
+
+
+def device_activities(fn) -> Dict[str, int]:
+    """The device activities of one call of ``fn``, {name: count}: its
+    kernels by name, its copies ("memcpy") and sets ("memset"), as a CUDA
+    graph captured from the call on the current device holds them.  ``fn``
+    is called once before, uncaptured, and must be capturable.  A wrapper
+    adds to its ``launches`` also for the captured call, which runs
+    nothing."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    if err == 0:
+        err = cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    out: Dict[str, int] = {}
+    kind = ctypes.c_int()
+    for node in nodes[:n.value]:
+        err = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if err != 0:
+            raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {err}")
+        if kind.value in _NODE_KINDS:
+            name = _NODE_KINDS[kind.value]
+            if name == "kernel":
+                name = _kernel_name(cu, node)
+            out[name] = out.get(name, 0) + 1
+    g.reset()
+    return out

@@ -15,8 +15,8 @@
 // Rows.  Every operator takes a bucket: B rows of one length, row b at
 // b * (row length) of a contiguous buffer.  Chunks or tiles of a row go on
 // gridDim.x, rows on gridDim.y, at most kMaxRows rows a launch (the C
-// entry points split larger buckets); rle_expand's blocks take tickets
-// over all rows instead.  A row need not start 16-byte
+// entry points split larger buckets); huffman_pack's and rle_expand's
+// blocks take tickets over all rows instead.  A row need not start 16-byte
 // aligned (its length need not be a multiple of 16): 16-byte loads and
 // stores are taken where the address is so aligned and the bytes lie in
 // the row, bytes one at a time elsewhere.
@@ -29,37 +29,71 @@
 //
 // The row-scan helper (row_scan_kernel) is one block a row over that
 // row's tile totals: the exclusive prefix sums (int64) and the row's
-// total.  The Huffman pack scans its chunks' bit counts with it, the RLE
-// scan its tiles' run counts.
+// total.  The RLE scan scans its tiles' run counts with it.
 //
 // --- lossless_stats --------------------------------------------------------
 //
-// One pass, a block of 256 threads over 16,384 symbols, 16-byte loads.
-// Each warp histograms into its own 256 bins in shared memory; a thread
-// first counts runs of one symbol in registers and adds a run with one
-// shared atomic, since bitplane groups are run-heavy and an all-zero
-// plane would otherwise serialize every warp on bin 0.  The block then
-// adds each non-zero bin into the row with one 64-bit atomic.  A run
+// One pass, a block of 256 threads a tile.  The tile (stats_tile) is
+// 16,384 symbols, halved down to 4,096 while a launch would have fewer
+// than kStatsBlocks (two an SM) blocks, so that a bucket of short rows
+// still fills the card.  A thread issues all of its 16-byte loads (one to
+// four) before it counts.  Counting is bound by instructions a symbol
+// (PERF.md), so a thread takes its symbols a 4-byte word at a time
+// (count_word): run starts by a byte-parallel compare with the word
+// shifted by a byte, and a word of one symbol added at once to a run kept
+// in registers (bitplane groups are run-heavy, and an all-zero plane would
+// otherwise serialize every warp on bin 0); the bytes of any other word go
+// by shared atomics, with no branch, into the warp's 256 bins.  A run
 // break is `_rle_scan`'s: the neighbour differs, or idx % RLE_BREAK == 0;
 // a thread's first symbol takes its left neighbour from the lane before
-// (lane 0 reads it).  Bound: bytes, the row read once.
+// (lane 0 reads it).  The tiles of a row go in thread block clusters of
+// up to 8 (stats_cluster): each block adds its 257 totals into the
+// cluster leader's in distributed shared memory (the leader's zeroed
+// before, behind the first half of a split cluster barrier).  A row of one
+// cluster is stored from there, with no global atomic and no zeroing; a
+// row of more adds each cluster's totals into the row's zeroed sums with
+// one 64-bit atomic a bin, and the last cluster to arrive (a counter
+// beside the sums) copies them out.  One launch a call, and one memset of
+// the sums where a row has more than one cluster.  Bound: bytes, the row
+// read once.
 //
 // --- huffman_pack -----------------------------------------------------------
 //
-// Three passes over chunks of CHUNK = 4096 symbols, a block of 256 threads
-// (16 symbols each) a chunk:
-//   1. huff_bits_kernel sums the chunk's code lengths;
-//   2. the row-scan helper turns the chunk totals into each chunk's first
-//      bit (chunk_offs, the exclusive bit offset of every CHUNK-th symbol)
-//      and the row's total_bits;
-//   3. huff_pack_kernel scans the chunk's lengths over the block and ORs
-//      each code's one or two words into a shared tile of the words the
-//      chunk's bits touch (at most 2,049), then stores the interior words
-//      and atomicOr's its first and last word, which it may share with its
-//      neighbours, into the output that the wrapper zeroed.
-// Bound: bytes, the symbols read once and the (B, S * 16 / 32 + 2) words
-// written once; the passes read the symbols twice and the zeroing writes
-// the words before the pack writes the stream's.
+// One pass with a decoupled look-back, plus the zeroing of its status
+// words (two launches a call).  A block of 256 threads takes a ticket for
+// a group of consecutive chunks (CHUNK = 4096 symbols) of one row, in
+// order: one chunk, or (pack_group) two or four where the launch would
+// otherwise hold more tickets than the card holds blocks at once, so that
+// the blocks start together and each look-back finds its predecessors'
+// words already published.  It reads its symbols once, 16 a thread and
+// chunk in one 16-byte load, each symbol's code and length from a table of
+// one word a symbol (code_entry: codes of at most MAX_CODE_LEN = 16 bits,
+// a codebook's).  It scans each chunk's code lengths over the block and
+// publishes the group's bits (flag and sum in one 64-bit status word a
+// ticket, as rle_expand does; the row's first ticket, whose prefix is 0,
+// an inclusive sum at once).  While its predecessors publish theirs, each
+// thread turns its 16 codes a chunk into words in registers, counted from
+// the group's first bit (pack_codes: a code of at most 16 bits fills at
+// most one word, a shift and a funnel shift a code), and ORs them into a
+// zeroed shared tile of the group's words (neighbouring threads may share
+// a word).  It then looks back to the group's first bit o: chunk_offs, and
+// for the row's last group o + its bits, total_bits; the tile's words
+// leave shifted to bit o by one funnel shift a word.  Word ownership: a
+// group stores the words [o / 32, o' / 32), o' its successor's first bit
+// (the row's last group on to its last partial word), so every stream
+// word is stored once, by the group whose bits start in it or fill it.
+// That word's bits before o belong to earlier groups: warp 0 rebuilds them
+// from the symbols before the group (32 at a time, read back until their
+// codes cover the word's head, fewer than 32 bits).  The words leave by
+// 16-byte stores.  The cap's words past the stream are zero: with codes
+// of at most 16 bits, no stream word lies at or past T = ceil((o + the
+// group's bits + 16 * the row's symbols after the group) / 32), and T
+// falls group by group to the stream's end, so a group stores zeros in
+// [its T, the T of the group before) (the row's first group: to the cap)
+// without waiting on any later ticket.  Bound: bytes, the symbols read
+// once and the stored words (the stream's) written once; a byte-identical
+// output also writes the cap's zero words, the floor (B, S * 16 / 32 + 2)
+// words.
 //
 // --- huffman_decode ----------------------------------------------------------
 //
@@ -140,9 +174,9 @@
 // mbarrier, turns them so that a thread reads its own 16 runs without
 // bank conflicts, scans the lengths, publishes its tile's sum (flag and
 // sum in one 64-bit status word a tile), and sums its predecessors' words
-// back to the nearest inclusive one, 256 words a step: the tile's first
-// byte.  It then writes its bytes [prefix, prefix + sum) of [0, n) (the
-// row's last tile on to n):
+// back to the nearest inclusive one (look_back, 1,024 words a step): the
+// tile's first byte.  It then writes its bytes [prefix, prefix + sum) of
+// [0, n) (the row's last tile on to n):
 //   - few bytes (a tile's whole range fits in shared memory): each thread
 //     spells out its own runs there, aligned as the output, and the block
 //     stores whole 16-byte granules;
@@ -161,13 +195,17 @@
 // (PERF.md), so a row whose bytes sit in a few tiles waits on those.
 //
 // Launches: every kernel runs on the caller's stream and allocates
-// nothing; the wrapper allocates the outputs and the scratch (the tile
-// totals and bases, the decode's primary tables, rle_expand's status
-// words), declared in kernels/bitplane.py WORKSPACE.  Each C entry point
-// returns the first non-zero error of its launches.
+// nothing; the wrapper allocates the outputs and the scratch (the stats'
+// cluster partials and counters, the RLE tile totals and bases, the
+// decode's primary tables, the pack's and rle_expand's status words),
+// declared in kernels/bitplane.py WORKSPACE.  Each C entry point returns
+// the first non-zero error of its launches.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -179,10 +217,18 @@ constexpr long long kMaxRows = 65535;   // gridDim.y
 
 constexpr int kScanThreads = 1024;
 constexpr int kStatsThreads = 256;
-constexpr int kStatsSegs = 4;           // 16-symbol segments a thread
-constexpr int kStatsTile = kStatsThreads * 16 * kStatsSegs;
+constexpr int kStatsMaxSegs = 4;        // 16-symbol segments a thread, at most
+constexpr int kStatsMaxTile = kStatsThreads * 16 * kStatsMaxSegs;
+constexpr int kStatsMinTile = kStatsThreads * 16;
+constexpr long long kStatsBlocks = 264; // a launch's blocks, at least: 2 an SM
+constexpr int kStatsMinBlocks = 6;      // stats blocks an SM, at least
+constexpr int kMaxCluster = 8;          // a stats cluster's blocks, at most
 constexpr int kPackThreads = 256;       // 16 symbols a thread: a chunk
-constexpr int kTileWords = kChunk * 16 / 32 + 2;
+constexpr int kPackMinBlocks = 6;       // pack blocks an SM, at least
+constexpr int kPackGroup = 4;           // chunks a pack ticket, at most
+constexpr long long kPackBlocks = 132 * kPackMinBlocks;  // the card's, at once
+// a ticket's words from its first bit: at most 2,048 a chunk, and one
+constexpr int kPackWords = kPackGroup * kChunk * 16 / 32 + 8;
 constexpr int kRleThreads = 1024;       // 32 symbols a thread: a tile
 constexpr int kPrimBits = 11;           // the decode's primary table
 constexpr int kPrim = 1 << kPrimBits;
@@ -196,6 +242,8 @@ constexpr int kLaneBits = 64;           // a decode lane's span, at least
 constexpr int kTableRound = 4;          // a decode's entry tables from here
 constexpr int kExpThreads = 256;        // 16 runs or bytes a thread
 constexpr int kExpTile = kExpThreads * 16;
+constexpr int kLookThreads = 256;       // a look-back's block
+constexpr int kLookWidth = 4;           // words a look-back thread reads
 constexpr long long kSliceBytes = 16384;   // an expand block's bytes, about
 constexpr int kMaxSlices = 256;
 // an expand tile's status word: the flag in the top two bits, a sum in
@@ -204,6 +252,8 @@ constexpr unsigned long long kAgg = 1ull << 62, kInc = 2ull << 62;
 constexpr unsigned long long kValBits = (1ull << 62) - 1;
 
 static_assert(kPackThreads * 16 == kChunk, "a pack block is a chunk");
+static_assert(kPackThreads == kLookThreads && kExpThreads == kLookThreads,
+              "the look-backs' blocks");
 static_assert(kRleThreads * 32 == kRleBreak, "an RLE block is a tile");
 static_assert(kPrim % 256 == 0, "a primary block is 256 entries");
 static_assert(16 * kMaxLanes <= kChunk, "a decode's entry exits fit its tile");
@@ -383,154 +433,516 @@ row_scan_kernel(const long long* __restrict__ in, long long* __restrict__ out,
   if (total != nullptr && threadIdx.x == 0) total[row] = carry;
 }
 
+// ------------------------------------------------------- the look-back --
+
+__device__ __forceinline__ unsigned long long status_load(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void status_store(unsigned long long* p,
+                                             unsigned long long flag,
+                                             long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) =
+      flag | (static_cast<unsigned long long>(v) & kValBits);
+}
+
+__device__ __forceinline__ long long status_value(unsigned long long s) {
+  return static_cast<long long>(s << 2) >> 2;
+}
+
+// The status word at `p` once its flag is at least `flag`; a wait of ~8 s
+// (2^34 cycles) traps.  Every word waited on is a lower ticket's, whose
+// block has started and waits on no higher one.
+__device__ __forceinline__ unsigned long long status_wait(
+    const unsigned long long* p, unsigned long long flag) {
+  const long long t0 = clock64();
+  unsigned long long s;
+  while (((s = status_load(p)) & ~kValBits) < flag) {
+    if (clock64() - t0 > (1ll << 34)) __trap();
+    __nanosleep(64);
+  }
+  return s;
+}
+
+// Tile t's sum, published for its successors' look-backs: an aggregate,
+// or for the row's first tile, whose prefix is 0, at once an inclusive
+// sum, where every look-back of the row can end.
+__device__ __forceinline__ void publish_sum(unsigned long long* srow,
+                                            long long t, long long sum) {
+  if (threadIdx.x == 0) status_store(srow + t, t > 0 ? kAgg : kInc, sum);
+}
+
+// Tile t of a row whose status words are `srow` (tiles in ticket order),
+// after publish_sum: sums its predecessors' words back to the nearest
+// inclusive one and publishes its inclusive sum; returns its exclusive
+// prefix, the same in every thread.  A step reads kLookThreads *
+// kLookWidth words at once: thread i the words at distances i + 1 +
+// kLookThreads * j, so that only the nearest row, one word a thread, can
+// still wait on a tile's first status.  Every thread of the block
+// (kLookThreads) calls it, right after a block_exclusive_scan on `scratch`
+// if need be (a barrier comes before any write); `scratch` and `first_s`
+// (kLookWidth * kLookThreads / 32 ints, shared) are free again when it
+// returns.
+__device__ __forceinline__ long long look_back(unsigned long long* srow,
+                                               long long t,
+                                               long long tile_sum,
+                                               long long* scratch,
+                                               int* first_s) {
+  constexpr int kWarps = kLookThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  long long acc = 0;
+  for (long long look = t - 1 - tid; look + tid >= 0;
+       look -= kLookThreads * kLookWidth) {
+    // before the row's first tile: an inclusive 0
+    unsigned long long sv[kLookWidth];
+#pragma unroll
+    for (int j = 0; j < kLookWidth; ++j) {
+      const long long tj = look - kLookThreads * j;
+      sv[j] = tj >= 0 ? __ldcg(srow + tj) : kInc;   // pipelined
+    }
+#pragma unroll
+    for (int j = 0; j < kLookWidth; ++j) {
+      const long long tj = look - kLookThreads * j;
+      if ((sv[j] & ~kValBits) < kAgg) sv[j] = status_wait(srow + tj, kAgg);
+      const unsigned inc = __ballot_sync(kFull,
+                                         (sv[j] & ~kValBits) == kInc);
+      if (lane == 0) {
+        first_s[j * kWarps + warp] = inc ? tid + __ffs(inc) - 1
+                                         : kLookThreads;
+      }
+    }
+    __syncthreads();
+    // the nearest inclusive word: its row, then its thread
+    int row = kLookWidth, nearest = kLookThreads;
+    for (int j = 0; j < kLookWidth && row == kLookWidth; ++j) {
+      for (int w = 0; w < kWarps; ++w) {
+        nearest = first_s[j * kWarps + w] < nearest
+            ? first_s[j * kWarps + w] : nearest;
+      }
+      if (nearest < kLookThreads) row = j;
+    }
+    long long part = 0;
+#pragma unroll
+    for (int j = 0; j < kLookWidth; ++j) {
+      if (j < row || (j == row && tid <= nearest)) {
+        part += status_value(sv[j]);
+      }
+    }
+    long long sum;
+    block_exclusive_scan(part, scratch, sum);
+    acc += sum;
+    __syncthreads();            // first_s and scratch free again
+    if (row < kLookWidth) break;
+  }
+  if (tid == 0 && t > 0) status_store(srow + t, kInc, acc + tile_sum);
+  return acc;
+}
+
 // ------------------------------------------------------------- stats --
 
-__global__ void __launch_bounds__(kStatsThreads)
-stats_kernel(const uint8_t* __restrict__ syms, long long s,
-             unsigned long long* __restrict__ hist,
-             unsigned long long* __restrict__ nruns) {
-  constexpr int kWarps = kStatsThreads / 32;
-  __shared__ uint32_t wh[kWarps][256];
-  __shared__ uint32_t brk_total;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < kWarps * 256; i += kStatsThreads) {
-    (&wh[0][0])[i] = 0;
+// The cluster's barrier in two halves: an arrival (releasing this thread's
+// shared-memory writes to the cluster), then a wait for every thread of the
+// cluster's blocks to have arrived.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// a stats block's symbols at (rows, s): 16,384, halved while the launch
+// would have fewer than kStatsBlocks blocks, 4,096 at least (mirrored by
+// kernels/lossless.py stats_tiling)
+inline int stats_tile(long long rows, long long s) {
+  int tile = kStatsMaxTile;
+  while (tile > kStatsMinTile
+         && rows * ((s + tile - 1) / tile) < kStatsBlocks) {
+    tile /= 2;
   }
-  if (threadIdx.x == 0) brk_total = 0;
-  __syncthreads();
+  return tile;
+}
+
+// a cluster's blocks for a row of `tiles`: its tiles rounded up to a power
+// of two, at most kMaxCluster
+inline int stats_cluster(long long tiles) {
+  int k = 1;
+  while (k < kMaxCluster && k < tiles) k *= 2;
+  return k;
+}
+
+// bit 7 of each byte of x set where that byte is not zero
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
+}
+
+// A thread's word w of symbols (nb of them in the row, all four where
+// kFull) after the symbol pv: its run starts added to `breaks` (forced:
+// a break at the word's first symbol), its symbols to the warp's `bins`:
+// a word of one symbol to the run (run_sym, run_len) kept in registers,
+// which first moves to that symbol, any other word byte by byte, by
+// shared atomics.
+template <bool kFull>
+__device__ __forceinline__ void count_word(uint32_t w, int nb, uint32_t pv,
+                                           bool forced, uint32_t* bins,
+                                           uint32_t& run_sym,
+                                           uint32_t& run_len,
+                                           uint32_t& breaks) {
+  uint32_t ne = nonzero_bytes(w ^ ((w << 8) | pv));
+  if (forced) ne |= 0x80u;
+  if (!kFull) ne &= nb >= 4 ? 0xFFFFFFFFu : (1u << (8 * nb)) - 1;
+  breaks += __popc(ne);
+  const uint32_t c0 = w & 0xFFu;
+  if ((kFull || nb >= 4) && c0 * 0x01010101u == w) {
+    if (c0 != run_sym) {
+      if (run_len != 0) atomicAdd(bins + run_sym, run_len);
+      run_sym = c0;
+      run_len = 0;
+    }
+    run_len += 4;
+  } else {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if (kFull || m < nb) atomicAdd(bins + ((w >> (8 * m)) & 0xFFu), 1u);
+    }
+  }
+}
+
+// A block of a cluster of k (gridDim.x = clusters * k, blocks past the
+// row's tiles count nothing): the histogram and run starts of its tile of
+// row blockIdx.y.  sums: (rows, 258) uint64, zeroed, where clusters > 1:
+// each row's 257 totals, then its count of arrived clusters.
+__global__ void __launch_bounds__(kStatsThreads, kStatsMinBlocks)
+stats_kernel(const uint8_t* __restrict__ syms, long long s, int tile,
+             int clusters, unsigned long long* __restrict__ hist,
+             unsigned long long* __restrict__ nruns,
+             unsigned long long* __restrict__ sums) {
+  constexpr int kWarps = kStatsThreads / 32;
+  __shared__ __align__(16) uint32_t wh[kWarps * 256];
+  // the cluster's bins, then its run starts (the leader's, added to by
+  // every block of the cluster)
+  __shared__ uint32_t acc[257];
+  __shared__ uint32_t brk_w[kWarps];
+  __shared__ int last_s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long b = blockIdx.y;
   const uint8_t* row = syms + b * s;
-  const long long tile0 = static_cast<long long>(blockIdx.x) * kStatsTile;
-  uint32_t run_sym = 0, run_len = 0, breaks = 0;
-  for (int it = 0; it < kStatsSegs; ++it) {
-    const long long q = tile0 + (static_cast<long long>(it) * kStatsThreads
-                                 + threadIdx.x) * 16;
-    const Sym16 v = load16(row, s, q);
-    uint32_t prev = __shfl_up_sync(kFull, sym_at(v, 15), 1);
-    if (lane == 0) prev = (q > 0 && q <= s) ? __ldg(row + q - 1) : 256u;
-    const int cnt = seg_count(s, q);
+  const int segs = tile / (kStatsThreads * 16);
+  const long long tile0 = static_cast<long long>(blockIdx.x) * tile;
+  // every load of the thread before any count
+  Sym16 v[kStatsMaxSegs];
+  uint32_t left[kStatsMaxSegs];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      if (k < cnt) {
-        const uint32_t c = sym_at(v, k);
-        breaks += (c != prev)
-                  || (k == 0 && (q & (kRleBreak - 1)) == 0);
-        if (c == run_sym && run_len != 0) {
-          ++run_len;
-        } else {
-          if (run_len != 0) atomicAdd(&wh[warp][run_sym], run_len);
-          run_sym = c;
-          run_len = 1;
+  for (int it = 0; it < kStatsMaxSegs; ++it) {
+    if (it < segs) {
+      const long long q = tile0 + (static_cast<long long>(it) * kStatsThreads
+                                   + threadIdx.x) * 16;
+      v[it] = load16(row, s, q);
+      left[it] = (lane == 0 && q > 0 && q <= s) ? __ldg(row + q - 1) : 0u;
+    }
+  }
+  for (int i = threadIdx.x; i < kWarps * 256 / 4; i += kStatsThreads) {
+    reinterpret_cast<uint4*>(wh)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = threadIdx.x; i < 257; i += kStatsThreads) acc[i] = 0;
+  __syncthreads();
+  cluster_arrive_release();     // this block's acc is zero
+  uint32_t* bins = wh + warp * 256;
+  uint32_t run_sym = 0, run_len = 0, breaks = 0;
+#pragma unroll
+  for (int it = 0; it < kStatsMaxSegs; ++it) {
+    if (it < segs) {
+      const long long q = tile0 + (static_cast<long long>(it) * kStatsThreads
+                                   + threadIdx.x) * 16;
+      uint32_t pv = __shfl_up_sync(kFull, v[it].w[3] >> 24, 1);
+      if (lane == 0) pv = left[it];
+      const bool forced = (q & (kRleBreak - 1)) == 0;
+      const int cnt = seg_count(s, q);
+      if (cnt == 16) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          count_word<true>(v[it].w[j], 4, j ? v[it].w[j - 1] >> 24 : pv,
+                           j == 0 && forced, bins, run_sym, run_len, breaks);
         }
-        prev = c;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * j < cnt) {
+            count_word<false>(v[it].w[j], cnt - 4 * j,
+                              j ? v[it].w[j - 1] >> 24 : pv,
+                              j == 0 && forced, bins, run_sym, run_len,
+                              breaks);
+          }
+        }
       }
     }
   }
-  if (run_len != 0) atomicAdd(&wh[warp][run_sym], run_len);
+  if (run_len != 0) atomicAdd(bins + run_sym, run_len);
   breaks = __reduce_add_sync(kFull, breaks);
-  if (lane == 0 && breaks != 0) atomicAdd(&brk_total, breaks);
+  if (lane == 0) brk_w[warp] = breaks;
   __syncthreads();
-  for (int bin = threadIdx.x; bin < 256; bin += kStatsThreads) {
-    uint32_t t = 0;
+  // the block's totals into the leader's acc (kStatsThreads == 256: a
+  // thread a bin), once every block of the cluster has zeroed its own
+  uint32_t t = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += wh[w][bin];
-    if (t != 0) atomicAdd(hist + b * 256 + bin,
-                          static_cast<unsigned long long>(t));
+  for (int w = 0; w < kWarps; ++w) t += wh[w * 256 + threadIdx.x];
+  cluster_wait();
+  uint32_t* lacc = cluster.map_shared_rank(acc, 0);
+  if (t != 0) atomicAdd(lacc + threadIdx.x, t);
+  if (threadIdx.x == 0) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) x += brk_w[w];
+    if (x != 0) atomicAdd(lacc + 256, x);
   }
-  if (threadIdx.x == 0 && brk_total != 0) {
-    atomicAdd(nruns + b, static_cast<unsigned long long>(brk_total));
+  cluster.sync();               // every block's adds are in
+  if (cluster.block_rank() != 0) return;
+  unsigned long long* srow = sums + b * 258;
+  for (int i = threadIdx.x; i < 257; i += kStatsThreads) {
+    const uint32_t x = acc[i];
+    if (clusters > 1) {
+      if (x != 0) atomicAdd(srow + i, static_cast<unsigned long long>(x));
+    } else if (i < 256) {
+      hist[b * 256 + i] = x;
+    } else {
+      nruns[b] = x;
+    }
+  }
+  if (clusters == 1) return;
+  // the row's last cluster to arrive copies its sums out
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last_s = atomicAdd(srow + 257, 1ull)
+             == static_cast<unsigned long long>(clusters - 1);
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < 257; i += kStatsThreads) {
+    const unsigned long long x = __ldcg(srow + i);
+    if (i < 256) {
+      hist[b * 256 + i] = x;
+    } else {
+      nruns[b] = x;
+    }
   }
 }
 
 // ------------------------------------------------------ huffman pack --
 
-__global__ void __launch_bounds__(kPackThreads)
-huff_bits_kernel(const uint8_t* __restrict__ syms, long long s,
-                 const long long* __restrict__ lens_tab,
-                 long long* __restrict__ chunk_bits, int chunks) {
-  __shared__ long long len_s[256];
-  __shared__ long long scratch[32];
-  const long long b = blockIdx.y;
-  len_s[threadIdx.x] = lens_tab[b * 256 + threadIdx.x];
-  __syncthreads();
-  const long long q = static_cast<long long>(blockIdx.x) * kChunk
-                      + threadIdx.x * 16;
-  const Sym16 v = load16(syms + b * s, s, q);
-  const int cnt = seg_count(s, q);
-  long long bits = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    if (k < cnt) bits += len_s[sym_at(v, k)];
+// Words [lo, hi) of the row `wrow`, word w being word(w): whole 16-byte
+// granules by one store, the edges word by word.
+template <typename F>
+__device__ __forceinline__ void store_words(uint32_t* wrow, long long lo,
+                                            long long hi, F word) {
+  if (hi <= lo) return;
+  const long long a = (reinterpret_cast<uintptr_t>(wrow) >> 2) & 3;
+  const long long g0 = ((lo + a) & ~3LL) - a;   // lo's granule
+  const long long granules = (hi - g0 + 3) >> 2;
+  for (long long gi = threadIdx.x; gi < granules; gi += blockDim.x) {
+    const long long w = g0 + 4 * gi;
+    if (w >= lo && w + 4 <= hi) {
+      *reinterpret_cast<uint4*>(wrow + w) =
+          make_uint4(word(w), word(w + 1), word(w + 2), word(w + 3));
+    } else {
+      for (long long x = w < lo ? lo : w; x < w + 4 && x < hi; ++x) {
+        wrow[x] = word(x);
+      }
+    }
   }
-  long long total;
-  block_exclusive_scan(bits, scratch, total);
-  if (threadIdx.x == 0) chunk_bits[b * chunks + blockIdx.x] = total;
 }
 
-__global__ void __launch_bounds__(kPackThreads)
+// A symbol's code and length in one word: the code MSB-aligned, the length
+// in the low 5 bits (a code of at most 16 bits leaves its low 16 free).  A
+// length of 0, or past MAX_CODE_LEN (16, no codebook's), places no bit
+// and counts as 0.
+__device__ __forceinline__ uint32_t code_entry(long long len,
+                                               long long code) {
+  return len > 0 && len <= 16
+      ? static_cast<uint32_t>(code) << (32 - len) | static_cast<uint32_t>(len)
+      : 0u;
+}
+
+// A thread's cnt codes (all 16 where kFull) of the symbols v into the
+// zeroed tile from bit p: cur is tile word t, its first nacc bits placed;
+// a code of at most 16 bits fills at most one word, which is ORed in (it
+// may share its bits with neighbouring threads), with no branch.
+template <bool kFull>
+__device__ __forceinline__ void pack_codes(const Sym16& v, int cnt, int p,
+                                           const uint32_t* code_s,
+                                           uint32_t* tile) {
+  int t = p >> 5, nacc = p & 31;
+  uint32_t cur = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t e = kFull || k < cnt ? code_s[sym_at(v, k)] : 0u;
+    const uint32_t msb = e & ~31u;
+    cur |= msb >> nacc;
+    const uint32_t spill = __funnelshift_r(0u, msb, nacc);
+    nacc += static_cast<int>(e & 31u);
+    const bool full = nacc >= 32;
+    if (full) atomicOr(tile + t, cur);
+    cur = full ? spill : cur;
+    nacc -= full ? 32 : 0;
+    t += full;
+  }
+  if (cur != 0) atomicOr(tile + t, cur);
+}
+
+// chunks a pack ticket: 1, doubled up to kPackGroup while the launch would
+// have more tickets than the card holds pack blocks at once (mirrored by
+// kernels/lossless.py pack_group)
+inline int pack_group(long long rows, long long chunks) {
+  int g = 1;
+  while (g < kPackGroup && rows * ((chunks + g - 1) / g) > kPackBlocks) {
+    g *= 2;
+  }
+  return g;
+}
+
+// A block a ticket: `group` consecutive chunks of one row (the row's last
+// ticket may have fewer), tickets in order over (row, group of chunks).
+__global__ void __launch_bounds__(kPackThreads, kPackMinBlocks)
 huff_pack_kernel(const uint8_t* __restrict__ syms, long long s,
                  const long long* __restrict__ lens_tab,
-                 const long long* __restrict__ codes_tab,
-                 const long long* __restrict__ chunk_offs, int chunks,
+                 const long long* __restrict__ codes_tab, int chunks,
+                 int group, int groups, long long tickets,
+                 unsigned long long* __restrict__ status,
+                 unsigned long long* __restrict__ ticket,
+                 long long* __restrict__ chunk_offs,
+                 long long* __restrict__ total_bits,
                  uint32_t* __restrict__ words, long long cap) {
-  __shared__ uint32_t tile[kTileWords];
-  __shared__ long long len_s[256];
-  __shared__ uint32_t code_s[256];
+  __shared__ __align__(16) uint32_t tile[kPackWords];
+  __shared__ uint32_t code_s[256];   // a symbol's code_entry
+  __shared__ int iscratch[32];
   __shared__ long long scratch[32];
-  const long long b = blockIdx.y;
-  len_s[threadIdx.x] = lens_tab[b * 256 + threadIdx.x];
-  code_s[threadIdx.x] = static_cast<uint32_t>(codes_tab[b * 256
-                                                        + threadIdx.x]);
-  for (int i = threadIdx.x; i < kTileWords; i += kPackThreads) tile[i] = 0;
+  __shared__ int first_s[kLookWidth * kLookThreads / 32];
+  __shared__ long long ticket_s;
+  __shared__ uint32_t head_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) ticket_s = static_cast<long long>(atomicAdd(ticket, 1ull));
   __syncthreads();
-  const long long q = static_cast<long long>(blockIdx.x) * kChunk
-                      + threadIdx.x * 16;
-  const Sym16 v = load16(syms + b * s, s, q);
-  const int cnt = seg_count(s, q);
-  long long bits = 0;
+  const long long tk = ticket_s;
+  if (tk >= tickets) return;
+  const int gi = static_cast<int>(tk % groups);
+  const long long b = tk / groups;
+  const int c0 = gi * group;
+  const int nc = chunks - c0 < group ? chunks - c0 : group;
+  const uint8_t* row = syms + b * s;
+  const long long first = static_cast<long long>(c0) * kChunk;
+  // chunk g's symbols tid * 16 .. of the group, one 16-byte load each
+  Sym16 v[kPackGroup];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    if (k < cnt) bits += len_s[sym_at(v, k)];
+  for (int g = 0; g < kPackGroup; ++g) {
+    if (g < nc) v[g] = load16(row, s, first + g * kChunk + tid * 16);
   }
-  long long total;
-  const long long ex = block_exclusive_scan(bits, scratch, total);
-  const long long o = chunk_offs[b * chunks + blockIdx.x];
-  const long long f = o >> 5;
-  long long pos = o + ex;
+  // warp 0: the 32 symbols before the group, for its head word
+  const long long hq = first - 32 + lane;
+  uint32_t hsym = (warp == 0 && hq >= 0) ? __ldg(row + hq) : 0u;
+  code_s[tid] = code_entry(lens_tab[b * 256 + tid],
+                           codes_tab[b * 256 + tid]);
+  for (int i = tid; i < (nc * kChunk / 2 + 8) / 4; i += kPackThreads) {
+    reinterpret_cast<uint4*>(tile)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  // each chunk's lengths scanned over the block: the thread's first bit
+  // in the chunk, and the chunk's first bit in the group
+  int ex[kPackGroup], sub[kPackGroup];
+  int tot = 0;
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    if (k < cnt) {
-      const uint32_t c = sym_at(v, k);
-      const long long len = len_s[c];
-      // a length of 0 places no bit; one above 32 is no codebook's (the
-      // plain version's shifts are undefined there) and places none
-      if (len > 0 && len <= 32) {
-        const uint32_t msb = code_s[c] << (32 - len);
-        const uint32_t sh = static_cast<uint32_t>(pos) & 31u;
-        const long long t = (pos >> 5) - f;
-        if (t >= 0 && t < kTileWords) atomicOr(&tile[t], msb >> sh);
-        if (sh != 0 && t + 1 >= 0 && t + 1 < kTileWords) {
-          const uint32_t spill = msb << (32 - sh);
-          if (spill != 0) atomicOr(&tile[t + 1], spill);
-        }
+  for (int g = 0; g < kPackGroup; ++g) {
+    if (g < nc) {
+      const int cnt = seg_count(s, first + g * kChunk + tid * 16);
+      int bits = 0;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        if (k < cnt) bits += static_cast<int>(code_s[sym_at(v[g], k)] & 31u);
       }
-      pos += len;
+      int chunk_bits;
+      ex[g] = block_exclusive_scan(bits, iscratch, chunk_bits);
+      sub[g] = tot;
+      tot += chunk_bits;
+      __syncthreads();          // iscratch free again
     }
   }
-  __syncthreads();
-  if (total <= 0) return;
-  const long long nw = ((o + total - 1) >> 5) - f + 1;
-  uint32_t* row = words + b * cap;
-  for (long long t = threadIdx.x; t < nw && t < kTileWords;
-       t += kPackThreads) {
-    const long long w = f + t;
-    if (w < 0 || w >= cap) continue;
-    const uint32_t x = tile[t];
-    if (t == 0 || t == nw - 1) {
-      if (x != 0) atomicOr(row + w, x);
-    } else {
-      row[w] = x;
+  unsigned long long* srow = status + b * groups;
+  publish_sum(srow, gi, tot);
+  // the codes into the tile's words, from the group's first bit, while
+  // the predecessors publish theirs
+#pragma unroll
+  for (int g = 0; g < kPackGroup; ++g) {
+    if (g < nc) {
+      const int cnt = seg_count(s, first + g * kChunk + tid * 16);
+      if (cnt == 16) {
+        pack_codes<true>(v[g], 16, sub[g] + ex[g], code_s, tile);
+      } else {
+        pack_codes<false>(v[g], cnt, sub[g] + ex[g], code_s, tile);
+      }
     }
+  }
+  const long long o = look_back(srow, gi, tot, scratch, first_s);
+  const long long f = o >> 5;   // the group's first word
+  const int sh = static_cast<int>(o & 31);
+  if (warp == 0 && sh != 0) {
+    // word f's bits before o, from the codes of the symbols before the
+    // group: 32 symbols a step, back until they cover the word's head
+    const long long lo = f << 5;
+    long long end = o;          // the bit after the window's codes
+    long long i0 = first - 32;  // the window's first symbol
+    uint32_t head = 0;
+    while (true) {
+      const uint32_t e = i0 + lane >= 0 ? code_s[hsym] : 0u;
+      const int ln = static_cast<int>(e & 31u);
+      const uint32_t m = e & ~31u;
+      int suf = ln;             // this and the later lanes' lengths
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_down_sync(kFull, suf, d);
+        if (lane + d < 32) suf += y;
+      }
+      const long long start = end - suf;   // the code's first bit
+      if (m != 0 && start + ln > lo && start < lo + 32) {
+        const long long d = start - lo;
+        head |= d >= 0 ? m >> d : m << (-d);
+      }
+      end -= __shfl_sync(kFull, suf, 0);
+      i0 -= 32;
+      if (end <= lo || i0 + 32 <= 0) break;
+      hsym = i0 + lane >= 0 ? __ldg(row + i0 + lane) : 0u;
+    }
+    head = __reduce_or_sync(kFull, head);
+    if (lane == 0) head_s = head;
+  }
+  __syncthreads();
+  const bool last = gi + 1 == groups;
+  uint32_t* wrow = words + b * cap;
+  // the stream words the group owns, from its first word to the word its
+  // successor starts in (the row's last group: to its last partial word):
+  // the tile's words shifted to bit o, the first after the head's bits
+  long long e = last ? (o + tot + 31) >> 5 : (o + tot) >> 5;
+  if (e > cap) e = cap;
+  // the bits before o, in the low sh bits: the word before tile[0]
+  const uint32_t head = sh ? head_s >> (32 - sh) : 0u;
+  store_words(wrow, f, e, [&](long long w) {
+    const int i = static_cast<int>(w - f);
+    return __funnelshift_r(tile[i], i ? tile[i - 1] : head, sh);
+  });
+  // the zeros in [T, the T of the group before) (module note)
+  const long long after = s - first - static_cast<long long>(nc) * kChunk;
+  long long t_lo = (o + tot + 16 * (after > 0 ? after : 0) + 31) >> 5;
+  long long t_hi = gi == 0 ? cap : (o + 16 * (s - first) + 31) >> 5;
+  t_lo = t_lo < cap ? t_lo : cap;
+  t_hi = t_hi < cap ? t_hi : cap;
+  store_words(wrow, t_lo, t_hi, [](long long) { return 0u; });
+  if (tid == 0) {
+#pragma unroll
+    for (int g = 0; g < kPackGroup; ++g) {
+      if (g < nc) chunk_offs[b * chunks + c0 + g] = o + sub[g];
+    }
+    if (last) total_bits[b] = o + tot;
   }
 }
 
@@ -972,36 +1384,6 @@ rle_emit_kernel(const uint8_t* __restrict__ syms, long long s,
 
 // --------------------------------------------------------- rle expand --
 
-__device__ __forceinline__ unsigned long long status_load(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-__device__ __forceinline__ void status_store(unsigned long long* p,
-                                             unsigned long long flag,
-                                             long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(p) =
-      flag | (static_cast<unsigned long long>(v) & kValBits);
-}
-
-__device__ __forceinline__ long long status_value(unsigned long long s) {
-  return static_cast<long long>(s << 2) >> 2;
-}
-
-// The status word at `p` once its flag is at least `flag`; a wait of ~8 s
-// (2^34 cycles) traps.  Every word waited on is a lower ticket's, whose
-// block has started and waits on no higher one.
-__device__ __forceinline__ unsigned long long status_wait(
-    const unsigned long long* p, unsigned long long flag) {
-  const long long t0 = clock64();
-  unsigned long long s;
-  while (((s = status_load(p)) & ~kValBits) < flag) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-    __nanosleep(64);
-  }
-  return s;
-}
-
 // A tile's run j in shared memory where a thread reads its own 16 runs
 // (j = 16 t + m) a step at a time: at [m * stride + t], so that a warp's
 // threads touch consecutive entries at each step; `stride` 257 for the
@@ -1067,10 +1449,10 @@ rle_expand_kernel(const uint8_t* __restrict__ values,
   __shared__ __align__(16) uint8_t vals_s[kExpTile + 16];
   __shared__ uint8_t vals_c[16 * 260];
   __shared__ long long scratch[32];
-  __shared__ int first_s[kExpThreads / 32];
+  __shared__ int first_s[kLookWidth * kLookThreads / 32];
   __shared__ long long ticket_s, prefix_s;
   __shared__ __align__(8) uint64_t bar;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   if (tid == 0) {
     ticket_s = static_cast<long long>(atomicAdd(ticket, 1ull));
     mbar_init(&bar);
@@ -1118,32 +1500,10 @@ rle_expand_kernel(const uint8_t* __restrict__ values,
   long long tile_sum;
   const long long ex = block_exclusive_scan(sum, scratch, tile_sum);
   unsigned long long* srow = status + b * tiles;
-  if (slice == 0) {             // publish, then look back a block's width
-    if (t > 0 && tid == 0) status_store(srow + t, kAgg, tile_sum);
-    long long acc = 0;
-    for (long long look = t - 1; look >= 0; look -= kExpThreads) {
-      const long long tj = look - tid;
-      // before the row's first tile: an inclusive 0
-      const unsigned long long s = tj >= 0 ? status_wait(srow + tj, kAgg)
-                                           : kInc;
-      const unsigned inc = __ballot_sync(kFull, (s & ~kValBits) == kInc);
-      if (lane == 0) first_s[warp] = inc ? tid + __ffs(inc) - 1 : kExpThreads;
-      __syncthreads();
-      int nearest = kExpThreads;    // the nearest inclusive word's thread
-      for (int w = 0; w < kExpThreads / 32; ++w) {
-        nearest = first_s[w] < nearest ? first_s[w] : nearest;
-      }
-      long long part;
-      block_exclusive_scan(tid <= nearest ? status_value(s) : 0LL, scratch,
-                           part);
-      acc += part;
-      __syncthreads();          // first_s and scratch free again
-      if (nearest < kExpThreads) break;
-    }
-    if (tid == 0) {
-      status_store(srow + t, kInc, acc + tile_sum);
-      prefix_s = acc;
-    }
+  if (slice == 0) {             // publish, then look back
+    publish_sum(srow, t, tile_sum);
+    const long long acc = look_back(srow, t, tile_sum, scratch, first_s);
+    if (tid == 0) prefix_s = acc;
   } else if (tid == 0) {        // the tile's first slice publishes it
     prefix_s = status_value(status_wait(srow + t, kInc)) - tile_sum;
   }
@@ -1307,55 +1667,82 @@ int expand_slices(long long n, long long tiles) {
 
 extern "C" {
 
-// hist: (rows, 256) int64 and nruns: (rows,) int64, both zeroed by the
-// caller
+// hist: (rows, 256) int64 and nruns: (rows,) int64; sums: (rows, 258)
+// uint64 scratch where a row has more than one cluster (zeroed here), else
+// may be null.  One launch (more past kMaxRows rows), and the sums'
+// zeroing where it has them.
 int lossless_stats(const void* syms, long long rows, long long s, void* hist,
-                   void* nruns, void* stream) {
+                   void* nruns, void* sums, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tile = stats_tile(rows, s);
+  const long long tiles = blocks_for(s, tile);
+  const int k = stats_cluster(tiles);
+  const long long clusters = (tiles + k - 1) / k;
+  if (clusters > 1 && sums == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int err = 0;
+  unsigned long long* sw = static_cast<unsigned long long*>(sums);
+  if (clusters > 1) {
+    err = static_cast<int>(cudaMemsetAsync(
+        sw, 0, rows * 258 * sizeof(unsigned long long), st));
+  }
   for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
     const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    stats_kernel<<<dim3(blocks_for(s, kStatsTile), static_cast<unsigned>(nr)),
-                   kStatsThreads, 0, st>>>(
-        static_cast<const uint8_t*>(syms) + r0 * s, s,
-        static_cast<unsigned long long*>(hist) + r0 * 256,
-        static_cast<unsigned long long*>(nruns) + r0);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(clusters * k),
+                       static_cast<unsigned>(nr));
+    cfg.blockDim = dim3(kStatsThreads);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(k);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const uint8_t* sy = static_cast<const uint8_t*>(syms) + r0 * s;
+    unsigned long long* h = static_cast<unsigned long long*>(hist) + r0 * 256;
+    unsigned long long* nrow = static_cast<unsigned long long*>(nruns) + r0;
+    unsigned long long* srow = clusters > 1 ? sw + r0 * 258 : nullptr;
+    const int c = static_cast<int>(clusters);
+    err = keep(err, static_cast<int>(cudaLaunchKernelEx(
+        &cfg, stats_kernel, sy, s, tile, c, h, nrow, srow)));
     err = first_error(err);
   }
   return err;
 }
 
-// chunk_bits: (rows, chunks) scratch; chunk_offs: (rows, chunks);
-// total_bits: (rows,); words: (rows, cap), zeroed by the caller
+// status: (rows * groups + 1) uint64 scratch (each ticket's word, groups
+// = ceil(chunks / pack_group) a row, then the ticket counter), zeroed
+// here; chunk_offs: (rows, chunks); total_bits: (rows,); words: (rows,
+// cap), cap = s * 16 / 32 + 2, every word written.
+// Two launches (more only past 2^31 - 1 blocks).
 int huffman_pack(const void* syms, long long rows, long long s,
-                 const void* lens_tab, const void* codes_tab,
-                 void* chunk_bits, void* chunk_offs, void* total_bits,
-                 void* words, long long cap, void* stream) {
+                 const void* lens_tab, const void* codes_tab, void* status,
+                 void* chunk_offs, void* total_bits, void* words,
+                 long long cap, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunks = static_cast<int>(blocks_for(s, kChunk));
-  const uint8_t* sy = static_cast<const uint8_t*>(syms);
-  const long long* lt = static_cast<const long long*>(lens_tab);
-  const long long* ct = static_cast<const long long*>(codes_tab);
-  long long* bits = static_cast<long long*>(chunk_bits);
-  long long* offs = static_cast<long long*>(chunk_offs);
-  int err = 0;
-  for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
-    const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    huff_bits_kernel<<<dim3(chunks, static_cast<unsigned>(nr)), kPackThreads,
-                       0, st>>>(sy + r0 * s, s, lt + r0 * 256,
-                                bits + r0 * chunks, chunks);
+  const long long chunks = blocks_for(s, kChunk);
+  const int group = pack_group(rows, chunks);
+  const long long groups = (chunks + group - 1) / group;
+  unsigned long long* sw = static_cast<unsigned long long*>(status);
+  const long long tickets = rows * groups;
+  int err = static_cast<int>(cudaMemsetAsync(
+      sw, 0, (tickets + 1) * sizeof(unsigned long long), st));
+  for (long long done = 0; done < tickets;) {
+    const long long grid = tickets - done < 0x7FFFFFFFLL ? tickets - done
+                                                          : 0x7FFFFFFFLL;
+    huff_pack_kernel<<<static_cast<unsigned>(grid), kPackThreads, 0, st>>>(
+        static_cast<const uint8_t*>(syms), s,
+        static_cast<const long long*>(lens_tab),
+        static_cast<const long long*>(codes_tab), static_cast<int>(chunks),
+        group, static_cast<int>(groups), tickets, sw, sw + tickets,
+        static_cast<long long*>(chunk_offs),
+        static_cast<long long*>(total_bits), static_cast<uint32_t*>(words),
+        cap);
     err = first_error(err);
-  }
-  err = keep(err, row_scan(bits, offs, static_cast<long long*>(total_bits),
-                           rows, chunks, st));
-  for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
-    const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    huff_pack_kernel<<<dim3(chunks, static_cast<unsigned>(nr)), kPackThreads,
-                       0, st>>>(sy + r0 * s, s, lt + r0 * 256, ct + r0 * 256,
-                                offs + r0 * chunks, chunks,
-                                static_cast<uint32_t*>(words) + r0 * cap,
-                                cap);
-    err = first_error(err);
+    done += grid;
   }
   return err;
 }

@@ -9,6 +9,17 @@ counts), ``huffman_pack``, ``huffman_decode``, ``rle_scan`` and
 with ``ctypes``.  Nothing is compiled or loaded when this module is
 imported.
 
+The write side's two kernels fill the card and read the symbols once:
+``lossless_stats`` takes tiles of 4,096 to 16,384 symbols by the rule of
+``stats_tiling`` and merges a row's tiles in thread block clusters (a row
+of one cluster stored directly, more summed by the last cluster to
+arrive); ``huffman_pack`` is one pass with a decoupled look-back over
+tickets of one to four chunks (``pack_group``: as few tickets as fill the
+card at once), each stream word stored once by the ticket whose bits
+start in it (that word's earlier bits rebuilt from the symbols before
+the ticket's chunks) and the cap's zero tail stored in pieces no ticket
+waits for.
+
 The read side's two kernels work in parallel within a chunk or a tile:
 ``huffman_decode`` splits each chunk's bits among up to 256 lanes that
 walk their spans, resynchronise (a lane restarts where its left
@@ -44,11 +55,11 @@ device parts of ``core/lossless.py`` take the operators on CUDA and
 ``meta`` tensors (``use_kernel``) and keep the plain passes on the CPU and
 with ``backend="torch"``.
 
-Beside each multi-pass kernel, a small torch reference that follows its
-decomposition (``huffman_pack_tiled``, ``huffman_decode_stepwise``,
-``rle_scan_tiled``, ``rle_expand_tiled``), so that the CPU tests reach the
-tiling's edges; the read side's take the kernels' lanes, primary-table
-bits, tile and slices as parameters.
+Beside each kernel, a small torch reference that follows its
+decomposition (``lossless_stats_tiled``, ``huffman_pack_tiled``,
+``huffman_decode_stepwise``, ``rle_scan_tiled``, ``rle_expand_tiled``), so
+that the CPU tests reach the tiling's edges; the read side's take the
+kernels' lanes, primary-table bits, tile and slices as parameters.
 """
 from __future__ import annotations
 
@@ -68,7 +79,14 @@ CHUNK = ll.CHUNK                 # csrc/lossless.cu kChunk
 RLE_BREAK = ll.RLE_BREAK         # kRleBreak
 LUT_SIZE = 1 << ll.MAX_CODE_LEN  # kLut
 EXPAND_TILE = 4096               # kExpTile: runs a tile of rle_expand
-TILE_WORDS = CHUNK * ll.MAX_CODE_LEN // 32 + 2   # kTileWords
+STATS_MAX_TILE = 16384           # kStatsMaxTile: symbols a stats block
+STATS_MIN_TILE = 4096            # kStatsMinTile
+STATS_BLOCKS = 264               # kStatsBlocks: two blocks an SM (132)
+MAX_CLUSTER = 8                  # kMaxCluster: a stats cluster's blocks
+PACK_THREADS = 256               # kPackThreads: 16 symbols a thread
+PACK_GROUP = 4                   # kPackGroup: chunks a pack ticket, at most
+PACK_BLOCKS = 132 * 6            # kPackBlocks: pack blocks the card holds
+PACK_WORDS = PACK_GROUP * CHUNK * ll.MAX_CODE_LEN // 32 + 8   # kPackWords
 PRIMARY_BITS = 11                # kPrimBits: the decode's primary table
 LONG = 0xFFFF                    # kLong: a primary entry to look past
 LANES = (32, 64, 128, 256)       # a decode block's lanes (kMaxLanes 256)
@@ -88,7 +106,7 @@ def _lib() -> ctypes.CDLL:
     with _lock:
         if not _ready:
             vp, ll_, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.lossless_stats.argtypes = [vp, ll_, ll_, vp, vp, vp]
+            lib.lossless_stats.argtypes = [vp, ll_, ll_, vp, vp, vp, vp]
             lib.huffman_pack.argtypes = [vp, ll_, ll_, vp, vp, vp, vp, vp,
                                          vp, ll_, vp]
             lib.huffman_decode.argtypes = [vp, ll_, ll_, vp, i, vp, vp, vp,
@@ -148,10 +166,48 @@ def _run(symbol: str, like: torch.Tensor, *args) -> None:
 # each operator's scratch by name: (shape, dtype), a function of the
 # operator's arguments (``bitplane.WORKSPACE``)
 
-def huffman_pack_workspace(syms, lens_tab, codes_tab):
-    """The chunks' bit counts, which the row scan turns into offsets."""
+def stats_tiling(b: int, s: int) -> Tuple[int, int, int]:
+    """``lossless_stats``' launch at (B, S): (symbols a block, blocks a
+    cluster, clusters a row).  The tile is ``STATS_MAX_TILE``, halved
+    while the launch would have fewer than ``STATS_BLOCKS`` blocks, down to
+    ``STATS_MIN_TILE``; a cluster is the row's tiles rounded up to a power
+    of two, at most ``MAX_CLUSTER`` (``csrc/lossless.cu`` ``stats_tile``,
+    ``stats_cluster``)."""
+    tile = STATS_MAX_TILE
+    while tile > STATS_MIN_TILE and b * _tiles(s, tile) < STATS_BLOCKS:
+        tile //= 2
+    t, k = _tiles(s, tile), 1
+    while k < MAX_CLUSTER and k < t:
+        k *= 2
+    return tile, k, _tiles(t, k)
+
+
+def lossless_stats_workspace(syms):
+    """Where a row has more than one cluster: each row's sums (its 256
+    bins and run starts, then its count of arrived clusters); else
+    nothing."""
     b, s = syms.shape
-    return {"chunk_bits": ((b, _chunks(s)), torch.int64)}
+    if stats_tiling(b, s)[2] <= 1:
+        return {}
+    return {"sums": ((b, 258), torch.int64)}
+
+
+def pack_group(b: int, s: int) -> int:
+    """``huffman_pack``'s chunks a ticket at (B, S): 1, doubled up to
+    ``PACK_GROUP`` while the launch would have more than ``PACK_BLOCKS``
+    tickets (``csrc/lossless.cu`` ``pack_group``)."""
+    g = 1
+    while g < PACK_GROUP and b * _tiles(_chunks(s), g) > PACK_BLOCKS:
+        g *= 2
+    return g
+
+
+def huffman_pack_workspace(syms, lens_tab, codes_tab):
+    """Each ticket's status word for the look-back, then the blocks'
+    ticket counter."""
+    b, s = syms.shape
+    return {"status": ((b * _tiles(_chunks(s), pack_group(b, s)) + 1,),
+                       torch.int64)}
 
 
 def rle_scan_workspace(syms):
@@ -183,23 +239,29 @@ def _scratch(fn, *args):
 
 def _launch_stats(syms):
     b, s = syms.shape
-    hist = torch.zeros((b, 256), dtype=torch.int64, device=syms.device)
-    nruns = torch.zeros((b,), dtype=torch.int64, device=syms.device)
-    if b and s:
-        _run("lossless_stats", syms, syms, b, s, hist, nruns)
+    if not (b and s):
+        return (torch.zeros((b, 256), dtype=torch.int64, device=syms.device),
+                torch.zeros((b,), dtype=torch.int64, device=syms.device))
+    hist = torch.empty((b, 256), dtype=torch.int64, device=syms.device)
+    nruns = torch.empty((b,), dtype=torch.int64, device=syms.device)
+    (sums,) = _scratch(lossless_stats_workspace, syms) or (None,)
+    _run("lossless_stats", syms, syms, b, s, hist, nruns, sums)
     return hist, nruns
 
 
 def _launch_pack(syms, lens_tab, codes_tab):
     b, s = syms.shape
     cap = s * ll.MAX_CODE_LEN // 32 + 2
-    words = torch.zeros((b, cap), dtype=torch.int32, device=syms.device)
-    total = torch.zeros((b,), dtype=torch.int64, device=syms.device)
-    offs = torch.empty((b, _chunks(s)), dtype=torch.int64, device=syms.device)
-    if b and s:
-        (bits,) = _scratch(huffman_pack_workspace, syms, lens_tab, codes_tab)
-        _run("huffman_pack", syms, syms, b, s, lens_tab, codes_tab, bits,
-             offs, total, words, cap)
+    shapes = (((b, cap), torch.int32), ((b,), torch.int64),
+              ((b, _chunks(s)), torch.int64))
+    if not (b and s):
+        return tuple(torch.zeros(sh, dtype=dt, device=syms.device)
+                     for sh, dt in shapes)
+    words, total, offs = (torch.empty(sh, dtype=dt, device=syms.device)
+                          for sh, dt in shapes)
+    (status,) = _scratch(huffman_pack_workspace, syms, lens_tab, codes_tab)
+    _run("huffman_pack", syms, syms, b, s, lens_tab, codes_tab, status,
+         offs, total, words, cap)
     return words, total, offs
 
 
@@ -369,7 +431,8 @@ _OPS = _define()
 _LAUNCH = {"lossless_stats": _launch_stats, "huffman_pack": _launch_pack,
            "huffman_decode": _launch_decode, "rle_scan": _launch_rle_scan,
            "rle_expand": _launch_rle_expand}
-_bp.add_workspace({_OPS["huffman_pack"]: huffman_pack_workspace,
+_bp.add_workspace({_OPS["lossless_stats"]: lossless_stats_workspace,
+                   _OPS["huffman_pack"]: huffman_pack_workspace,
                    _OPS["huffman_decode"]: huffman_decode_workspace,
                    _OPS["rle_scan"]: rle_scan_workspace,
                    _OPS["rle_expand"]: rle_expand_workspace})
@@ -422,9 +485,11 @@ def lossless_stats(syms: torch.Tensor):
 
 def huffman_pack(syms: torch.Tensor, lens_tab: torch.Tensor,
                  codes_tab: torch.Tensor):
-    """(B, S) uint8 symbols and (B, 256) int64 code lengths (0 .. 16) and
-    codes -> (words (B, S * 16 // 32 + 2) uint32 bits in int32 storage,
-    total_bits (B,) int64, chunk_offs (B, ceil(S / CHUNK)) int64)."""
+    """(B, S) uint8 symbols and (B, 256) int64 code lengths (0 .. 16, a
+    codebook's; on the card a length past 16 places no bit and counts as
+    0) and codes -> (words (B, S * 16 // 32 + 2) uint32 bits in int32
+    storage, total_bits (B,) int64, chunk_offs (B, ceil(S / CHUNK))
+    int64)."""
     _check("huffman_pack", syms, (torch.uint8,))
     for t in (lens_tab, codes_tab):
         _check("huffman_pack", t, (torch.int64,))
@@ -480,43 +545,165 @@ _bp.add_counters(dict(zip(SYMBOLS, WRAPPERS)))
 # ------------------------------------------------------ tiled references --
 # each kernel's decomposition in torch, on the CPU (tests)
 
-def huffman_pack_tiled(syms, lens_tab, codes_tab):
-    """``huffman_pack`` as its passes compute it: each chunk's bits, the
-    row scan, then each chunk's codes placed in a tile of the words its
-    bits touch, the interior words stored and the first and last ORed into
-    zeroed words.  (words, total_bits, chunk_offs) as the operator's."""
+class _LookBack:
+    """A row's status words as a kernel's decoupled look-back sees them,
+    tiles in ticket order: a tile publishes its sum, sums its
+    predecessors' words back to the nearest inclusive one, and publishes
+    its inclusive sum, which lands ``lag`` tiles late here, so that
+    look-backs cross aggregates."""
+
+    def __init__(self, lag=2):
+        self.status, self.late, self.lag = {}, [], lag
+
+    def __call__(self, t, tsum):
+        """Tile t's exclusive prefix."""
+        self.status[t] = ("agg", tsum)
+        acc, look = 0, t - 1
+        while look >= 0:
+            flag, v = self.status[look]
+            acc += v
+            if flag == "inc":
+                break
+            look -= 1
+        self.late.append((t, acc + tsum))
+        while len(self.late) > self.lag:
+            done, v = self.late.pop(0)
+            self.status[done] = ("inc", v)
+        return acc
+
+
+def lossless_stats_tiled(syms):
+    """``lossless_stats`` as its kernel computes it: the tiles of
+    ``stats_tiling``, each tile's histogram and run starts (a tile's first
+    symbol against the symbol before it), summed over a cluster's blocks
+    (those past the row's tiles count nothing, and a block's counts fit
+    its uint32 totals); a row of one cluster is that sum, a row of more
+    the sum of its clusters'."""
+    b, s = syms.shape
+    tile, k, clusters = stats_tiling(b, s)
+    blocks = clusters * k
+    x = syms.to(torch.int64)
+    prev = torch.cat([x[:, :1] ^ 255, x[:, :-1]], dim=1)
+    starts = (x != prev) | (torch.arange(s) % RLE_BREAK == 0)
+    block = torch.arange(s) // tile
+    tot = torch.zeros((b, blocks, 257), dtype=torch.int64)
+    for r in range(b):
+        tot[r, :, :256] = torch.bincount(block * 256 + x[r],
+                                         minlength=blocks * 256
+                                         ).view(blocks, 256)
+    tot[:, :, 256] = F.pad(starts, (0, blocks * tile - s)).view(
+        b, blocks, tile).sum(2)
+    if int(tot.max()) >= 1 << 32:
+        raise AssertionError("a block's count past uint32")
+    row = tot.view(b, clusters, k, 257).sum(2).sum(1)
+    return row[:, :256].contiguous(), row[:, 256].contiguous()
+
+
+def _head_bits(lens, msb, first, o):
+    """The bits of word o >> 5 before bit o (``huffman_pack``'s warp 0):
+    the codes of the symbols before ``first`` end at bit o; 32 symbols a
+    step back until they cover the word's head.  ``lens``, ``msb``: the
+    row's code lengths and MSB-aligned codes."""
+    lo, end, i0, head = (o >> 5) << 5, o, first - 32, 0
+    while True:
+        i = torch.arange(i0, i0 + 32)
+        inside = i >= 0
+        ln = torch.where(inside, lens[i.clamp(min=0)], 0)
+        m = torch.where(inside, msb[i.clamp(min=0)], 0)
+        suf = ln.flip(0).cumsum(0).flip(0)   # this and later symbols'
+        start = end - suf
+        d = start - lo
+        part = torch.where(d >= 0, m >> d.clamp(min=0),
+                           (m << (-d).clamp(min=0)) & _MASK32)
+        hit = (m != 0) & (start + ln > lo) & (start < lo + 32)
+        for v in part[hit].tolist():
+            head |= v
+        end -= int(suf[0])
+        i0 -= 32
+        if end <= lo or i0 + 32 <= 0:
+            return head
+
+
+def huffman_pack_tiled(syms, lens_tab, codes_tab, lag=2):
+    """``huffman_pack`` as its kernel computes it: tickets in order over
+    (row, group of ``pack_group`` chunks); each thread's 16 codes a chunk
+    turned into words from the group's first bit and ORed into the group's
+    tile; the group's first bit o from the look-back (``_LookBack``); the
+    words [o / 32, o' / 32) stored (the row's last group: through its last
+    partial word), the tile's words shifted to bit o, the first after the
+    bits before o rebuilt from the symbols before the group
+    (``_head_bits``); and the cap's zeros [T, the T before).  Raises unless
+    every word of the cap is stored exactly once.  (words, total_bits,
+    chunk_offs) as the operator's."""
     b, s = syms.shape
     cap = s * ll.MAX_CODE_LEN // 32 + 2
     c = _chunks(s)
+    group = pack_group(b, s)
     idx = syms.to(torch.int64)
     lens = torch.gather(lens_tab.to(torch.int64), 1, idx)
     codes = torch.gather(codes_tab.to(torch.int64), 1, idx) & _MASK32
-    chunk_bits = F.pad(lens, (0, c * CHUNK - s)).view(b, c, CHUNK).sum(2)
-    chunk_offs = torch.cumsum(chunk_bits, 1) - chunk_bits
-    total_bits = chunk_bits.sum(1)
+    # code_entry: a length past MAX_CODE_LEN places no bit and counts as 0
+    lens = torch.where((lens > 0) & (lens <= ll.MAX_CODE_LEN), lens, 0)
+    msb = torch.where(lens > 0, (codes << (32 - lens)) & _MASK32, 0)
     words = torch.zeros((b, cap), dtype=torch.int64)
+    stores = torch.zeros((b, cap), dtype=torch.int64)
+    offs = torch.zeros((b, c), dtype=torch.int64)
+    total = torch.zeros(b, dtype=torch.int64)
+    slots = torch.arange(10)[None, :]   # a thread's words: at most 9
     for r in range(b):
-        for k in range(c):
-            tot, o = int(chunk_bits[r, k]), int(chunk_offs[r, k])
-            if tot <= 0:
-                continue
-            f = o >> 5
-            ln = lens[r, k * CHUNK:(k + 1) * CHUNK]
-            cd = codes[r, k * CHUNK:(k + 1) * CHUNK]
-            pos = o + torch.cumsum(ln, 0) - ln
-            t, sh = (pos >> 5) - f, pos & 31
-            placed = (ln > 0) & (ln <= 32)
-            msb = torch.where(placed, (cd << (32 - ln.clamp(0, 32)))
-                              & _MASK32, 0)
-            spill = torch.where(sh > 0, (msb << (32 - sh)) & _MASK32, 0)
-            tile = torch.zeros(TILE_WORDS + 1, dtype=torch.int64)
-            tile.index_add_(0, t, msb >> sh)   # disjoint bits: add == OR
-            tile.index_add_(0, t + 1, spill)
-            nw = ((o + tot - 1) >> 5) - f + 1
-            words[r, f + 1:f + nw - 1] = tile[1:nw - 1]
-            words[r, f] |= tile[0]
-            words[r, f + nw - 1] |= tile[nw - 1]
-    return words.to(torch.int32), total_bits, chunk_offs
+        look = _LookBack(lag)
+        for gi, c0 in enumerate(range(0, c, group)):
+            nc = min(group, c - c0)
+            first = c0 * CHUNK
+            pad = (0, nc * CHUNK - min(nc * CHUNK, s - first))
+            ln = F.pad(lens[r, first:first + nc * CHUNK], pad).view(
+                nc, PACK_THREADS, 16)
+            m = F.pad(msb[r, first:first + nc * CHUNK], pad).view(
+                nc, PACK_THREADS, 16)
+            bits = ln.sum(2)                       # (chunk, thread)
+            sub = torch.cumsum(bits.sum(1), 0) - bits.sum(1)
+            tot = int(bits.sum())
+            # each thread's words, from the first its bits touch, its bits
+            # counted from the group's first
+            p = (sub[:, None] + torch.cumsum(bits, 1) - bits).view(-1)
+            bits, ln, m = bits.view(-1), ln.view(-1, 16), m.view(-1, 16)
+            pos = p[:, None] + torch.cumsum(ln, 1) - ln
+            slot = (pos >> 5) - (p[:, None] >> 5)
+            sh = pos & 31
+            tw = torch.zeros((len(p), 11), dtype=torch.int64)
+            tw.scatter_add_(1, slot, m >> sh)        # disjoint bits: add = OR
+            tw.scatter_add_(1, slot + 1, torch.where(
+                sh > 0, (m << (32 - sh)) & _MASK32, 0))
+            nw = ((p + bits + 31) >> 5) - (p >> 5)
+            live = (slots < nw[:, None]) & (bits[:, None] > 0)
+            ti = (p[:, None] >> 5) + slots
+            tile = torch.zeros(PACK_WORDS, dtype=torch.int64)
+            tile.index_add_(0, ti[live], tw[:, :10][live])
+            o = look(gi, tot)
+            f, sh = o >> 5, o & 31
+            last = c0 + nc == c
+            e = min(cap, ((o + tot + 31) >> 5) if last else (o + tot) >> 5)
+            shifted = tile[:e - f]
+            if sh and e > f:
+                before = torch.cat([torch.tensor(
+                    [_head_bits(lens[r], msb[r], first, o) >> (32 - sh)]),
+                    tile[:e - f - 1]])
+                shifted = ((before << (32 - sh)) & _MASK32) | (shifted >> sh)
+            words[r, f:e] = shifted
+            stores[r, f:e] += 1
+            after = max(s - first - nc * CHUNK, 0)
+            t_lo = min(cap, (o + tot + 16 * after + 31) >> 5)
+            t_hi = cap if gi == 0 else min(cap, (o + 16 * (s - first) + 31)
+                                           >> 5)
+            if t_hi > t_lo:
+                words[r, t_lo:t_hi] = 0
+                stores[r, t_lo:t_hi] += 1
+            offs[r, c0:c0 + nc] = o + sub
+            if last:
+                total[r] = o + tot
+    if not bool((stores == 1).all()):
+        raise AssertionError("a word of the cap stored other than once")
+    return words.to(torch.int32), total, offs
 
 
 def decode_primary(lut_sym, lut_len, k=PRIMARY_BITS):
@@ -773,35 +960,22 @@ def rle_scan_tiled(syms):
 def rle_expand_tiled(values, lengths, n, tile=EXPAND_TILE, slices=1,
                      lag=2):
     """``rle_expand`` as its kernel computes it: blocks take tickets in
-    order (row, tile, slice); a tile's first slice publishes its summed
-    lengths, sums its predecessors' status words back to the nearest
-    inclusive one (a tile's inclusive word here lands ``lag`` tickets
-    late, so that look-backs cross aggregates) and publishes its inclusive
-    sum; each slice writes its share of the tile's bytes [prefix, prefix +
-    sum) of [0, n) (the row's last tile on to n), each byte's run found in
-    the tile's ends (upper bound, clamped to the tile's last run)."""
+    order (row, tile, slice); a tile's first slice looks back
+    (``_LookBack``, its inclusive word ``lag`` tickets late); each slice
+    writes its share of the tile's bytes [prefix, prefix + sum) of [0, n)
+    (the row's last tile on to n), each byte's run found in the tile's
+    ends (upper bound, clamped to the tile's last run)."""
     b, r = values.shape
     tiles = _tiles(r, tile)
     lens = lengths.to(torch.int64)
     out = torch.zeros((b, n), dtype=torch.uint8)
     for row in range(b):
-        status, late = {}, []      # tile: ("agg" | "inc", value)
+        look = _LookBack(lag)
         for t in range(tiles):
             j0 = t * tile
             ends = torch.cumsum(lens[row, j0:j0 + tile], 0)
             tsum = int(ends[-1])
-            status[t] = ("agg", tsum)
-            acc, look = 0, t - 1
-            while look >= 0:
-                flag, v = status[look]
-                acc += v
-                if flag == "inc":
-                    break
-                look -= 1
-            late.append((t, acc + tsum))
-            while len(late) > lag:
-                done, v = late.pop(0)
-                status[done] = ("inc", v)
+            acc = look(t, tsum)
             lo = max(acc, 0)
             hi = min(n, n if t + 1 == tiles else acc + tsum)
             for s in range(slices):

@@ -163,3 +163,20 @@ def test_module_import_builds_nothing():
     from repro_torch.kernels import bitplane as bp
     assert not bp._libs or torch.cuda.is_available()
     assert bp.encode_register_block_cuda.launches >= 0
+
+
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN12_GLOBAL__N_112stats_kernelEPKhxiiPyS2_S2_",
+     "(anonymous namespace)::stats_kernel"),
+    ("_ZN12_GLOBAL__N_118huff_decode_kernelILb1EEEvPKjx",
+     "(anonymous namespace)::huff_decode_kernel"),
+    ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIiEE",
+     "at::native::vectorized_elementwise_kernel"),
+    ("_Z13rb_encode_ker", "rb_encode_ker"),
+    ("rle_expand_kernel", "rle_expand_kernel"),
+])
+def test_device_activity_names(mangled, want):
+    """``device_activities`` names a kernel node by its nested
+    identifiers; a name that is not mangled stays as it is."""
+    from repro_torch.kernels import bitplane as bp
+    assert bp.demangle(mangled) == want

@@ -1808,6 +1808,14 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # ------------------------------------------------ the lossless codec's kernels
 
 LOSSLESS_SIZES = (1, 2, 31, 4095, 4096, 4097, 32767, 32768, 32769, 65537)
+# (B, S) buckets of short rows (phase 9's kind) and either side of the
+# stats' tile rule: 263 x 16,384 takes 8,192-symbol tiles, 264 x 16,384
+# 16,384-symbol ones (kStatsBlocks); 64 x 65,537: 16,384, one cluster of 8
+# blocks a row; 1 x 32,769 (in LOSSLESS_SIZES): 9 tiles, two clusters; the
+# pack's tickets of two chunks (199 x 16,385, a row's last of one) and of
+# four (400 x 16,384)
+LOSSLESS_BUCKETS = ((64, 4096), (64, 65537), (263, 16384), (264, 16384),
+                    (199, 16385), (400, 16384))
 
 
 def _lossless_rows(kind, b, s, rng):
@@ -1824,7 +1832,7 @@ def _lossless_rows(kind, b, s, rng):
         vals = rng.integers(0, 4, (b, s // 20 + 2))
         return np.stack([np.repeat(v, r)[:s] for v, r in zip(vals, reps)]
                         ).astype(np.uint8)
-    return np.full((b, s), 7 + b, np.uint8)
+    return np.full((b, s), (7 + b) % 256, np.uint8)
 
 
 def _lossless_inputs(x):
@@ -1916,15 +1924,17 @@ def _lossless_edges_match(cuda):
                                want), (name, slices)
 
 
-@pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("s", LOSSLESS_SIZES)
+@pytest.mark.parametrize("s,b", [(s, b) for s in LOSSLESS_SIZES
+                                 for b in (1, 3)]
+                         + [(s, b) for b, s in LOSSLESS_BUCKETS])
 def test_lossless_kernels_match_plain(cuda, s, b):
     """Each of the five lossless kernels byte-identical to its plain
     version at either side of a chunk (4096) and an RLE tile (32768), rows
-    of any length (unaligned rows past the first), five contents; the
-    decode at every lane count, words at the pack's width and cut to the
-    stored one, the expand at 1 and 3 slices; and (B = 1) the read side's
-    hand-made edges."""
+    of any length (unaligned rows past the first), five contents, and on
+    buckets of many short rows and either side of the stats' tile rule;
+    the decode at every lane count, words at the pack's width and cut to
+    the stored one, the expand at 1 and 3 slices; and (B = 1) the read
+    side's hand-made edges."""
     rng = np.random.default_rng(s * 7 + b)
     for kind in ("skewed", "zeros", "uniform", "runs", "one"):
         _lossless_match(torch.from_numpy(_lossless_rows(kind, b, s, rng)
@@ -1933,13 +1943,15 @@ def test_lossless_kernels_match_plain(cuda, s, b):
         _lossless_edges_match(cuda)
 
 
-def test_lossless_kernels_split_rows_past_max_batch(cuda):
+@pytest.mark.parametrize("s", [20, 4097])
+def test_lossless_kernels_split_rows_past_max_batch(cuda, s):
     """A bucket of more rows than a grid's y extent (65,535) is split into
-    launches, and gives the plain versions' bytes (one codebook for every
-    row; the decode and the expand give the rows back)."""
+    launches (the pack's tickets span every row), and gives the plain
+    versions' bytes (one codebook for every row; the decode and the expand
+    give the rows back), at one chunk a row and at two."""
     from repro_torch.core import lossless as ll
     from repro_torch.kernels import lossless as kl
-    b, s = bp.MAX_BATCH + 3, 20
+    b = bp.MAX_BATCH + 3
     rows = _lossless_rows("skewed", b, s, np.random.default_rng(5))
     x = torch.from_numpy(rows).to(cuda)
     for got, want in zip(kl.lossless_stats(x), lb._group_stats_plain(x)):
@@ -1967,9 +1979,10 @@ def test_lossless_kernels_split_rows_past_max_batch(cuda):
 
 
 def test_lossless_kernels_are_deterministic(cuda):
-    """Two calls give the same bits (the stats' and the pack's atomics add
-    and OR integers, exact in any order; the expand's tiles take tickets
-    in any order), the read side's hand-made edges too."""
+    """Two calls give the same bits (the stats' atomics add integers, its
+    clusters arrive in any order, the pack's chunks and the expand's tiles
+    take tickets in any order), on buckets of short rows and either side
+    of the stats' tile rule too, and the read side's hand-made edges."""
     from repro_torch.kernels import lossless as kl
     rng = np.random.default_rng(6)
     x = torch.from_numpy(_lossless_rows("skewed", 3, 300_001, rng)).to(cuda)
@@ -1980,6 +1993,12 @@ def test_lossless_kernels_are_deterministic(cuda):
                                         a["ln"], x.shape[1]),),
              lambda: kl.rle_scan(x)[2:],
              lambda: (kl.rle_expand(a["rv"], a["rl"], x.shape[1]),)]
+    for b, s in LOSSLESS_BUCKETS:
+        xb = torch.from_numpy(_lossless_rows("skewed", b, s, rng)).to(cuda)
+        ab = _lossless_inputs(xb)
+        calls += [lambda xb=xb: kl.lossless_stats(xb),
+                  lambda xb=xb, ab=ab: kl.huffman_pack(xb, ab["lt"],
+                                                       ab["ct"])]
     # the read side's hand-made edges, at 32 and 128 lanes and 3 slices
     for args in cases.decode_cases().values():
         for lanes in (32, 128):
@@ -2017,14 +2036,18 @@ def _byte_guards_hold(buf, lo, nbytes):
 
 
 @pytest.mark.parametrize("shift", [0, 1])
-@pytest.mark.parametrize("b,s", [(1, 4097), (3, 65537), (2, 31)])
+@pytest.mark.parametrize("b,s", [(1, 4097), (3, 65537), (2, 31)]
+                         + list(LOSSLESS_BUCKETS[:2]))
 def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
     """Every output and scratch buffer of the five kernels inside guards of
     a known byte, every pointer 16-byte aligned (shift 0) or not (shift 1
-    element): the outputs are the plain versions' and no guard byte
-    changes, over three launches (the decode at 32, 128 and its own lanes,
-    the expand at 1, 3 and its own slices); then the read side's hand-made
-    edges, guarded alike."""
+    element), on rows of one and of several stats clusters and on buckets
+    of short rows: the outputs are the plain versions' and no guard byte
+    changes, over three launches (the decode at 32, 128 and its own
+    lanes, the expand at 1, 3 and its own slices), the stats' and the
+    pack's outputs refilled with the
+    guard byte before each, so that every element must be written; then
+    the read side's hand-made edges, guarded alike."""
     from repro_torch.kernels import lossless as kl
     rng = np.random.default_rng(b * s + shift)
     x0 = torch.from_numpy(_lossless_rows("skewed", b, s, rng)).to(cuda)
@@ -2047,9 +2070,13 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
     lt, ct, words, offs, ls, ln, rv, rl = (inp(a[k]) for k in (
         "lt", "ct", "words", "offs", "ls", "ln", "rv", "rl"))
     hist, nruns = out((b, 256), torch.int64), out((b,), torch.int64)
-    pw, pt, po, pbits = (out((b, cap), torch.int32), out((b,), torch.int64),
-                         out((b, chunks), torch.int64),
-                         out((b, chunks), torch.int64))
+    ws = {k: out(*v) for k, v in kl.lossless_stats_workspace(x).items()}
+    sums = ws.get("sums")
+    pw, pt, po = (out((b, cap), torch.int32), out((b,), torch.int64),
+                  out((b, chunks), torch.int64))
+    written = (hist, nruns, pw, pt, po)
+    (pstat,) = (out(*v) for v in kl.huffman_pack_workspace(
+        x, lt, ct).values())
     dec = out((b, s), torch.uint8)
     vals, lens, rn, runs, base = (
         out((b, s), torch.uint8), out((b, s), torch.int16),
@@ -2060,9 +2087,10 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
     exp, status = out((b, s), torch.uint8), out((b * rt + 1,), torch.int64)
     walks.zero_()
     for lanes, slices in ((32, 1), (128, 3), (0, 0)):
-        hist.zero_(), nruns.zero_(), pw.zero_()
-        kl._run("lossless_stats", x, x, b, s, hist, nruns)
-        kl._run("huffman_pack", x, x, b, s, lt, ct, pbits, po, pt, pw, cap)
+        for t in written:
+            t.view(torch.uint8).fill_(0xA5)
+        kl._run("lossless_stats", x, x, b, s, hist, nruns, sums)
+        kl._run("huffman_pack", x, x, b, s, lt, ct, pstat, po, pt, pw, cap)
         kl._run("huffman_decode", x, words, b, cap, offs, chunks, ls, ln,
                 prim, walks, lanes, dec, s)
         kl._run("rle_scan", x, x, b, s, runs, base, vals, lens, rn)
@@ -2133,25 +2161,48 @@ def test_engine_groups_walk_no_chunk_serially(cuda):
 
 def test_rle_expand_launches_at_most_two_a_call(cuda):
     """One ``rle_expand`` call is at most two device activities, the status
-    words' zeroing and the one pass (the profiler's view), and gives the
-    plain pass's bytes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    words' zeroing and the one pass (the nodes of a CUDA graph of the
+    call), and gives the plain pass's bytes."""
     from repro_torch.core import lossless as ll
+    from repro_torch.kernels import bitplane as bp
     from repro_torch.kernels import lossless as kl
     for values, lengths, n in cases.expand_cases().values():
         values, lengths = values.to(cuda), lengths.to(cuda)
-        kl.rle_expand(values, lengths, n)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            got = kl.rle_expand(values, lengths, n)
-            torch.cuda.synchronize()
-        acts = {e.key: e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.key != "Activity Buffer Request"}
+        acts = bp.device_activities(lambda: kl.rle_expand(values, lengths, n))
         assert any("rle_expand_kernel" in k for k in acts), acts
         assert sum(acts.values()) <= 2, acts
+        got = kl.rle_expand(values, lengths, n)
         assert torch.equal(got, ll._rle_expand_plain(values, lengths, n))
+
+
+@pytest.mark.parametrize("b,s", [(1, 4097), (1, 32769), (3, 300_001)]
+                         + list(LOSSLESS_BUCKETS))
+def test_write_side_launches_at_most_two_a_call(cuda, b, s):
+    """One ``lossless_stats`` call and one ``huffman_pack`` call are at
+    most two device activities each (the nodes of a CUDA graph of the
+    call): the stats' one pass and, where a row has more than one cluster,
+    the zeroing of its row sums; the pack's status words' zeroing and its
+    one pass, with no bit-count pass and no row scan.  Both give the plain
+    passes' bytes."""
+    from repro_torch.kernels import bitplane as bp
+    from repro_torch.kernels import lossless as kl
+    x = torch.from_numpy(_lossless_rows("skewed", b, s,
+                                        np.random.default_rng(b + s))
+                         ).to(cuda)
+    a = _lossless_inputs(x)
+    calls = {"stats_kernel": (lambda: kl.lossless_stats(x),
+                              lb._group_stats_plain(x)),
+             "huff_pack_kernel": (lambda: kl.huffman_pack(x, a["lt"],
+                                                          a["ct"]),
+                                  (a["words"], a["total"], a["offs"]))}
+    for kernel, (call, want) in calls.items():
+        acts = bp.device_activities(call)
+        assert sum(kernel in k for k in acts) == 1, acts
+        assert sum(acts.values()) <= 2, acts
+        assert not any("huff_bits" in k or "row_scan" in k for k in acts), \
+            acts
+        got = call()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("force", [None, "huffman", "rle", "dc"])

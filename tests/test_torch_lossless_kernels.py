@@ -4,10 +4,13 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` phase 21).  Here, with numpy inputs from a seed:
 
 * each kernel's tiled reference, which follows its decomposition (the
-  chunks or tiles, the row scan, the edge words), is bit-identical to the
-  plain pass it replaces, at either side of a chunk (4096) and of an RLE
-  tile (32768), on five contents, on real plane groups that the port's
-  CPU write stacks, and over random sizes (hypothesis);
+  stats' tiles and clusters, the pack's look-back chunks, thread words,
+  rebuilt head words and zero pieces, the RLE tiles and row scan), is
+  bit-identical to the plain pass it replaces, at either side of a chunk
+  (4096) and of an RLE tile (32768), on five contents, on buckets of many
+  short rows and either side of the stats' tile rule, on real plane
+  groups that the port's CPU write stacks, and over random sizes
+  (hypothesis);
 * the read side's references (the decode's self-synchronising lanes at 32
   and 128 a chunk, the expand's look-back tiles and slices) give the plain
   passes' and the reference's bytes on hand-made edges
@@ -62,7 +65,7 @@ def _rows(kind, b, s, rng):
         vals = rng.integers(0, 4, (b, s // 20 + 2))
         return np.stack([np.repeat(v, r)[:s] for v, r in zip(vals, reps)]
                         ).astype(np.uint8)
-    return np.full((b, s), 7 + b, np.uint8)
+    return np.full((b, s), (7 + b) % 256, np.uint8)
 
 
 def _books(rows):
@@ -80,6 +83,8 @@ def _tiled_match(rows):
     (B, S) rows."""
     b, s = rows.shape
     x = torch.from_numpy(rows)
+    for got, w in zip(kl.lossless_stats_tiled(x), lb._group_stats_plain(x)):
+        assert got.dtype == w.dtype and torch.equal(got, w)
     lt, ct, ls, ln = _books(rows)
     want = ll._huffman_pack_plain(x, lt, ct)
     for got, w in zip(kl.huffman_pack_tiled(x, lt, ct), want):
@@ -129,6 +134,75 @@ def test_tiled_references_on_real_plane_groups():
     assert len(seen) >= 4 and max(st_.shape[1] for st_ in seen) > 4096
     for rows in seen:
         _tiled_match(rows.numpy())
+
+
+# (B, S) buckets of short rows (phase 9's kind) and either side of the
+# stats' tile rule (``kl.stats_tiling``); the pack's groups of chunks:
+# ``test_tiled_pack_over_groups_of_chunks``
+BUCKETS = ((64, 4096), (64, 65537), (263, 16384), (264, 16384))
+
+
+@pytest.mark.parametrize("b,s", BUCKETS)
+def test_tiled_references_on_buckets_of_short_rows(b, s):
+    """The stats' and the pack's references on many rows of one bucket
+    (the stats over its whole tile rule's boundary, the pack over its
+    first 64 rows, each row's ticket chunks at the row's own word
+    alignment), five contents."""
+    rng = np.random.default_rng(b * s)
+    for kind in CONTENTS:
+        rows = _rows(kind, b, s, rng)
+        x = torch.from_numpy(rows)
+        for got, w in zip(kl.lossless_stats_tiled(x),
+                          lb._group_stats_plain(x)):
+            assert torch.equal(got, w)
+        lt, ct, _, _ = _books(rows[:64])
+        for got, w in zip(kl.huffman_pack_tiled(x[:64], lt, ct),
+                          ll._huffman_pack_plain(x[:64], lt, ct)):
+            assert got.dtype == w.dtype and torch.equal(got, w)
+
+
+@pytest.mark.parametrize("b,s,group", [
+    (1, 65537, 1), (198, 16384, 1), (199, 16385, 2), (400, 16384, 4),
+    (1, 3_244_033, 2), (1, 10_938_368, 4), (2, 10_938_368, 4)])
+def test_tiled_pack_over_groups_of_chunks(b, s, group):
+    """The pack's tickets take ``pack_group`` chunks (1, 2 or 4: as few
+    tickets as fill the card at once, at most ``PACK_BLOCKS``), a row's
+    last ticket fewer; the tiled reference over such tickets equals the
+    plain pass, one codebook for the bucket, and the status words follow
+    the tickets (the two field-size rows: the rule only)."""
+    assert kl.pack_group(b, s) == group
+    if b * s > 12_000_000:     # rule only: the field-size rows
+        return
+    rows = _rows("skewed", b, s, np.random.default_rng(b + s))
+    x = torch.from_numpy(rows)
+    book = ll.build_codebook(np.bincount(rows.reshape(-1), minlength=256))
+    lt, ct = (torch.from_numpy(t.astype(np.int64)).expand(b, 256)
+              .contiguous() for t in book)
+    for got, w in zip(kl.huffman_pack_tiled(x, lt, ct),
+                      ll._huffman_pack_plain(x, lt, ct)):
+        assert got.dtype == w.dtype and torch.equal(got, w)
+    assert kl.huffman_pack_workspace(x, lt, ct) == {
+        "status": ((b * -(-kl._chunks(s) // group) + 1,), torch.int64)}
+
+
+@pytest.mark.parametrize("b,s,want", [
+    (1, 1, (4096, 1, 1)), (1, 32768, (4096, 8, 1)),
+    (1, 32769, (4096, 8, 2)), (1, 10_938_368, (16384, 8, 84)),
+    (64, 4096, (4096, 1, 1)), (64, 65537, (16384, 8, 1)),
+    (263, 16384, (8192, 2, 1)), (264, 16384, (16384, 1, 1)),
+    (132, 16385, (16384, 2, 1)), (66, 16384, (4096, 4, 1))])
+def test_stats_tiling_rule(b, s, want):
+    """The stats' (tile, cluster, clusters a row): 16,384 symbols a
+    block, halved while a launch has fewer than 264 blocks, 4,096 at
+    least; clusters of the row's tiles rounded up to a power of two, at
+    most 8; and the scratch declared only for rows of many clusters."""
+    assert kl.stats_tiling(b, s) == want
+    x = torch.empty((b, s), dtype=torch.uint8, device="meta")
+    ws = kl.lossless_stats_workspace(x)
+    if want[2] == 1:
+        assert ws == {}
+    else:
+        assert ws == {"sums": ((b, 258), torch.int64)}
 
 
 @settings(max_examples=12, deadline=None)
@@ -237,8 +311,13 @@ def test_operators_on_the_cpu_and_on_meta(name):
 def test_declared_workspaces():
     x = torch.empty((3, 70_000), dtype=torch.uint8, device="meta")
     t = torch.empty((3, 256), dtype=torch.int64, device="meta")
+    # each chunk's status word (18 chunks a row) and the ticket counter
     assert kl.huffman_pack_workspace(x, t, t) == {
-        "chunk_bits": ((3, 18), torch.int64)}
+        "status": ((3 * 18 + 1,), torch.int64)}
+    # 3 x 70,000: 4,096-symbol tiles, 18 a row, three clusters of 8
+    # blocks: each row's 257 sums and its count of arrived clusters
+    assert kl.lossless_stats_workspace(x) == {
+        "sums": ((3, 258), torch.int64)}
     assert kl.rle_scan_workspace(x) == {
         "tile_runs": ((3, 3), torch.int64),
         "tile_base": ((3, 3), torch.int64)}
