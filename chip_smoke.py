@@ -126,19 +126,26 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    bound, the step-4 checkpoint's snapshot, save and load seconds with the
    ``ckpt.*`` spans (loaded bit-exact); a step's launches are the
    optimizer path's kernels' (``kernels/csrc/optim.cu``): ``ef_amax`` and
-   ``ef_apply`` a leaf for ``ef_quantize`` and ``adamw_update`` a leaf,
-   with no ``rb_encode``/``rb_decode`` (the checkpoint's only) and no call
-   of a plain version (the plain bitplanes, ``ef_quantize``'s plane path,
-   AdamW's ``_upd``); each of the three kernels bit-identical to its plain
-   version on every gradient leaf (the 122.9M-value embedding's included;
-   ``adamw_update`` in float32 and in bfloat16 state); the step's stages
-   (loss and gradient, ``ef_quantize``, the global norm, the update; CUDA
-   events) and wall with the kernels and without them (the eager path
-   before them) in turns in one process, and ``torch._fused_adamw_`` over
-   the same leaves; the two register_block kernels and the three new
-   ones timed at the embedding's N (``torch._fused_adamw_`` beside
-   ``adamw_update``); with ``--profile``, one more danube step under
-   ``torch.profiler``;
+   ``ef_apply`` a leaf for ``ef_quantize``, ``adamw_update`` a leaf and
+   one ``global_sumsq`` for the global norm, with no
+   ``rb_encode``/``rb_decode`` (the checkpoint's only) and no call of a
+   plain version (the plain bitplanes, ``ef_quantize``'s plane path,
+   AdamW's ``_upd``, the norm's float64 chain); each of the three
+   elementwise kernels bit-identical to its plain version on every
+   gradient leaf (the 122.9M-value embedding's included; ``adamw_update``
+   in float32 and in bfloat16 state), and ``global_sumsq`` over the 12
+   gradient leaves and over special leaves (zeros, subnormals, squares
+   past float32, bfloat16, empty, unaligned) the same bits on two calls,
+   each leaf's sum within 1e-12 relative of the float64 chain's and the
+   norm within one float32 ulp (the difference printed), timed with its
+   bound, the chain and ``torch.nn.utils.get_total_norm`` beside it; the
+   step's stages (loss and gradient, ``ef_quantize``, the global norm,
+   the update; CUDA events) and wall with the kernels and without them
+   (the eager path before them) in turns in one process, and
+   ``torch._fused_adamw_`` over the same leaves; the two register_block
+   kernels and the elementwise ones timed at the embedding's N
+   (``torch._fused_adamw_`` beside ``adamw_update``); with ``--profile``,
+   one more danube step under ``torch.profiler``;
 15. the mesh-bound paths (``repro_torch.distributed``, ``launch.mesh``):
    a NCCL world of one rank and a (1, 1) ``('data', 'model')`` mesh.
    ``make_compressed_allreduce`` over vectors of the sizes of
@@ -237,7 +244,8 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ``make_train_step`` steps of 1 x 4096 each (losses finite and
    falling), and jamba's period prefilling 1 x 4096 (finite logits);
    launches = scanning layers x steps x passes (and ``adamw_update``
-   parameter leaves x steps, no other kernel); the event time of the scan
+   parameter leaves x steps, ``global_sumsq`` one a step for each 64
+   leaves, no other kernel); the event time of the scan
    calls in each step and in the prefill (CUDA events around each wrapper
    call: an upper bound on the kernels' device time) and its share of the
    wall; then one more warm training step of each under ``torch.profiler``:
@@ -254,10 +262,11 @@ imports nothing of JAX and nothing of the JAX package.  Phases, in order
    there (wrapper, replayed graph past the L2, plain pass, bound,
    ``torch.bincount`` beside the histogram, ``torch.repeat_interleave``
    beside the expand; the pack's bound also with the whole cap written,
-   the floor of a byte-identical output); the write side's kernels at most
-   two device activities a call (the kernel, copy and memset nodes of a
-   CUDA graph of one call), the pack with no bit-count pass and no row
-   scan; on those groups the read side's kernels also give the
+   the floor of a byte-identical output); the write side's kernels and
+   ``rle_scan`` at most two device activities a call (the kernel, copy
+   and memset nodes of a CUDA graph of one call), the pack with no
+   bit-count pass and no row scan, the scan with no count kernel and no
+   row scan; on those groups the read side's kernels also give the
    decode's walks over one call (chunks, none walked serially,
    synchronisation rounds), its device time at 32, 64, 128 and 256 lanes a
    chunk, the largest expand tile's share of the bytes, and each kernel's
@@ -1918,7 +1927,8 @@ class _PlainCalls:
     """Counts calls of plain versions while active, by name: by default
     those on the trainer's path, the plain bitplane encode and decode
     (``kernels.ops`` reaches them through ``kernels.ref``'s attributes),
-    ``ef_quantize``'s plane path and AdamW's ``_upd``; else ``targets``
+    ``ef_quantize``'s plane path, AdamW's ``_upd`` and the global norm's
+    float64 chain; else ``targets``
     ({name: (module, attribute)}, such as the lossless codec's,
     ``_plain_lossless_targets``)."""
 
@@ -1930,7 +1940,8 @@ class _PlainCalls:
                        "ref.decode": (ref, "decode"),
                        "ef_quantize planes": (gc, "_encode_planes"),
                        "ef_quantize decode": (gc, "_decode_planes"),
-                       "adamw._upd": (adamw, "_upd")}
+                       "adamw._upd": (adamw, "_upd"),
+                       "adamw._sumsq_plain": (adamw, "_sumsq_plain")}
         self.targets = targets
         self.n = dict.fromkeys(self.targets, 0)
 
@@ -1966,13 +1977,14 @@ def _rb_launches(bp):
             "rb_decode": bp.decode_register_block_cuda.launches}
 
 
-OPT_KERNELS = ("ef_amax", "ef_apply", "adamw_update")
+OPT_KERNELS = ("ef_amax", "ef_apply", "adamw_update", "global_sumsq")
 OPT_SOURCE = "src/repro_torch/kernels/csrc/optim.cu"
 # what each replaces: the reference's jitted code that XLA fuses (no
 # Pallas kernel)
 OPT_REPLACES = {"ef_amax": "src/repro/distributed/grad_compress.py:65",
                 "ef_apply": "src/repro/distributed/grad_compress.py:65",
-                "adamw_update": "src/repro/optim/adamw.py:68"}
+                "adamw_update": "src/repro/optim/adamw.py:68",
+                "global_sumsq": "src/repro/optim/adamw.py:54"}
 FP64_FLOPS = 34e12              # H100 SXM, float64 outside the tensor cores
 
 
@@ -2091,7 +2103,7 @@ def step_bound(cfg, n_params, batch, seq):
 
 
 def _timing_row(torch, name, case, n, call, plain, nbytes, ops_ms=0.0,
-                library=None, inner=20):
+                library=None, inner=20, of="the embedding's"):
     """A kernel's times at one shape: ``ms`` back to back through its
     wrapper, ``device_ms`` from a replayed CUDA graph of ``inner`` calls,
     the plain version's, the library call's (or None) and the bound."""
@@ -2104,7 +2116,7 @@ def _timing_row(torch, name, case, n, call, plain, nbytes, ops_ms=0.0,
              bound_ms=max(bytes_ms, ops_ms),
              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
              bytes=nbytes)
-    print(f"{name} {case} (N={n}, the embedding's): kernel "
+    print(f"{name} {case} (N={n}, {of}): kernel "
           f"{r['ms'] * 1e3:.1f} us a call back to back, device "
           f"{r['device_ms'] * 1e3:.1f} us "
           f"({nbytes / r['device_ms'] / 1e6:.0f} GB/s), plain "
@@ -2255,6 +2267,11 @@ def optimizer_stages(torch, bp, trainer, res, batch):
               f"{t[1]:.1f} ms, AdamW {t[3]:.1f} ms = global norm "
               f"{t[2]:.1f} ms + update {t[3] - t[2]:.1f} ms", flush=True)
         del grads, qs
+    print("global norm stage (CUDA events): " + "; ".join(
+        f"{mode} " + " / ".join(f"{r['norm_ms']:.3f}" for r in out[mode])
+        + " ms, step wall " + " / ".join(f"{r['wall_ms']:.1f}"
+                                          for r in out[mode]) + " ms"
+        for mode in ("eager", "kernels")), flush=True)
     opt = state[1]
     leaves = tree_leaves(state[0])      # the parameters as the gradients
     fused = _fused_adamw(torch, trainer.opt_cfg, leaves, leaves,
@@ -2356,8 +2373,8 @@ def danube_train(torch, bp, ref, profile=False):
     check(len(per_step) == TRAIN_STEPS - 1
           and all(s == per_step[0] for s in per_step)
           and per_step[0] == {"ef_amax": n_leaves, "ef_apply": n_leaves,
-                              "adamw_update": n_leaves, "rb_encode": 0,
-                              "rb_decode": 0}
+                              "adamw_update": n_leaves, "global_sumsq": 1,
+                              "rb_encode": 0, "rb_decode": 0}
           and ckpt_launches["rb_encode"] > 0
           and not any(ckpt_launches[k] for k in OPT_KERNELS),
           f"launches: per step {per_step}, last step and checkpoint {last}")
@@ -2371,7 +2388,7 @@ def danube_train(torch, bp, ref, profile=False):
               f"{m['grad_norm']:.4f}", flush=True)
     print(f"danube run {wall:.2f} s; launches a step: {per_step[0]} "
           f"(ef_amax and ef_apply a leaf for ef_quantize, adamw_update a "
-          f"leaf); the checkpoint's: {ckpt_launches}; plain versions' "
+          f"leaf, one global_sumsq); the checkpoint's: {ckpt_launches}; plain versions' "
           f"calls: {plain}; peak device memory {peak:.3f} GiB", flush=True)
 
     tree = {"params": res["params"], "opt": res["opt_state"], "ef": res["ef"]}
@@ -2412,14 +2429,21 @@ def danube_train(torch, bp, ref, profile=False):
         _profile_step(torch, trainer, res, batch)
     _, grads = value_and_grad(lambda p: model.loss(p, batch), res["params"])
     errs = optimizer_kernels_check(torch, bp, grads, res, trainer.opt_cfg)
-    del grads
+    g_leaves = tree_leaves(grads)
+    # the kernels line's error is the main path's; the special leaves'
+    # sums reach 1e75, held by the relative bound alone
+    errs["global_sumsq"] = sumsq_check(torch, g_leaves,
+                                       "danube/2's gradient leaves")
+    sumsq_check(torch, sumsq_specials(torch), "special leaves")
+    sumsq_row = sumsq_timing(torch, g_leaves)
+    del grads, g_leaves
     stages = optimizer_stages(torch, bp, trainer, res, batch)
     n_emb = model.params["embed"].numel()
     del res, tree, trainer, model, batch
     _free(torch)
     rows = ef_kernel_timings(torch, bp, ref, n_emb)
     _free(torch)
-    rows += optimizer_kernel_timings(torch, n_emb)
+    rows += optimizer_kernel_timings(torch, n_emb) + [sumsq_row]
     return {"launches": {k: end[k] for k in OPT_KERNELS}, "errs": errs,
             "stages": stages,
             "rows": {r["name"]: r for r in rows if r["name"] in OPT_KERNELS
@@ -2495,6 +2519,75 @@ def optimizer_kernels_check(torch, bp, grads, res, opt_cfg):
           f"bit, on all {len(qs)} gradient leaves (N up to "
           f"{max(q.numel() for q in qs)})", flush=True)
     return errs
+
+
+def sumsq_check(torch, leaves, what):
+    """``global_sumsq`` on the card against its plain version (the float64
+    chain): the same bits on two calls, each leaf's sum within 1e-12
+    relative (zeros exact), the norm within one float32 ulp; prints the
+    norms and their difference.  Returns the largest |kernel - plain| of
+    the sums."""
+    from repro_torch.kernels import optim as ko
+    from repro_torch.optim import adamw
+    got, again = ko.global_sumsq(leaves), ko.global_sumsq(leaves)
+    check(torch.equal(got.view(torch.int64), again.view(torch.int64)),
+          f"global_sumsq on {what}: two calls differ")
+    want = ko.global_sumsq_ref(leaves)
+    zero = want == 0
+    check(torch.equal(got[zero], want[zero]),
+          f"global_sumsq on {what}: a zero sum is not zero")
+    rel = ((got - want).abs()[~zero] / want[~zero]).max().item() \
+        if bool((~zero).any()) else 0.0
+    check(rel <= 1e-12, f"global_sumsq on {what}: {rel} relative")
+    tree = {f"{i:04d}": g for i, g in enumerate(leaves)}
+    norm = adamw.global_norm(tree)
+    chain = adamw.global_norm(tree, backend="torch")
+    ulps = abs(int(norm.view(torch.int32)) - int(chain.view(torch.int32)))
+    check(ulps <= 1, f"global_sumsq on {what}: norm {norm.item()!r} against "
+          f"the chain's {chain.item()!r}")
+    print(f"global_sumsq on {what}: {len(leaves)} leaves, the same bits on "
+          f"two calls; sums within {rel:.3e} relative of the float64 chain; "
+          f"norm {norm.item()!r} against the chain's {chain.item()!r} "
+          f"({ulps} ulp)", flush=True)
+    return (got - want).abs().max().item()
+
+
+def sumsq_specials(torch):
+    """Special leaves for ``global_sumsq``: zeros, subnormals, squares past
+    float32, bfloat16, empty, one value, either side of a chunk, one that
+    starts off a 16-byte boundary."""
+    from repro_torch.kernels import optim as ko
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    c = ko.SUM_CHUNK
+    return [torch.zeros(1000, device="cuda"),
+            torch.full((70_000,), 1e-40, device="cuda"),
+            torch.full((c + 3,), 3e35, device="cuda"),
+            torch.tensor([1e19, -1e-45, 0.0, -0.0], device="cuda"),
+            torch.randn(200_003, generator=gen, device="cuda").to(
+                torch.bfloat16),
+            torch.empty(0, device="cuda"),
+            torch.randn(1, generator=gen, device="cuda"),
+            torch.randn(c - 1, generator=gen, device="cuda"),
+            torch.randn(c + 2, generator=gen, device="cuda")[1:]]
+
+
+def sumsq_timing(torch, leaves):
+    """``global_sumsq`` over the gradient leaves: wrapper and replayed
+    graph, the plain chain, ``torch.nn.utils.get_total_norm`` (the library
+    call for the same function, accumulating in float32) and the bound:
+    every value read once (its dtype's bytes) and L float64 sums written,
+    or one float64 multiply and add a value, the larger."""
+    from repro_torch.kernels import optim as ko
+    n = sum(g.numel() for g in leaves)
+    nbytes = sum(g.numel() * g.element_size() for g in leaves) \
+        + 8 * len(leaves)
+    return _timing_row(
+        torch, "global_sumsq", f"{len(leaves)} leaves", n,
+        lambda: ko.global_sumsq(leaves),
+        lambda: ko.global_sumsq_ref(leaves), nbytes,
+        2 * n / FP64_FLOPS * 1e3,
+        library=lambda: torch.nn.utils.get_total_norm(leaves), inner=5,
+        of="danube/2's gradient leaves")
 
 
 def train_phase(torch, bp, ref, profile=False):
@@ -3932,10 +4025,12 @@ def scan_main_path(torch, bp, sc):
     through ``make_prefill_step`` (bf16 weights, ``unstack_fan_in``): the
     loss finite and falling, the logits finite, each kernel's launches
     scanning layers x steps x passes (a forward, its remat recompute, a
-    backward), ``adamw_update``'s parameter leaves x steps, and no other
+    backward), ``adamw_update``'s parameter leaves x steps,
+    ``global_sumsq``'s argument blocks of leaves x steps, and no other
     kernel's.  Returns the scan kernels' launches."""
     import dataclasses
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import optim as ko
     from repro_torch.models.model import Model, model_abstract
     from repro_torch.models.params import tree_leaves
     from repro_torch.obs import trace as obs_trace
@@ -3950,15 +4045,18 @@ def scan_main_path(torch, bp, sc):
         passes = 2 if cfg.remat else 1
         n = _scan_layers(cfg)
         want = {fwd: n * SCAN_STEPS * passes, bwd: n * SCAN_STEPS}
-        # and the step's AdamW update, one launch a parameter leaf
-        updates = len(tree_leaves(model_abstract(cfg))) * SCAN_STEPS
+        # and the step's AdamW update, one launch a parameter leaf, and
+        # its global norm, one launch an argument block of leaves
+        leaves = len(tree_leaves(model_abstract(cfg)))
+        updates = leaves * SCAN_STEPS
+        norms = -(-leaves // ko.SUM_LEAVES) * SCAN_STEPS
         check(got == dict(dict.fromkeys(got, 0), adamw_update=updates,
-                          **want),
-              f"{arch}/{layers} training launches {got}, expected {want} "
-              f"and {updates} adamw_update")
+                          global_sumsq=norms, **want),
+              f"{arch}/{layers} training launches {got}, expected {want}, "
+              f"{updates} adamw_update and {norms} global_sumsq")
         print(f"{arch}/{layers} training launches: {want} ({n} scanning "
               f"layers x {SCAN_STEPS} steps x passes), adamw_update "
-              f"{updates}", flush=True)
+              f"{updates}, global_sumsq {norms}", flush=True)
         total.update(want)
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
                               n_layers=JAMBA_PERIOD)
@@ -4318,20 +4416,23 @@ def lossless_timings(torch, c, what):
 
 
 def write_side_at(torch, c, what, rows):
-    """The write side's kernels at the group ``c``: the pack's bound with
-    its whole cap written, and each kernel's device activities a call: at
-    most two, the pack's with no bit-count pass and no row scan."""
+    """The write side's kernels and ``rle_scan`` at the group ``c``: the
+    pack's bound with its whole cap written, and each kernel's device
+    activities a call: at most two, the pack's with no bit-count pass and
+    no row scan, the scan's with no count kernel and no row scan."""
     from repro_torch.kernels import lossless as kl
     floor = _lossless_bytes("huffman_pack", c, cap=True)
     rows["huffman_pack"].update(floor_bytes=floor,
                                 floor_ms=floor / HBM_BYTES_PER_S * 1e3)
     args = {"lossless_stats": (c["x"],),
-            "huffman_pack": (c["x"], c["lt"], c["ct"])}
-    for name in WRITE_SIDE:
+            "huffman_pack": (c["x"], c["lt"], c["ct"]),
+            "rle_scan": (c["x"],)}
+    for name in WRITE_SIDE + ("rle_scan",):
         fn = getattr(kl, name)
         acts = _device_activities(torch, lambda: fn(*args[name]))
         check(0 < sum(acts.values()) <= 2
-              and not any("huff_bits" in k or "row_scan" in k for k in acts),
+              and not any("huff_bits" in k or "row_scan" in k
+                          or "rle_count" in k for k in acts),
               f"{name} on {what}: device activities {acts}")
         rows[name]["activities"] = acts
         print(f"{name} on {what}: device activities a call "

@@ -15,8 +15,8 @@
 // Rows.  Every operator takes a bucket: B rows of one length, row b at
 // b * (row length) of a contiguous buffer.  Chunks or tiles of a row go on
 // gridDim.x, rows on gridDim.y, at most kMaxRows rows a launch (the C
-// entry points split larger buckets); huffman_pack's and rle_expand's
-// blocks take tickets over all rows instead.  A row need not start 16-byte
+// entry points split larger buckets); huffman_pack's, rle_scan's and
+// rle_expand's blocks take tickets over all rows instead.  A row need not start 16-byte
 // aligned (its length need not be a multiple of 16): 16-byte loads and
 // stores are taken where the address is so aligned and the bytes lie in
 // the row, bytes one at a time elsewhere.
@@ -26,10 +26,6 @@
 // tests hold to the reference.  Integer sums are exact in any order.  The
 // Huffman pack ORs codes where the plain version adds them: the codes of
 // one stream occupy disjoint bits, so OR and add agree, in any order.
-//
-// The row-scan helper (row_scan_kernel) is one block a row over that
-// row's tile totals: the exclusive prefix sums (int64) and the row's
-// total.  The RLE scan scans its tiles' run counts with it.
 //
 // --- lossless_stats --------------------------------------------------------
 //
@@ -152,17 +148,39 @@
 // --- rle_scan -----------------------------------------------------------------
 //
 // No run crosses a multiple of RLE_BREAK = 32,768, so a tile of that many
-// symbols (a block of 1024 threads, 32 symbols each) holds whole runs:
-//   1. rle_count_kernel counts each tile's run starts;
-//   2. the row-scan helper gives each tile its first run's slot and the
-//      row's run count;
-//   3. rle_emit_kernel scans the tile's run starts over the block, puts
-//      each run's start and value into shared memory at its slot, then
-//      writes the tile's values and lengths (the next start, or the
-//      tile's end, less its own), consecutive threads at consecutive slots.
-// Only the first nruns slots of a row are written (the plain version's
-// later slots are padding that the host trims).  Lengths are at most
-// 32,768 and are stored as uint16 bits (int16 storage).  Bound: bytes.
+// symbols holds whole runs, and the only dependency across tiles is each
+// tile's first output slot.  One pass with a decoupled look-back, plus the
+// zeroing of its status words (two launches a call).  A block takes a
+// ticket for a tile, in order over (row, tile), so that its predecessors
+// have all started: a block of 512 threads, two an SM, where every tile of
+// the call fits on the card so (the card's SM count read at the call),
+// else of 256, four an SM, so that a call of many tiles still has them
+// all resident and a call of few has more warps a tile.  It reads the
+// tile's symbols once, 16-byte loads (segment g = j * threads + thread of
+// 16 symbols, j < 4 or 8), keeps them in registers and copies them to a
+// shared tile.  It
+// forms each segment's run starts byte-parallel (the neighbour differs, or
+// the tile's first symbol: a multiple of RLE_BREAK) into a 16-bit mask
+// kept in shared memory, and sums them over each warp's 512-symbol piece
+// (piece j * warps + warp) into the piece's count and last start; one warp
+// scans the 64 pieces in order to each piece's first slot and the start
+// before it.  The block publishes the tile's count (flag and sum in one
+// 64-bit status word a tile, as the pack's) and looks back to its first
+// slot in the row (look_back).  Then each warp walks its pieces 32
+// symbols a step (two segments' masks): lane k first scans step k's
+// starts over the piece's 16 steps, to each step's first slot and the
+// last start before it, so that no step waits on another; in each step
+// the starting lanes rank among the step's starts and write their values
+// at consecutive slots and the lengths of the runs before them (a start
+// less the start before it); the tile's last start writes its own (the
+// tile's end less it).  A piece with no start is skipped.  The row's last
+// tile writes nruns.  Only the first nruns slots of a row are written (the
+// plain version's later slots are padding that the host trims).  Lengths
+// are at most 32,768 and are stored as uint16 bits (int16 storage).
+// Bound: bytes, the symbols read once and this data's runs (3 bytes each)
+// written once.  Every tile of a call is resident at once up to 528 tiles
+// (334 at Isabel's group), so the reads, the look-backs and the writes of
+// all tiles run in step and do not overlap (PERF.md).
 //
 // --- rle_expand ---------------------------------------------------------------
 //
@@ -196,8 +214,8 @@
 //
 // Launches: every kernel runs on the caller's stream and allocates
 // nothing; the wrapper allocates the outputs and the scratch (the stats'
-// cluster partials and counters, the RLE tile totals and bases, the
-// decode's primary tables, the pack's and rle_expand's status words),
+// cluster partials and counters, the decode's primary tables, the pack's,
+// rle_scan's and rle_expand's status words),
 // declared in kernels/bitplane.py WORKSPACE.  Each C entry point returns
 // the first non-zero error of its launches.
 
@@ -215,7 +233,6 @@ constexpr int kRleBreak = 32768;        // core/lossless.py RLE_BREAK
 constexpr int kLut = 1 << 16;           // 2**MAX_CODE_LEN peek entries
 constexpr long long kMaxRows = 65535;   // gridDim.y
 
-constexpr int kScanThreads = 1024;
 constexpr int kStatsThreads = 256;
 constexpr int kStatsMaxSegs = 4;        // 16-symbol segments a thread, at most
 constexpr int kStatsMaxTile = kStatsThreads * 16 * kStatsMaxSegs;
@@ -229,7 +246,11 @@ constexpr int kPackGroup = 4;           // chunks a pack ticket, at most
 constexpr long long kPackBlocks = 132 * kPackMinBlocks;  // the card's, at once
 // a ticket's words from its first bit: at most 2,048 a chunk, and one
 constexpr int kPackWords = kPackGroup * kChunk * 16 / 32 + 8;
-constexpr int kRleThreads = 1024;       // 32 symbols a thread: a tile
+constexpr int kRlePiece = 512;          // a warp's symbols a segment row
+constexpr int kRlePieces = kRleBreak / kRlePiece;
+constexpr int kRleSteps = kRlePiece / 32;   // a piece's 32-symbol steps
+constexpr int kRleWide = 512;           // an RLE block's threads on few tiles
+constexpr int kRleNarrow = 256;         // on many
 constexpr int kPrimBits = 11;           // the decode's primary table
 constexpr int kPrim = 1 << kPrimBits;
 constexpr int kPrimSub = 16 - kPrimBits;   // 32 peeks a primary entry
@@ -254,7 +275,9 @@ constexpr unsigned long long kValBits = (1ull << 62) - 1;
 static_assert(kPackThreads * 16 == kChunk, "a pack block is a chunk");
 static_assert(kPackThreads == kLookThreads && kExpThreads == kLookThreads,
               "the look-backs' blocks");
-static_assert(kRleThreads * 32 == kRleBreak, "an RLE block is a tile");
+static_assert(kRlePieces == 64 && kRleSteps <= 32
+              && kRleBreak % (kRleWide * 16) == 0
+              && kRleBreak % (kRleNarrow * 16) == 0, "an RLE block is a tile");
 static_assert(kPrim % 256 == 0, "a primary block is 256 entries");
 static_assert(16 * kMaxLanes <= kChunk, "a decode's entry exits fit its tile");
 
@@ -409,30 +432,6 @@ __device__ __forceinline__ void stage_edges(uint8_t* dst, const Stage& s) {
   }
 }
 
-// ------------------------------------------------------ the row scan --
-
-// out[i] = in[0] + ... + in[i - 1] over each row of n values; total[row]
-// (if given) the row's sum.  One block a row.
-__global__ void __launch_bounds__(kScanThreads)
-row_scan_kernel(const long long* __restrict__ in, long long* __restrict__ out,
-                long long* __restrict__ total, int n) {
-  __shared__ long long scratch[32];
-  const long long row = blockIdx.y;
-  in += row * n;
-  out += row * n;
-  long long carry = 0;
-  for (int base = 0; base < n; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const long long v = i < n ? in[i] : 0;
-    long long tile;
-    const long long ex = block_exclusive_scan(v, scratch, tile);
-    if (i < n) out[i] = carry + ex;
-    carry += tile;
-    __syncthreads();
-  }
-  if (total != nullptr && threadIdx.x == 0) total[row] = carry;
-}
-
 // ------------------------------------------------------- the look-back --
 
 __device__ __forceinline__ unsigned long long status_load(
@@ -476,51 +475,51 @@ __device__ __forceinline__ void publish_sum(unsigned long long* srow,
 // Tile t of a row whose status words are `srow` (tiles in ticket order),
 // after publish_sum: sums its predecessors' words back to the nearest
 // inclusive one and publishes its inclusive sum; returns its exclusive
-// prefix, the same in every thread.  A step reads kLookThreads *
-// kLookWidth words at once: thread i the words at distances i + 1 +
-// kLookThreads * j, so that only the nearest row, one word a thread, can
-// still wait on a tile's first status.  Every thread of the block
-// (kLookThreads) calls it, right after a block_exclusive_scan on `scratch`
-// if need be (a barrier comes before any write); `scratch` and `first_s`
-// (kLookWidth * kLookThreads / 32 ints, shared) are free again when it
-// returns.
+// prefix, the same in every thread.  A step reads kBlock * kLookWidth
+// words at once: thread i the words at distances i + 1 + kBlock * j, so
+// that only the nearest row, one word a thread, can still wait on a
+// tile's first status.  Every thread of the block (kBlock threads:
+// kLookThreads, or rle_scan's block) calls it, right after a
+// block_exclusive_scan on `scratch` if need be (a barrier comes before any
+// write); `scratch` and `first_s` (kLookWidth * kBlock / 32 ints, shared)
+// are free again when it returns.
+template <int kBlock = kLookThreads>
 __device__ __forceinline__ long long look_back(unsigned long long* srow,
                                                long long t,
                                                long long tile_sum,
                                                long long* scratch,
                                                int* first_s) {
-  constexpr int kWarps = kLookThreads / 32;
+  constexpr int kWarps = kBlock / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   long long acc = 0;
   for (long long look = t - 1 - tid; look + tid >= 0;
-       look -= kLookThreads * kLookWidth) {
+       look -= kBlock * kLookWidth) {
     // before the row's first tile: an inclusive 0
     unsigned long long sv[kLookWidth];
 #pragma unroll
     for (int j = 0; j < kLookWidth; ++j) {
-      const long long tj = look - kLookThreads * j;
+      const long long tj = look - kBlock * j;
       sv[j] = tj >= 0 ? __ldcg(srow + tj) : kInc;   // pipelined
     }
 #pragma unroll
     for (int j = 0; j < kLookWidth; ++j) {
-      const long long tj = look - kLookThreads * j;
+      const long long tj = look - kBlock * j;
       if ((sv[j] & ~kValBits) < kAgg) sv[j] = status_wait(srow + tj, kAgg);
       const unsigned inc = __ballot_sync(kFull,
                                          (sv[j] & ~kValBits) == kInc);
       if (lane == 0) {
-        first_s[j * kWarps + warp] = inc ? tid + __ffs(inc) - 1
-                                         : kLookThreads;
+        first_s[j * kWarps + warp] = inc ? tid + __ffs(inc) - 1 : kBlock;
       }
     }
     __syncthreads();
     // the nearest inclusive word: its row, then its thread
-    int row = kLookWidth, nearest = kLookThreads;
+    int row = kLookWidth, nearest = kBlock;
     for (int j = 0; j < kLookWidth && row == kLookWidth; ++j) {
       for (int w = 0; w < kWarps; ++w) {
         nearest = first_s[j * kWarps + w] < nearest
             ? first_s[j * kWarps + w] : nearest;
       }
-      if (nearest < kLookThreads) row = j;
+      if (nearest < kBlock) row = j;
     }
     long long part = 0;
 #pragma unroll
@@ -1306,80 +1305,171 @@ huff_decode_kernel(const uint32_t* __restrict__ words, long long n_words,
 
 // ----------------------------------------------------------- rle scan --
 
-// bit k set where position q + k (< s) starts a run; a, c: the 32 symbols
-__device__ __forceinline__ uint32_t run_starts(const uint8_t* __restrict__ row,
-                                               long long s, long long q,
-                                               Sym16& a, Sym16& c) {
-  a = load16(row, s, q);
-  c = load16(row, s, q + 16);
-  uint32_t prev = __shfl_up_sync(kFull, sym_at(c, 15), 1);
-  if ((threadIdx.x & 31) == 0) {
-    prev = (q > 0 && q <= s) ? __ldg(row + q - 1) : 256u;
-  }
-  uint32_t mask = 0;
+// bit k set where symbol k of the segment v starts a run: it differs from
+// the symbol before it (pv for the first), or `forced` (the first); only
+// the first cnt symbols (those in the row) count
+__device__ __forceinline__ uint32_t seg_starts(const Sym16& v, uint32_t pv,
+                                               bool forced, int cnt) {
+  uint32_t m = 0;
 #pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const uint32_t x = k < 16 ? sym_at(a, k) : sym_at(c, k - 16);
-    if (q + k < s && (x != prev
-                      || (k == 0 && (q & (kRleBreak - 1)) == 0))) {
-      mask |= 1u << k;
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t x = v.w[w];
+    const uint32_t ne = nonzero_bytes(x ^ ((x << 8) | (w ? v.w[w - 1] >> 24
+                                                        : pv)));
+    m |= ((ne >> 7 & 1u) | (ne >> 14 & 2u) | (ne >> 21 & 4u)
+          | (ne >> 28 & 8u)) << (4 * w);
+  }
+  if (forced) m |= 1u;
+  return cnt >= 16 ? m : (cnt <= 0 ? 0u : m & ((1u << cnt) - 1u));
+}
+
+// A block of kThreads a ticket: tile t of row b, tickets in order over
+// (row, tile); kMinBlocks of them an SM (2 of 512 threads, 4 of 256).
+template <int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rle_scan_kernel(const uint8_t* __restrict__ syms, long long s, int tiles,
+                long long tickets, unsigned long long* __restrict__ status,
+                unsigned long long* __restrict__ ticket,
+                uint8_t* __restrict__ values, uint16_t* __restrict__ lengths,
+                long long* __restrict__ nruns) {
+  constexpr int kRleSegs = kRleBreak / (kThreads * 16);   // 16-byte loads
+  constexpr int kRleWarps = kThreads / 32;
+  __shared__ __align__(16) uint8_t tile_s[kRleBreak];
+  // each segment's run starts (bit k: its symbol k), two a word
+  __shared__ uint32_t mask_s[kRleBreak / 32];
+  // each piece's run starts and last start (-1: none), then its first
+  // run's slot in the tile and the last start before it
+  __shared__ int piece_n[kRlePieces], piece_last[kRlePieces];
+  __shared__ int piece_first[kRlePieces], piece_prev[kRlePieces];
+  __shared__ long long scratch[32];
+  __shared__ int first_s[kLookWidth * kThreads / 32];
+  __shared__ long long ticket_s;
+  __shared__ int total_s, last_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) ticket_s = static_cast<long long>(atomicAdd(ticket, 1ull));
+  __syncthreads();
+  const long long tk = ticket_s;
+  if (tk >= tickets) return;
+  const int t = static_cast<int>(tk % tiles);
+  const long long b = tk / tiles;
+  const uint8_t* row = syms + b * s;
+  const long long t0 = static_cast<long long>(t) * kRleBreak;
+  const int len = static_cast<int>(s - t0 < kRleBreak ? s - t0 : kRleBreak);
+  // every load of the thread, then the shared tile
+  Sym16 v[kRleSegs];
+#pragma unroll
+  for (int j = 0; j < kRleSegs; ++j) {
+    const int g = j * kThreads + tid;
+    if (16 * g < len) {
+      v[j] = load16(row, s, t0 + 16 * g);
+    } else {
+      v[j].w[0] = v[j].w[1] = v[j].w[2] = v[j].w[3] = 0u;
     }
-    prev = x;
   }
-  return mask;
-}
-
-__global__ void __launch_bounds__(kRleThreads)
-rle_count_kernel(const uint8_t* __restrict__ syms, long long s,
-                 long long* __restrict__ tile_runs, int tiles) {
-  __shared__ int scratch[32];
-  const long long b = blockIdx.y;
-  const long long q = static_cast<long long>(blockIdx.x) * kRleBreak
-                      + threadIdx.x * 32;
-  Sym16 a, c;
-  const uint32_t mask = run_starts(syms + b * s, s, q, a, c);
-  int total;
-  block_exclusive_scan(static_cast<int>(__popc(mask)), scratch, total);
-  if (threadIdx.x == 0) tile_runs[b * tiles + blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kRleThreads)
-rle_emit_kernel(const uint8_t* __restrict__ syms, long long s,
-                const long long* __restrict__ tile_base, int tiles,
-                uint8_t* __restrict__ values,
-                uint16_t* __restrict__ lengths) {
-  // each run's start (kRleBreak uint16), then its value (kRleBreak bytes)
-  extern __shared__ uint16_t starts[];
-  uint8_t* vals_s = reinterpret_cast<uint8_t*>(starts + kRleBreak);
-  __shared__ int scratch[32];
-  const long long b = blockIdx.y;
-  const long long t0 = static_cast<long long>(blockIdx.x) * kRleBreak;
-  const long long q = t0 + threadIdx.x * 32;
-  Sym16 a, c;
-  const uint32_t mask = run_starts(syms + b * s, s, q, a, c);
-  int total;
-  int r = block_exclusive_scan(static_cast<int>(__popc(mask)), scratch,
-                               total);
-  const long long base = tile_base[b * tiles + blockIdx.x];
-  uint8_t* vals = values + b * s + base;
-  uint16_t* lens = lengths + b * s + base;
 #pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    if (mask & (1u << k)) {
-      starts[r] = static_cast<uint16_t>(threadIdx.x * 32 + k);
-      vals_s[r] = static_cast<uint8_t>(k < 16 ? sym_at(a, k)
-                                              : sym_at(c, k - 16));
-      ++r;
+  for (int j = 0; j < kRleSegs; ++j) {
+    reinterpret_cast<uint4*>(tile_s)[j * kThreads + tid] =
+        make_uint4(v[j].w[0], v[j].w[1], v[j].w[2], v[j].w[3]);
+  }
+  __syncthreads();
+  // each piece's run starts and last start
+#pragma unroll
+  for (int j = 0; j < kRleSegs; ++j) {
+    const int g = j * kThreads + tid;
+    uint32_t pv = __shfl_up_sync(kFull, v[j].w[3] >> 24, 1);
+    if (lane == 0) pv = g > 0 ? tile_s[16 * g - 1] : 0u;
+    const uint32_t m = seg_starts(v[j], pv, g == 0, len - 16 * g);
+    reinterpret_cast<uint16_t*>(mask_s)[g] = static_cast<uint16_t>(m);
+    const int n = __reduce_add_sync(kFull, static_cast<unsigned>(__popc(m)));
+    const int last = __reduce_max_sync(kFull, m ? 16 * g + 31 - __clz(m)
+                                                : -1);
+    if (lane == 0) {
+      piece_n[j * kRleWarps + warp] = n;
+      piece_last[j * kRleWarps + warp] = last;
     }
   }
   __syncthreads();
-  const int tile_len = static_cast<int>(s - t0 < kRleBreak ? s - t0
-                                                           : kRleBreak);
-  for (int j = threadIdx.x; j < total; j += kRleThreads) {
-    const int end = j + 1 < total ? starts[j + 1] : tile_len;
-    vals[j] = vals_s[j];
-    lens[j] = static_cast<uint16_t>(end - starts[j]);
+  if (warp == 0) {              // the pieces in order, two a lane
+    const int n0 = piece_n[2 * lane], n1 = piece_n[2 * lane + 1];
+    const int a0 = piece_last[2 * lane], a1 = piece_last[2 * lane + 1];
+    int n = n0 + n1, a = a0 > a1 ? a0 : a1;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int yn = __shfl_up_sync(kFull, n, d);
+      const int ya = __shfl_up_sync(kFull, a, d);
+      if (lane >= d) {
+        n += yn;
+        a = a > ya ? a : ya;
+      }
+    }
+    int before = __shfl_up_sync(kFull, a, 1);
+    if (lane == 0) before = -1;
+    piece_first[2 * lane] = n - n0 - n1;
+    piece_first[2 * lane + 1] = n - n1;
+    piece_prev[2 * lane] = before;
+    piece_prev[2 * lane + 1] = before > a0 ? before : a0;
+    if (lane == 31) {
+      total_s = n;
+      last_s = a;
+    }
   }
+  __syncthreads();
+  const int total = total_s, tile_last = last_s;
+  unsigned long long* srow = status + b * tiles;
+  publish_sum(srow, t, total);
+  const long long base = look_back<kThreads>(srow, t, total, scratch,
+                                                first_s);
+  uint8_t* vrow = values + b * s + base;
+  uint16_t* lrow = lengths + b * s + base;
+  // each warp's pieces, 32 symbols a step (two segments' masks): lane k
+  // scans step k's starts over the piece's steps, to each step's first
+  // slot and the last start before it, so that no step waits on another;
+  // the starting lanes rank among the step's starts and write at
+  // consecutive slots
+  const unsigned lower = (1u << lane) - 1u;
+  for (int j = 0; j < kRleSegs; ++j) {
+    const int pi = j * kRleWarps + warp;
+    if (piece_n[pi] == 0) continue;
+    const int p0 = kRlePiece * pi;
+    const unsigned mk = lane < kRleSteps ? mask_s[p0 / 32 + lane] : 0u;
+    int n = __popc(mk);
+    int a = mk ? p0 + 32 * lane + 31 - __clz(mk) : -1;
+#pragma unroll
+    for (int d = 1; d < kRleSteps; d <<= 1) {
+      const int yn = __shfl_up_sync(kFull, n, d);
+      const int ya = __shfl_up_sync(kFull, a, d);
+      if (lane >= d) {
+        n += yn;
+        a = a > ya ? a : ya;
+      }
+    }
+    const int first_k = piece_first[pi] + n - __popc(mk);
+    int prev_k = __shfl_up_sync(kFull, a, 1);
+    if (lane == 0 || prev_k < piece_prev[pi]) prev_k = piece_prev[pi];
+    uint32_t x[kRleSteps];
+#pragma unroll
+    for (int k = 0; k < kRleSteps; ++k) x[k] = tile_s[p0 + 32 * k + lane];
+#pragma unroll
+    for (int k = 0; k < kRleSteps; ++k) {
+      const unsigned mask = __shfl_sync(kFull, mk, k);
+      if (mask == 0) continue;
+      const int r0 = __shfl_sync(kFull, first_k, k);
+      const int prev = __shfl_sync(kFull, prev_k, k);
+      if (mask >> lane & 1u) {
+        const int q = p0 + 32 * k;
+        const unsigned below = mask & lower;
+        const int p = q + lane;
+        const int r = r0 + __popc(below);
+        vrow[r] = static_cast<uint8_t>(x[k]);
+        if (r > 0) {
+          const int before = below ? q + 31 - __clz(below) : prev;
+          lrow[r - 1] = static_cast<uint16_t>(p - before);
+        }
+        if (p == tile_last) lrow[r] = static_cast<uint16_t>(len - p);
+      }
+    }
+  }
+  if (tid == 0 && t + 1 == tiles) nruns[b] = base + total;
 }
 
 // --------------------------------------------------------- rle expand --
@@ -1599,8 +1689,6 @@ rle_expand_kernel(const uint8_t* __restrict__ values,
 
 // ------------------------------------------------------------ launches --
 
-constexpr int kMaxDevices = 64;
-
 // the first non-zero of `err` and cudaGetLastError()
 inline int first_error(int err) {
   const int e = static_cast<int>(cudaGetLastError());
@@ -1613,40 +1701,19 @@ inline unsigned blocks_for(long long n, long long per) {
   return static_cast<unsigned>((n + per - 1) / per);
 }
 
-inline int row_scan(const long long* in, long long* out, long long* total,
-                    long long rows, int n, cudaStream_t st) {
-  int err = 0;
-  for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
-    const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    row_scan_kernel<<<dim3(1, static_cast<unsigned>(nr)), kScanThreads, 0,
-                      st>>>(in + r0 * n, out + r0 * n,
-                            total ? total + r0 : nullptr, n);
-    err = first_error(err);
+// the current device's SMs
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  return err;
-}
-
-// let `kernel` take `bytes` of dynamic shared memory on the current device
-// (an attribute of each device: set once a device, `ready` its flags)
-template <typename K>
-int allow_smem(K kernel, int bytes, bool* ready) {
-  int dev = 0;
-  int err = static_cast<int>(cudaGetDevice(&dev));
-  if (err != 0) return err;
-  if (dev >= 0 && dev < kMaxDevices && ready[dev]) return 0;
-  err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  if (err == 0 && dev >= 0 && dev < kMaxDevices) ready[dev] = true;
-  return err;
+  return sms;
 }
 
 // the decode's lanes a chunk for `blocks` chunks: 32, doubled while the
 // grid would give the SMs fewer than kLaneTarget threads each
 int decode_lanes(long long blocks) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int sms = sm_count();
   int lanes = 32;
   while (lanes < kMaxLanes
          && blocks * lanes < static_cast<long long>(sms) * kLaneTarget) {
@@ -1784,35 +1851,39 @@ int huffman_decode(const void* words, long long rows, long long n_words,
   return err;
 }
 
-// tile_runs, tile_base: (rows, tiles) scratch; values: (rows, s) uint8;
-// lengths: (rows, s) uint16 bits; nruns: (rows,) int64
-int rle_scan(const void* syms, long long rows, long long s, void* tile_runs,
-             void* tile_base, void* values, void* lengths, void* nruns,
-             void* stream) {
+// status: (rows * tiles + 1) uint64 scratch (each tile's word, tiles =
+// ceil(s / RLE_BREAK) a row, then the ticket counter), zeroed here;
+// values: (rows, s) uint8; lengths: (rows, s) uint16 bits; nruns: (rows,)
+// int64.  Blocks of kRleWide threads where every tile fits on the card at
+// two blocks an SM, else of kRleNarrow (four an SM).  Two launches (more
+// only past 2^31 - 1 blocks).
+int rle_scan(const void* syms, long long rows, long long s, void* status,
+             void* values, void* lengths, void* nruns, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = static_cast<int>(blocks_for(s, kRleBreak));
-  const int smem = kRleBreak * 3;
-  static bool ready[kMaxDevices] = {};
-  int err = allow_smem(rle_emit_kernel, smem, ready);
-  if (err != 0) return err;
-  const uint8_t* sy = static_cast<const uint8_t*>(syms);
-  long long* runs = static_cast<long long*>(tile_runs);
-  long long* base = static_cast<long long*>(tile_base);
-  for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
-    const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    rle_count_kernel<<<dim3(tiles, static_cast<unsigned>(nr)), kRleThreads,
-                       0, st>>>(sy + r0 * s, s, runs + r0 * tiles, tiles);
+  const long long tiles = blocks_for(s, kRleBreak);
+  unsigned long long* words = static_cast<unsigned long long*>(status);
+  const long long tickets = rows * tiles;
+  const bool wide = tickets <= 2LL * sm_count();
+  int err = static_cast<int>(cudaMemsetAsync(
+      words, 0, (tickets + 1) * sizeof(unsigned long long), st));
+  for (long long done = 0; done < tickets;) {
+    const long long grid = tickets - done < 0x7FFFFFFFLL ? tickets - done
+                                                          : 0x7FFFFFFFLL;
+    const unsigned g = static_cast<unsigned>(grid);
+    const uint8_t* sy = static_cast<const uint8_t*>(syms);
+    uint8_t* va = static_cast<uint8_t*>(values);
+    uint16_t* le = static_cast<uint16_t*>(lengths);
+    long long* nr = static_cast<long long*>(nruns);
+    const int nt = static_cast<int>(tiles);
+    if (wide) {
+      rle_scan_kernel<kRleWide, 2><<<g, kRleWide, 0, st>>>(
+          sy, s, nt, tickets, words, words + tickets, va, le, nr);
+    } else {
+      rle_scan_kernel<kRleNarrow, 4><<<g, kRleNarrow, 0, st>>>(
+          sy, s, nt, tickets, words, words + tickets, va, le, nr);
+    }
     err = first_error(err);
-  }
-  err = keep(err, row_scan(runs, base, static_cast<long long*>(nruns),
-                           rows, tiles, st));
-  for (long long r0 = 0; r0 < rows; r0 += kMaxRows) {
-    const long long nr = rows - r0 < kMaxRows ? rows - r0 : kMaxRows;
-    rle_emit_kernel<<<dim3(tiles, static_cast<unsigned>(nr)), kRleThreads,
-                      smem, st>>>(sy + r0 * s, s, base + r0 * tiles, tiles,
-                                  static_cast<uint8_t*>(values) + r0 * s,
-                                  static_cast<uint16_t*>(lengths) + r0 * s);
-    err = first_error(err);
+    done += grid;
   }
   return err;
 }

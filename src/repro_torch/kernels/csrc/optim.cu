@@ -12,6 +12,8 @@
 //                        magnitude bitplanes
 //   adamw_update      <- AdamW's per-leaf update `upd`
 //                        (src/repro/optim/adamw.py:68-76)
+//   global_sumsq      <- the sums of squares of AdamW's `global_norm`
+//                        (src/repro/optim/adamw.py:54)
 //
 // Bit-identity.  Each kernel computes what the port's plain versions
 // compute (distributed/grad_compress.py's plane path, optim/adamw.py's
@@ -97,10 +99,37 @@
 // (bfloat16) at a time where every pointer is so aligned, so that four
 // independent loads of each thread are in flight.
 //
-// Launches: all three run on the caller's stream and allocate nothing; the
-// wrapper allocates the outputs and ef_amax's workspace and picks the grid
-// (kernels/optim.py `blocks`: at most MAX_BLOCKS, 8 blocks of kThreads on
-// each of the 132 SMs).
+// --- global_sumsq (each leaf's sum of squares, float64) --------------------
+//
+// The port's plain version is a chain a leaf (a float64 copy, its square,
+// its sum), summed in torch's order; the reference sums in XLA's.  Neither
+// order is kept: the kernel's is its own, fixed, so that two calls give
+// the same bits whatever the scheduling.  Each leaf is cut into chunks of
+// kSumChunk values, whatever the grid; a block of kThreads sums a chunk:
+// thread t takes the 16-byte vectors (it * kThreads + t) of the chunk, it
+// = 0, 1, ..., and adds their values' squares in order into one float64
+// (a float32 value's square is exact in float64, so each step rounds once,
+// at the add); then a warp tree (shuffles down 16, 8, 4, 2, 1) and a tree
+// over the 8 warps (4, 2, 1) give the chunk's partial.  A second launch,
+// a block a leaf, sums the leaf's partials in the same order (thread t
+// takes partials t, t + kThreads, ...; the two trees).  float32 or
+// bfloat16 leaves (bfloat16 widens exactly); 16-byte loads where the
+// leaf's pointer is 16-byte aligned, the same values one at a time (in the
+// same order) where it is not.  An argument block (SumArgs, passed by
+// value) holds kSumLeaves leaves; a longer list takes one pair of launches
+// a block (the wrapper's).
+//
+// What bounds it: bytes, each element read once (4 a value in float32,
+// 2 in bfloat16); one float64 multiply and add a value, under a tenth of
+// that time at the card's float64 rate.  Chunks of 256 KB in float32 keep
+// thousands of blocks in flight on a large tree, and a thread issues eight
+// 16-byte loads before it adds.
+//
+// Launches: all run on the caller's stream and allocate nothing; the
+// wrapper allocates the outputs, ef_amax's workspace and global_sumsq's
+// partials, and picks the elementwise passes' grid (kernels/optim.py
+// `blocks`: at most MAX_BLOCKS, 8 blocks of kThreads on each of the 132
+// SMs); global_sumsq's grid is a block a chunk and a block a leaf.
 
 #include <cmath>
 #include <cstdint>
@@ -115,6 +144,9 @@ constexpr float kMinNormal = 1.1754943508222875e-38f;  // 2**-126
 constexpr int kMagBits = 23;
 constexpr int kExp2K0 = -126;    // core/align.py _EXP2_K0
 constexpr int kExp2Len = 254;    // exp2(k) for k = -126 .. 127
+constexpr long long kSumChunk = 65536;   // values a global_sumsq block sums
+constexpr int kSumLeaves = 64;           // leaves an argument block
+constexpr int kSumBatch = 8;             // 16-byte loads issued at once
 
 // XLA's CPU flush-to-zero as the plain versions write it, x * (|x| >= 2**-126):
 // a subnormal becomes a zero of its own sign, NaN stays NaN
@@ -378,6 +410,140 @@ bool aligned(const void* ptr, int bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
+// ----------------------------------------------------------- global_sumsq --
+
+struct SumArgs {
+  const void* ptr[kSumLeaves];
+  long long n[kSumLeaves];
+  long long first[kSumLeaves + 1];   // each leaf's first chunk, then the total
+  unsigned long long bf16;           // bit l: leaf l is bfloat16
+  unsigned long long vec;            // bit l: leaf l is 16-byte aligned
+  int leaves;
+};
+
+__device__ __forceinline__ double sq_add(double acc, float x) {
+  const double d = static_cast<double>(x);
+  return __dadd_rn(acc, __dmul_rn(d, d));
+}
+
+// value u of the 16 bytes q, as float
+template <typename T>
+__device__ __forceinline__ float vec_value(const uint4& q, int u);
+template <>
+__device__ __forceinline__ float vec_value<float>(const uint4& q, int u) {
+  return __uint_as_float(u == 0 ? q.x : u == 1 ? q.y : u == 2 ? q.z : q.w);
+}
+template <>
+__device__ __forceinline__ float vec_value<__nv_bfloat16>(const uint4& q,
+                                                          int u) {
+  const int k = u >> 1;
+  const uint32_t w = k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+  return __uint_as_float(u & 1 ? w & 0xFFFF0000u : w << 16);
+}
+
+// this thread's float64 sum of squares over chunk c of the leaf x (n
+// values), in the fixed order: vector (it * kThreads + thread), it = 0, 1,
+// ..., its values in order
+template <typename T>
+__device__ __forceinline__ double chunk_sumsq(const T* __restrict__ x,
+                                              long long n, long long c,
+                                              bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kSteps = kSumChunk / (kThreads * V);
+  static_assert(kSteps % kSumBatch == 0, "a chunk is whole batches");
+  const long long c0 = c * kSumChunk;
+  double acc = 0.0;
+  if (vec && c0 + kSumChunk <= n) {
+#pragma unroll 1
+    for (int it0 = 0; it0 < kSteps; it0 += kSumBatch) {
+      uint4 q[kSumBatch];
+#pragma unroll
+      for (int g = 0; g < kSumBatch; ++g) {
+        q[g] = __ldg(reinterpret_cast<const uint4*>(
+            x + c0 + (static_cast<long long>(it0 + g) * kThreads
+                      + threadIdx.x) * V));
+      }
+#pragma unroll
+      for (int g = 0; g < kSumBatch; ++g) {
+#pragma unroll
+        for (int u = 0; u < V; ++u) acc = sq_add(acc, vec_value<T>(q[g], u));
+      }
+    }
+  } else {
+    for (int it = 0; it < kSteps; ++it) {
+      const long long e = c0 + (static_cast<long long>(it) * kThreads
+                                + threadIdx.x) * V;
+      for (int u = 0; u < V; ++u) {
+        if (e + u < n) acc = sq_add(acc, widen(x[e + u]));
+      }
+    }
+  }
+  return acc;
+}
+
+// the block's sum of v, in a fixed order: a warp tree, then a tree over
+// the warps; thread 0's return is the block's
+__device__ __forceinline__ double block_sum_fixed(double v) {
+  __shared__ double warp_sum[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    v = __dadd_rn(v, __shfl_down_sync(0xFFFFFFFFu, v, d));
+  }
+  if (lane == 0) warp_sum[warp] = v;
+  __syncthreads();
+  double r = 0.0;
+  if (warp == 0) {
+    r = lane < kWarps ? warp_sum[lane] : 0.0;
+#pragma unroll
+    for (int d = kWarps / 2; d > 0; d >>= 1) {
+      r = __dadd_rn(r, __shfl_down_sync(0xFFFFFFFFu, r, d));
+    }
+  }
+  return r;
+}
+
+// A block a chunk, the leaves' chunks in order: the chunk's partial.
+__global__ void __launch_bounds__(kThreads)
+sumsq_chunks_kernel(const __grid_constant__ SumArgs a,
+                    double* __restrict__ partials) {
+  const long long blk = blockIdx.x;
+  // the last leaf whose first chunk is at or before this one (an empty
+  // leaf's first is its successor's)
+  int lo = 0, hi = a.leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a.first[mid] <= blk) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const long long c = blk - a.first[lo];
+  const bool vec = (a.vec >> lo) & 1ull;
+  const double v = (a.bf16 >> lo) & 1ull
+      ? chunk_sumsq(static_cast<const __nv_bfloat16*>(a.ptr[lo]), a.n[lo], c,
+                    vec)
+      : chunk_sumsq(static_cast<const float*>(a.ptr[lo]), a.n[lo], c, vec);
+  const double r = block_sum_fixed(v);
+  if (threadIdx.x == 0) partials[blk] = r;
+}
+
+// A block a leaf: its partials summed in the fixed order.
+__global__ void __launch_bounds__(kThreads)
+sumsq_leaves_kernel(const __grid_constant__ SumArgs a,
+                    const double* __restrict__ partials,
+                    double* __restrict__ out) {
+  const int l = blockIdx.x;
+  const long long p0 = a.first[l], cnt = a.first[l + 1] - p0;
+  double acc = 0.0;
+  for (long long i = threadIdx.x; i < cnt; i += kThreads) {
+    acc = __dadd_rn(acc, partials[p0 + i]);
+  }
+  const double r = block_sum_fixed(acc);
+  if (threadIdx.x == 0) out[l] = r;
+}
+
 template <typename P, typename G, typename S>
 int launch_adamw(const void* p, const void* g, const void* m, const void* v,
                  const void* scale, const void* lr, const void* c1,
@@ -426,6 +592,39 @@ int ef_apply(const void* x, const void* r, const void* part, int parts,
       static_cast<const float*>(table), static_cast<float*>(q),
       static_cast<float*>(r_out), n, planes, vec);
   return (int)cudaGetLastError();
+}
+
+// ptrs, ns, bf16: `leaves` (1 .. kSumLeaves) host arrays: each leaf's
+// device pointer, its values and its flag (1: bfloat16, else float32);
+// partials: (the leaves' chunks, ceil(n / kSumChunk) each) float64
+// scratch; out: (leaves,) float64.  The chunks' launch (where there is a
+// chunk), then the leaves'.
+int global_sumsq(const long long* ptrs, const long long* ns, const int* bf16,
+                 int leaves, void* partials, void* out, void* stream) {
+  if (leaves < 1 || leaves > kSumLeaves) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SumArgs a = {};
+  a.leaves = leaves;
+  for (int l = 0; l < leaves; ++l) {
+    a.ptr[l] = reinterpret_cast<const void*>(ptrs[l]);
+    a.n[l] = ns[l];
+    a.first[l + 1] = a.first[l] + (ns[l] + kSumChunk - 1) / kSumChunk;
+    if (bf16[l]) a.bf16 |= 1ull << l;
+    if (aligned(a.ptr[l], 16)) a.vec |= 1ull << l;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  double* part = static_cast<double*>(partials);
+  int err = 0;
+  if (a.first[leaves] > 0) {
+    sumsq_chunks_kernel<<<static_cast<unsigned>(a.first[leaves]), kThreads,
+                          0, st>>>(a, part);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  sumsq_leaves_kernel<<<leaves, kThreads, 0, st>>>(a, part,
+                                                   static_cast<double*>(out));
+  const int e = static_cast<int>(cudaGetLastError());
+  return err != 0 ? err : e;
 }
 
 // bf16: bit 0 the parameters, bit 1 the gradient, bit 2 the state are

@@ -9,7 +9,7 @@ counts), ``huffman_pack``, ``huffman_decode``, ``rle_scan`` and
 with ``ctypes``.  Nothing is compiled or loaded when this module is
 imported.
 
-The write side's two kernels fill the card and read the symbols once:
+The write side's kernels fill the card and read the symbols once:
 ``lossless_stats`` takes tiles of 4,096 to 16,384 symbols by the rule of
 ``stats_tiling`` and merges a row's tiles in thread block clusters (a row
 of one cluster stored directly, more summed by the last cluster to
@@ -18,7 +18,9 @@ tickets of one to four chunks (``pack_group``: as few tickets as fill the
 card at once), each stream word stored once by the ticket whose bits
 start in it (that word's earlier bits rebuilt from the symbols before
 the ticket's chunks) and the cap's zero tail stored in pieces no ticket
-waits for.
+waits for; ``rle_scan`` is one pass with a decoupled look-back over tiles
+of ``RLE_BREAK`` symbols, whose runs each warp ranks 32 symbols a step
+and writes at consecutive slots.
 
 The read side's two kernels work in parallel within a chunk or a tile:
 ``huffman_decode`` splits each chunk's bits among up to 256 lanes that
@@ -77,6 +79,7 @@ from repro_torch.tune.config import BACKENDS
 
 CHUNK = ll.CHUNK                 # csrc/lossless.cu kChunk
 RLE_BREAK = ll.RLE_BREAK         # kRleBreak
+RLE_PIECE = 512                  # kRlePiece: a warp's symbols a segment row
 LUT_SIZE = 1 << ll.MAX_CODE_LEN  # kLut
 EXPAND_TILE = 4096               # kExpTile: runs a tile of rle_expand
 STATS_MAX_TILE = 16384           # kStatsMaxTile: symbols a stats block
@@ -111,7 +114,7 @@ def _lib() -> ctypes.CDLL:
                                          vp, ll_, vp]
             lib.huffman_decode.argtypes = [vp, ll_, ll_, vp, i, vp, vp, vp,
                                            vp, i, vp, ll_, vp]
-            lib.rle_scan.argtypes = [vp, ll_, ll_, vp, vp, vp, vp, vp, vp]
+            lib.rle_scan.argtypes = [vp, ll_, ll_, vp, vp, vp, vp, vp]
             lib.rle_expand.argtypes = [vp, vp, ll_, ll_, vp, i, vp, ll_, vp]
             for name in SYMBOLS:
                 getattr(lib, name).restype = i
@@ -211,11 +214,10 @@ def huffman_pack_workspace(syms, lens_tab, codes_tab):
 
 
 def rle_scan_workspace(syms):
-    """Each tile's run count and first run's slot."""
+    """Each tile's status word for the look-back, then the blocks' ticket
+    counter."""
     b, s = syms.shape
-    t = _tiles(s, RLE_BREAK)
-    return {"tile_runs": ((b, t), torch.int64),
-            "tile_base": ((b, t), torch.int64)}
+    return {"status": ((b * _tiles(s, RLE_BREAK) + 1,), torch.int64)}
 
 
 def huffman_decode_workspace(words, chunk_offs, lut_sym, lut_len, n_syms):
@@ -322,11 +324,12 @@ def _launch_rle_scan(syms):
     b, s = syms.shape
     values = torch.empty((b, s), dtype=torch.uint8, device=syms.device)
     lengths = torch.empty((b, s), dtype=torch.int16, device=syms.device)
-    nruns = torch.zeros((b,), dtype=torch.int64, device=syms.device)
-    if b and s:
-        runs, base = _scratch(rle_scan_workspace, syms)
-        _run("rle_scan", syms, syms, b, s, runs, base, values, lengths,
-             nruns)
+    if not (b and s):
+        return values, lengths, torch.zeros((b,), dtype=torch.int64,
+                                            device=syms.device)
+    nruns = torch.empty((b,), dtype=torch.int64, device=syms.device)
+    (status,) = _scratch(rle_scan_workspace, syms)
+    _run("rle_scan", syms, syms, b, s, status, values, lengths, nruns)
     return values, lengths, nruns
 
 
@@ -931,30 +934,72 @@ def huffman_decode_stepwise(words, chunk_offs, lut_sym, lut_len, n_syms,
     return dec
 
 
-def rle_scan_tiled(syms):
-    """``rle_scan`` as its passes compute it: each tile's run starts
-    counted, the row scan to each tile's first slot, then each tile's runs
-    (value, and the next start or the tile's end less the start) written at
-    their slots.  Slots past a row's nruns are 0."""
+def rle_scan_tiled(syms, lag=2):
+    """``rle_scan`` as its kernel computes it: tickets in order over (row,
+    tile of ``RLE_BREAK``); each 16-symbol segment's run starts (the
+    neighbour differs, or the tile's first symbol) summed over each warp's
+    ``RLE_PIECE``-symbol piece into its count and last start; the pieces
+    scanned in order to each one's first slot and the start before it; the
+    tile's first slot from the look-back (``_LookBack``); each start
+    written at its piece's first slot plus the starts before it in the
+    piece, with the length of the run before it (its start less the start
+    before it: in the piece, else the piece's start before), and the
+    tile's last start writing its own length (the tile's end less it).
+    Raises unless every value and length slot below a row's nruns is
+    written exactly once and no other is.  Slots past a row's nruns are
+    0."""
     b, s = syms.shape
-    t = _tiles(s, RLE_BREAK)
-    idx = torch.arange(s)
-    prev = torch.cat([syms[:, :1] ^ 255, syms[:, :-1]], dim=1)
-    starts = (syms != prev) | (idx % RLE_BREAK == 0)
-    tile_runs = F.pad(starts, (0, t * RLE_BREAK - s)).view(
-        b, t, RLE_BREAK).sum(2)
-    tile_base = torch.cumsum(tile_runs, 1) - tile_runs
+    tiles = _tiles(s, RLE_BREAK)
+    pieces = RLE_BREAK // RLE_PIECE
     values = torch.zeros((b, s), dtype=torch.uint8)
-    lengths = torch.zeros((b, s), dtype=torch.int16)
+    lengths = torch.zeros((b, s), dtype=torch.int64)
+    writes = torch.zeros((2, b, s), dtype=torch.int64)
+    nruns = torch.zeros(b, dtype=torch.int64)
+    at = torch.arange(RLE_BREAK)
     for r in range(b):
-        for k in range(t):
-            lo, hi = k * RLE_BREAK, min(s, (k + 1) * RLE_BREAK)
-            st = torch.nonzero(starts[r, lo:hi]).flatten()
-            ends = torch.cat([st[1:], torch.tensor([hi - lo])])
-            base = int(tile_base[r, k])
-            values[r, base:base + len(st)] = syms[r, lo + st]
-            lengths[r, base:base + len(st)] = (ends - st).to(torch.int16)
-    return values, lengths, tile_runs.sum(1)
+        look = _LookBack(lag)
+        for t in range(tiles):
+            t0 = t * RLE_BREAK
+            n = min(RLE_BREAK, s - t0)
+            x = F.pad(syms[r, t0:t0 + n].to(torch.int64),
+                      (0, RLE_BREAK - n))
+            prev = torch.cat([torch.tensor([256]), x[:-1]])
+            starts = (x != prev) & (at < n)
+            # each segment's count and last start, then each piece's
+            seg_n = starts.view(-1, 16).sum(1)
+            seg_last = torch.where(starts, at, -1).view(-1, 16).max(1).values
+            piece_n = seg_n.view(pieces, -1).sum(1)
+            piece_last = seg_last.view(pieces, -1).max(1).values
+            piece_first = torch.cumsum(piece_n, 0) - piece_n
+            piece_prev = torch.cat([torch.tensor([-1]), torch.cummax(
+                piece_last, 0).values[:-1]])
+            total, tile_last = int(piece_n.sum()), int(piece_last.max())
+            base = look(t, total)
+            # each start's slot and the start before it, piece by piece
+            sv = starts.view(pieces, RLE_PIECE)
+            rank = (piece_first[:, None] + torch.cumsum(sv, 1) - sv.long()
+                    ).view(-1)
+            upto = torch.cummax(torch.where(sv, at.view(pieces, -1), -1),
+                                1).values
+            inside = F.pad(upto[:, :-1], (1, 0), value=-1)
+            before = torch.where(inside >= 0, inside,
+                                 piece_prev[:, None]).view(-1)
+            pos = starts.nonzero().flatten()
+            slot = base + rank[pos]
+            values[r, slot] = x[pos].to(torch.uint8)
+            writes[0, r].index_add_(0, slot, torch.ones_like(slot))
+            more = rank[pos] > 0
+            lengths[r, slot[more] - 1] = pos[more] - before[pos[more]]
+            writes[1, r].index_add_(0, slot[more] - 1,
+                                    torch.ones_like(slot[more]))
+            lengths[r, base + rank[tile_last]] = n - tile_last
+            writes[1, r, base + rank[tile_last]] += 1
+            if t + 1 == tiles:
+                nruns[r] = base + total
+    live = torch.arange(s)[None, :] < nruns[:, None]
+    if not bool((writes == live.long()[None]).all()):
+        raise AssertionError("a run slot written other than once")
+    return values, lengths.to(torch.int16), nruns
 
 
 def rle_expand_tiled(values, lengths, n, tile=EXPAND_TILE, slices=1,

@@ -1,23 +1,30 @@
 """Hopper CUDA kernels for the training step's optimizer path:
-error-feedback gradient truncation (``ef_quantize``) and AdamW's update.
+error-feedback gradient truncation (``ef_quantize``), AdamW's update and
+the sums of squares of AdamW's global norm.
 
 The kernels live in ``csrc/optim.cu`` (the note there says what they
 replace in the reference, what bounds them and what the design does about
 it): ``ef_amax`` and ``ef_apply``, the two passes of one ``ef_quantize``
-of a leaf, and ``adamw_update``, one pass a leaf.  They are built with the
-other kernels (``bitplane.load``: ``nvcc`` for ``sm_90a`` at first use,
-every source at once) and loaded with ``ctypes``.  Nothing is compiled or
-loaded when this module is imported.
+of a leaf; ``adamw_update``, one pass a leaf; and ``global_sumsq``, one
+pass over every leaf of a gradient tree in a fixed order (chunks of
+``SUM_CHUNK`` values, each summed by a block, then each leaf's chunks by
+a block).  They are built with the other kernels (``bitplane.load``:
+``nvcc`` for ``sm_90a`` at first use, every source at once) and loaded
+with ``ctypes``.  Nothing is compiled or loaded when this module is
+imported.
 
-Two operators of the dispatcher, ``torch.ops.repro_torch.ef_quantize`` and
-``torch.ops.repro_torch.adamw_update`` (``torch.library.custom_op``s), as
+Three operators of the dispatcher, ``torch.ops.repro_torch.ef_quantize``,
+``torch.ops.repro_torch.adamw_update`` and
+``torch.ops.repro_torch.global_sumsq`` (``torch.library.custom_op``s), as
 the other kernels are: the CUDA implementation allocates the outputs (and
-``ef_quantize``'s workspace, one float32 word a block of ``ef_amax``,
-declared in ``bitplane.WORKSPACE`` so that ``OpAnalysis`` counts it),
-launches on the current stream, raises if ``cudaGetLastError()`` is not 0
-and adds one to the kernel's ``launches`` (the record of
-``bitplane.launches()``: ``ef_quantize`` counts one ``ef_amax`` and one
-``ef_apply``); the fake gives the outputs' shapes and dtypes, so that the
+the workspace: ``ef_quantize``'s, one float32 word a block of
+``ef_amax``; ``global_sumsq``'s, a float64 partial a chunk; declared in
+``bitplane.WORKSPACE`` so that ``OpAnalysis`` counts it), launches on the
+current stream, raises if ``cudaGetLastError()`` is not 0 and adds one to
+the kernel's ``launches`` (the record of ``bitplane.launches()``:
+``ef_quantize`` counts one ``ef_amax`` and one ``ef_apply``;
+``global_sumsq`` one a block of ``SUM_LEAVES`` leaves that holds a
+value); the fake gives the outputs' shapes and dtypes, so that the
 operators run on ``meta``; the CPU implementation is the plain version.
 A CUDA call that no dispatch mode observes launches directly.
 
@@ -25,17 +32,21 @@ The plain versions: ``ef_quantize_ref`` computes the kernels' formula
 (``csrc/optim.cu``) in torch, element by element, and is held bit-identical
 to ``distributed.grad_compress``'s plane path (which encodes and decodes
 the planes), and so to the reference; ``adamw_update_ref`` is
-``optim.adamw._upd``.  ``distributed.grad_compress.ef_quantize`` and
-``optim.adamw.update`` take the operators on CUDA and ``meta`` tensors
-(``use_operators``) and keep their plain paths on the CPU and with
-``backend="torch"``.  On a CUDA tensor the operators launch or raise:
-there is no fallback.
+``optim.adamw._upd``; ``global_sumsq_ref`` is ``optim.adamw``'s chain (a
+float64 copy of each leaf, squared and summed in torch's order), which
+the kernel's fixed order meets within rounding (``global_sumsq_tiled``
+follows the kernel's order on the CPU).
+``distributed.grad_compress.ef_quantize``, ``optim.adamw.update`` and
+``optim.adamw.global_norm`` take the operators on CUDA and ``meta``
+tensors (``use_operators``) and keep their plain paths on the CPU and
+with ``backend="torch"``.  On a CUDA tensor the operators launch or
+raise: there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +60,9 @@ from repro_torch.tune.config import BACKENDS
 THREADS = 256            # csrc/optim.cu kThreads
 MAX_BLOCKS = 8 * 132     # 8 blocks of THREADS on each of the H100's SMs
 MAG_BITS = 23
-SYMBOLS = ("ef_amax", "ef_apply", "adamw_update")
+SUM_CHUNK = 65536        # kSumChunk: the values a global_sumsq block sums
+SUM_LEAVES = 64          # kSumLeaves: leaves an argument block
+SYMBOLS = ("ef_amax", "ef_apply", "adamw_update", "global_sumsq")
 PARAM_DTYPES = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
@@ -68,6 +81,9 @@ def _lib() -> ctypes.CDLL:
                                      vp]
             lib.adamw_update.argtypes = ([vp] * 11 + [ll_, i] + [f] * 6
                                          + [i, vp])
+            lib.global_sumsq.argtypes = [ctypes.POINTER(ll_),
+                                         ctypes.POINTER(ll_),
+                                         ctypes.POINTER(i), i, vp, vp, vp]
             for name in SYMBOLS:
                 getattr(lib, name).restype = i
             _ready = True
@@ -160,6 +176,13 @@ def ef_workspace(x, r, planes):
     return {"amax_part": (blocks(x.numel()),)}
 
 
+def sumsq_workspace(leaves):
+    """``global_sumsq``'s partials: one float64 a chunk of ``SUM_CHUNK``
+    values of each leaf."""
+    return {"partials": ((sum(-(-g.numel() // SUM_CHUNK) for g in leaves),),
+                         torch.float64)}
+
+
 # ------------------------------------------------ CUDA implementations --
 
 def _launch_ef_amax(x, r):
@@ -187,6 +210,36 @@ def _launch_adamw(p, g, m, v, scale, lr, c1, c2, b1, b2, eps, weight_decay):
          new_v, p.numel(), bf16, _f32(b1), _f32(1 - b1), _f32(b2),
          _f32(1 - b2), _f32(eps), _f32(weight_decay), blocks(p.numel()))
     return new_p, new_m, new_v
+
+
+def _launch_sumsq(leaves):
+    dev = leaves[0].device
+    out = torch.empty((len(leaves),), dtype=torch.float64, device=dev)
+    shape, dt = sumsq_workspace(leaves)["partials"]
+    partials = torch.empty(shape, dtype=dt, device=dev)
+    lib = _lib()
+    chunk = 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k0 in range(0, len(leaves), SUM_LEAVES):
+            blk = leaves[k0:k0 + SUM_LEAVES]
+            k = len(blk)
+            ns = [g.numel() for g in blk]
+            err = lib.global_sumsq(
+                (ctypes.c_longlong * k)(*[g.data_ptr() for g in blk]),
+                (ctypes.c_longlong * k)(*ns),
+                (ctypes.c_int * k)(*[int(g.dtype == torch.bfloat16)
+                                     for g in blk]),
+                k, partials.data_ptr() + 8 * chunk,
+                out.data_ptr() + 8 * k0, stream)
+            if err != 0:
+                raise RuntimeError(f"global_sumsq launch failed: cudaError "
+                                   f"{err}")
+            held = sum(-(-n // SUM_CHUNK) for n in ns)
+            if held:
+                _bp._count("global_sumsq")
+            chunk += held
+    return out
 
 
 # --------------------------------------------------------- plain versions --
@@ -229,6 +282,64 @@ def adamw_update_ref(p, g, m, v, scale, lr, c1, c2, b1, b2, eps,
     return adamw._upd(p, g, m, v, scale, lr, c1, c2, cfg, m.dtype)
 
 
+def global_sumsq_ref(leaves):
+    """Each leaf's sum of squares in float64, ``optim.adamw``'s chain."""
+    from repro_torch.optim import adamw
+    return torch.stack(adamw._sumsq_plain(leaves))
+
+
+def _tree_sum(x):
+    """The kernels' fixed tree over the last axis (32 or 8 values): halves
+    added, the lower half first."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _block_sum(v):
+    """``block_sum_fixed`` over the last axis (``THREADS`` threads): each
+    warp's tree, then the tree over the warps."""
+    warps = _tree_sum(v.reshape(*v.shape[:-1], THREADS // 32, 32))
+    return _tree_sum(warps)
+
+
+def _thread_sums(v, width):
+    """Each thread's float64 sum of the (rows, THREADS * k * width) values
+    ``v``: vector (it * THREADS + thread) of ``width`` values at step it,
+    added in order from 0.0: (rows, THREADS)."""
+    rows = v.shape[0]
+    seq = v.view(rows, -1, THREADS, width).permute(0, 2, 1, 3).reshape(
+        rows, THREADS, -1)
+    acc = torch.zeros((rows, THREADS), dtype=torch.float64)
+    for i in range(seq.shape[2]):
+        acc = acc + seq[:, :, i]
+    return acc
+
+
+def global_sumsq_tiled(leaves):
+    """``global_sumsq`` as its kernels compute it, on the CPU: each leaf cut
+    into chunks of ``SUM_CHUNK`` values (the last zero-padded); a chunk's
+    thread sums of squares (``_thread_sums`` over 16-byte vectors: 4
+    float32 or 8 bfloat16 values) and the block's tree give its partial;
+    each leaf's partials, thread i taking partials i, i + ``THREADS``,
+    ..., and the tree give its sum.  (L,) float64."""
+    out = []
+    for g in leaves:
+        x = g.reshape(-1)
+        chunks = -(-x.numel() // SUM_CHUNK)
+        if not chunks:
+            out.append(torch.zeros((), dtype=torch.float64))
+            continue
+        x = torch.nn.functional.pad(x.double(), (0, chunks * SUM_CHUNK
+                                                 - x.numel()))
+        part = _block_sum(_thread_sums(torch.square(x).view(chunks, -1),
+                                       16 // g.element_size()))
+        part = torch.nn.functional.pad(part, (0, -chunks % THREADS))
+        out.append(_block_sum(_thread_sums(part.view(1, -1), 1))[0])
+    return torch.stack(out)
+
+
 # -------------------------------------------------------------- operators --
 
 Tensor = torch.Tensor
@@ -251,27 +362,39 @@ def _define():
         return _launch_adamw(p, g, m, v, scale, lr, c1, c2, b1, b2, eps,
                              weight_decay)
 
+    @torch.library.custom_op(ns + "global_sumsq", mutates_args=(),
+                             device_types="cuda")
+    def sumsq_op(leaves: List[Tensor]) -> Tensor:
+        return _launch_sumsq(leaves)
+
     ef_op.register_fake(lambda x, r, planes: (torch.empty_like(x),
                                               torch.empty_like(x)))
+    sumsq_op.register_fake(lambda leaves: leaves[0].new_empty(
+        (len(leaves),), dtype=torch.float64))
     adamw_op.register_fake(
         lambda p, g, m, v, *args: tuple(torch.empty_like(t)
                                         for t in (p, m, v)))
     ef_op.register_kernel("cpu")(ef_quantize_ref)
     adamw_op.register_kernel("cpu")(adamw_update_ref)
+    sumsq_op.register_kernel("cpu")(global_sumsq_ref)
     return {"ef_quantize": torch.ops.repro_torch.ef_quantize.default,
-            "adamw_update": torch.ops.repro_torch.adamw_update.default}
+            "adamw_update": torch.ops.repro_torch.adamw_update.default,
+            "global_sumsq": torch.ops.repro_torch.global_sumsq.default}
 
 
 _OPS = _define()
-_LAUNCH = {"ef_quantize": _launch_ef_quantize, "adamw_update": _launch_adamw}
-_bp.add_workspace({_OPS["ef_quantize"]: ef_workspace})
+_LAUNCH = {"ef_quantize": _launch_ef_quantize, "adamw_update": _launch_adamw,
+           "global_sumsq": _launch_sumsq}
+_bp.add_workspace({_OPS["ef_quantize"]: ef_workspace,
+                   _OPS["global_sumsq"]: sumsq_workspace})
 
 
 def _call(name: str, *args):
     """Through the operator wherever something observes the dispatcher or
     the tensors lie on the CPU; a CUDA call that nothing observes launches
     directly (``bitplane._call``)."""
-    if args[0].device.type == "cuda" and _get_current_dispatch_mode() is None:
+    first = args[0][0] if isinstance(args[0], list) else args[0]
+    if first.device.type == "cuda" and _get_current_dispatch_mode() is None:
         return _LAUNCH[name](*args)
     with torch._C._AutoDispatchBelowADInplaceOrView():
         return _OPS[name](*args)
@@ -328,5 +451,17 @@ def adamw_update(p, g, m, v, scale, lr, c1, c2, b1: float, b2: float,
                  float(b2), float(eps), float(weight_decay))
 
 
-WRAPPERS = (ef_amax, ef_apply, adamw_update)
+def global_sumsq(leaves) -> torch.Tensor:
+    """Each of the leaves' (at least one; float32 or bfloat16, contiguous,
+    on one device, any shape, empty allowed) sum of squares in float64, as
+    a (L,) tensor: on the card summed in the kernels' fixed order, the
+    same bits on every call."""
+    leaves = list(leaves)
+    if not leaves:
+        raise ValueError("global_sumsq: no leaves")
+    _check("global_sumsq", leaves, (PARAM_DTYPES,) * len(leaves))
+    return _call("global_sumsq", leaves)
+
+
+WRAPPERS = (ef_amax, ef_apply, adamw_update, global_sumsq)
 _bp.add_counters(dict(zip(SYMBOLS, WRAPPERS)))

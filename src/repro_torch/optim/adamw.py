@@ -43,9 +43,13 @@ the axes its spec cuts, and no others, before it adds up the leaves.
 
 On the card (and on ``meta``) each leaf's update is one launch of the
 ``adamw_update`` kernel (``kernels.optim``), which computes ``_upd`` op for
-op with the same roundings; on the CPU, or with ``backend="torch"``,
-``_upd`` runs, its plain version.  The global norm, the schedule and the
-bias corrections are torch everywhere.
+op with the same roundings, and the global norm's sums of squares are one
+``global_sumsq`` operator over every leaf, which reads each gradient once
+and sums in a fixed order of its own (the same bits on every call; within
+rounding of torch's order); on the CPU, or with ``backend="torch"``,
+``_upd`` and the float64 chain (``_sumsq_plain``) run, their plain
+versions.  The leaves' sums are added in leaf order either way.  The
+schedule and the bias corrections are torch everywhere.
 """
 from __future__ import annotations
 
@@ -121,14 +125,27 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def global_norm(tree, shardings=None) -> torch.Tensor:
+def _sumsq_plain(leaves):
+    """Each leaf's sum of squares, a float64 copy squared and summed: the
+    plain version of the ``global_sumsq`` kernel."""
+    return [torch.sum(torch.square(g.double())) for g in leaves]
+
+
+def global_norm(tree, shardings=None, backend: str = "auto") -> torch.Tensor:
     """The float32 norm of all leaves together, accumulated in float64.
     With ``shardings`` (the tree's ``sharding.Named`` by leaf) the leaves
     are this rank's blocks: each leaf's sum of squares is summed over the
     mesh axes its spec cuts (summing over an axis that holds it whole
-    would count it once per rank), one all-reduce for each set of axes."""
+    would count it once per rank), one all-reduce for each set of axes.
+    ``backend``: ``"auto"`` takes each leaf's sum from the
+    ``global_sumsq`` kernel on the card and on ``meta`` and from the
+    float64 chain on the CPU; ``"torch"`` from the chain everywhere."""
     leaves = tree_leaves(tree)
-    sums = [torch.sum(torch.square(g.double())) for g in leaves]
+    if leaves and _kopt.use_operators(leaves[0], backend):
+        sums = list(_kopt.global_sumsq([g.contiguous() for g in leaves])
+                    .unbind(0))
+    else:
+        sums = _sumsq_plain(leaves)
     if shardings is not None:
         by_axes = {}
         for i, n in enumerate(tree_leaves(shardings)):
@@ -201,13 +218,15 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
     "lr"}), all on the parameters' device.  ``shardings``: the parameters'
     ``sharding.Named`` by leaf when the trees hold this rank's blocks.
     ``backend``: ``"auto"`` updates each leaf with the ``adamw_update``
-    kernel on the card and on ``meta`` and with ``_upd`` on the CPU;
-    ``"torch"`` with ``_upd`` everywhere."""
+    kernel on the card and on ``meta`` and with ``_upd`` on the CPU, and
+    takes the global norm's sums from ``global_sumsq`` where the update
+    takes the kernel; ``"torch"`` uses ``_upd`` and the float64 chain
+    everywhere."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"backend must be 'auto' or 'torch', got "
                          f"{backend!r}")
     step = state.step + 1
-    gnorm = global_norm(grads, shardings)
+    gnorm = global_norm(grads, shardings, backend)
     scale, lr, c1, c2 = step_scalars(cfg, step, gnorm)
     sdt = DTYPES[cfg.state_dtype]
 

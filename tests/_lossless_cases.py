@@ -1,13 +1,15 @@
-"""Inputs at the edges of the lossless read side's kernels, shared by the
-CPU tests (``test_torch_lossless_kernels.py``) and the card tests
-(``test_torch_cuda.py``): ``huffman_decode``'s self-synchronising walks
-and ``rle_expand``'s look-back tiles.  numpy and the port only (the card
-tests import no JAX); every input is made from a seed, on the CPU.
+"""Inputs at the edges of the lossless kernels, shared by the CPU tests
+(``test_torch_lossless_kernels.py``) and the card tests
+(``test_torch_cuda.py``): ``huffman_decode``'s self-synchronising walks,
+``rle_expand``'s look-back tiles and ``rle_scan``'s tiles, pieces and
+segments.  numpy and the port only (the card tests import no JAX); every
+input is made from a seed, on the CPU.
 
 ``decode_cases()``: {name: (words int32, chunk_offs int64, lut_sym,
 lut_len, n_syms)}, words cut to the stored width (``decode_segments``'
 padding to a bucket's longest row) unless the case says otherwise.
 ``expand_cases()``: {name: (values uint8, lengths int32, n)}.
+``scan_cases()``: {name: (B, S) uint8 rows}.
 """
 import numpy as np
 import torch
@@ -97,3 +99,51 @@ def expand_cases():
     cases["long runs"] = (values, lengths, int(lengths.sum(1).min()))
     return {k: (torch.from_numpy(v), torch.from_numpy(ln), n)
             for k, (v, ln, n) in cases.items()}
+
+
+def _from_runs(rng, lengths, s):
+    """A row of length s: runs of the given lengths, cycled, each a
+    symbol other than the one before it."""
+    out = np.empty(s, np.uint8)
+    at, i, sym = 0, 0, 0
+    while at < s:
+        n = lengths[i % len(lengths)]
+        sym = (sym + 1 + int(rng.integers(0, 255))) % 256
+        out[at:at + n] = sym
+        at += n
+        i += 1
+    return out
+
+
+def scan_cases():
+    rng = np.random.default_rng(31)
+    brk = ll.RLE_BREAK
+    skew = lambda b, s: (rng.geometric(0.3, (b, s)) % 256).astype(np.uint8)
+    cases = {
+        "RLE_BREAK": skew(2, brk),
+        "RLE_BREAK - 1": skew(2, brk - 1),
+        "RLE_BREAK + 1": skew(2, brk + 1),
+        "S = 1": rng.integers(0, 256, (4, 1)).astype(np.uint8),
+        # every neighbour differs: a run a symbol
+        "all distinct": np.tile(np.arange(70_000) % 256, (2, 1)
+                                ).astype(np.uint8),
+        "unaligned rows": skew(5, 4099),
+    }
+    # one run over three tiles, broken only at each multiple of RLE_BREAK,
+    # and a last run of 50
+    row = np.full(3 * brk + 100, 9, np.uint8)
+    row[-50:] = 4
+    cases["one run over tiles"] = row[None]
+    # runs either side of a segment (16), a step (32) and a piece (512)
+    edges = [15, 16, 17, 31, 32, 33, 511, 512, 513, 1, 2, 1]
+    cases["segment and piece edges"] = np.stack(
+        [_from_runs(rng, edges, 70_000),
+         _from_runs(rng, edges[::-1], 70_000)])
+    # a tile whose last symbol is a run of its own, and a run that reaches
+    # the next tile
+    row = np.full(2 * brk + 7, 3, np.uint8)
+    row[brk - 1] = 8
+    row[brk - 300:brk - 1] = 5
+    cases["tile ends"] = row[None]
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in cases.items()}

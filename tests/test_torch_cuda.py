@@ -809,10 +809,97 @@ def test_adamw_update_kernel_at_the_embedding_s_size(cuda):
         del m, v, got, want
 
 
+def _sumsq_check(leaves, what):
+    """``global_sumsq`` on the card against the plain chain: each leaf's sum
+    within 1e-12 relative (zeros exact), the same bits on two calls, the
+    norm within one float32 ulp of the chain's; returns the launches of
+    one call."""
+    from repro_torch.kernels import optim as ko
+    from repro_torch.optim import adamw
+    before = ko.global_sumsq.launches
+    got = ko.global_sumsq(leaves)
+    launched = ko.global_sumsq.launches - before
+    again = ko.global_sumsq(leaves)
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64)), what
+    want = ko.global_sumsq_ref(leaves)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    zero = want == 0
+    assert torch.equal(got[zero], want[zero]), what
+    if bool((~zero).any()):
+        rel = ((got - want).abs()[~zero] / want[~zero]).max().item()
+        assert rel <= 1e-12, (what, rel)
+    tree = {str(i): g for i, g in enumerate(leaves)}
+    norm = adamw.global_norm(tree)
+    chain = adamw.global_norm(tree, backend="torch")
+    diff = abs(int(norm.view(torch.int32)) - int(chain.view(torch.int32)))
+    print(f"global_sumsq {what}: norm {norm.item()!r} against the chain's "
+          f"{chain.item()!r}, {diff} ulp")
+    assert diff <= 1, what
+    return launched
+
+
+def test_global_sumsq_on_danube_s_leaves(cuda):
+    """h2o-danube-3-4b/2's 12 gradient leaves (555,436,800 float32 values,
+    the embedding's 122,880,000 among them): one launch of the pass a call
+    (all 12 in one argument block), at most three device activities (the
+    chunks' pass and the leaves' sums), within the tolerances above."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import optim as ko
+    from repro_torch.models.model import model_abstract
+    from repro_torch.models.params import tree_leaves
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), n_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    leaves = [torch.randn(ps.shape, generator=gen, device=cuda) * 1e-3
+              for ps in tree_leaves(model_abstract(cfg))]
+    assert len(leaves) == 12
+    assert _sumsq_check(leaves, "danube/2") == 1
+    acts = bp.device_activities(lambda: ko.global_sumsq(leaves))
+    assert sum(acts.values()) <= 3, acts
+    assert any("sumsq_chunks_kernel" in k for k in acts), acts
+
+
+def test_global_sumsq_on_special_leaves(cuda):
+    """Zeros, subnormals, squares that overflow float32 but not float64,
+    bfloat16 leaves, empty leaves, one value, leaves either side of a
+    chunk, a leaf that starts off a 16-byte boundary, and more leaves than
+    one argument block (one launch of the pass for each block that holds
+    a value)."""
+    from repro_torch.kernels import optim as ko
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    c = ko.SUM_CHUNK
+    special = [torch.zeros(1000, device=cuda),
+               torch.full((70_000,), 1e-40, device=cuda),
+               torch.full((c + 3,), 3e35, device=cuda),
+               torch.tensor([1e19, -1e-45, 0.0, -0.0], device=cuda),
+               (torch.randn(200_003, generator=gen, device=cuda)
+                ).to(torch.bfloat16),
+               torch.full((9,), 1e-40, device=cuda).to(torch.bfloat16),
+               torch.empty(0, device=cuda),
+               torch.randn(1, generator=gen, device=cuda),
+               torch.randn(c - 1, generator=gen, device=cuda),
+               torch.randn(c + 1, generator=gen, device=cuda),
+               torch.randn(c + 2, generator=gen, device=cuda)[1:]]
+    assert _sumsq_check(special, "special leaves") == 1
+    rng = np.random.default_rng(10)
+    many = [torch.randn(int(n), generator=gen, device=cuda).to(
+        (torch.float32, torch.bfloat16)[i % 2])
+        for i, n in enumerate(rng.integers(1, 100_000, 2 * ko.SUM_LEAVES + 7))]
+    assert _sumsq_check(many, "many leaves") == 3
+    empty_block = [torch.empty(0, device=cuda)] * ko.SUM_LEAVES + many[:5]
+    assert _sumsq_check(empty_block, "an argument block of empty leaves") == 1
+
+
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
-def test_adamw_update_on_the_card_equals_the_plain_update(cuda, state_dtype):
-    """``adamw.update`` through the kernel (one launch a leaf a step)
-    against ``backend="torch"`` on the card over 4 steps with clipping."""
+def test_adamw_update_on_the_card_equals_the_plain_update(cuda, state_dtype,
+                                                          monkeypatch):
+    """``adamw.update`` through the kernels (one ``adamw_update`` a leaf and
+    one ``global_sumsq`` a step) against ``backend="torch"`` on the card
+    over 4 steps with clipping: the global norms within one float32 ulp
+    (the kernel sums in its own fixed order, the plain chain in torch's),
+    and, given the kernel's sums on both sides, every leaf of the
+    parameters and the state bit for bit."""
+    from repro_torch.kernels import optim as ko
     from repro_torch.optim import adamw
     from repro_torch.models.params import tree_leaves
     cfg = adamw.AdamWConfig(warmup_steps=2, total_steps=6, clip_norm=0.5,
@@ -825,12 +912,21 @@ def test_adamw_update_on_the_card_equals_the_plain_update(cuda, state_dtype):
         grads = {"a": torch.randn(4097, generator=gen, device=cuda),
                  "b": {"c": torch.randn(33, 129, generator=gen,
                                         device=cuda)}}
-        before = bp.launches()["adamw_update"]
+        before = bp.launches()
         kp, ks, km = adamw.update(grads, kern[1], kern[0], cfg)
-        assert bp.launches()["adamw_update"] == before + 2
-        pp, ps, pm = adamw.update(grads, plain[1], plain[0], cfg,
-                                  backend="torch")
-        assert bp.launches()["adamw_update"] == before + 2
+        after = bp.launches()
+        assert after["adamw_update"] == before["adamw_update"] + 2
+        assert after["global_sumsq"] == before["global_sumsq"] + 1
+        chain = adamw.global_norm(grads, backend="torch")
+        assert abs(int(km["grad_norm"].view(torch.int32))
+                   - int(chain.view(torch.int32))) <= 1
+        with monkeypatch.context() as mp:
+            mp.setattr(adamw, "_sumsq_plain", lambda leaves: list(
+                ko.global_sumsq(leaves).unbind(0)))
+            pp, ps, pm = adamw.update(grads, plain[1], plain[0], cfg,
+                                      backend="torch")
+        assert bp.launches()["adamw_update"] == before["adamw_update"] + 2
+        _bits_equal(km["grad_norm"], pm["grad_norm"])
         for a, b in zip(tree_leaves(kp) + tree_leaves(ks.m)
                         + tree_leaves(ks.v), tree_leaves(pp)
                         + tree_leaves(ps.m) + tree_leaves(ps.v)):
@@ -2044,10 +2140,11 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
     element), on rows of one and of several stats clusters and on buckets
     of short rows: the outputs are the plain versions' and no guard byte
     changes, over three launches (the decode at 32, 128 and its own
-    lanes, the expand at 1, 3 and its own slices), the stats' and the
-    pack's outputs refilled with the
-    guard byte before each, so that every element must be written; then
-    the read side's hand-made edges, guarded alike."""
+    lanes, the expand at 1, 3 and its own slices), the stats', the pack's
+    and the RLE scan's outputs refilled with the guard byte before each,
+    so that every element must be written (the scan's: nruns and each
+    row's first nruns slots); then the read side's and the scan's
+    hand-made edges, guarded alike."""
     from repro_torch.kernels import lossless as kl
     rng = np.random.default_rng(b * s + shift)
     x0 = torch.from_numpy(_lossless_rows("skewed", b, s, rng)).to(cuda)
@@ -2074,17 +2171,17 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
     sums = ws.get("sums")
     pw, pt, po = (out((b, cap), torch.int32), out((b,), torch.int64),
                   out((b, chunks), torch.int64))
-    written = (hist, nruns, pw, pt, po)
+    written = [hist, nruns, pw, pt, po]
     (pstat,) = (out(*v) for v in kl.huffman_pack_workspace(
         x, lt, ct).values())
     dec = out((b, s), torch.uint8)
-    vals, lens, rn, runs, base = (
-        out((b, s), torch.uint8), out((b, s), torch.int16),
-        out((b,), torch.int64), out((b, tiles), torch.int64),
-        out((b, tiles), torch.int64))
+    vals, lens, rn = (out((b, s), torch.uint8), out((b, s), torch.int16),
+                      out((b,), torch.int64))
+    (rstat,) = (out(*v) for v in kl.rle_scan_workspace(x).values())
     prim = out((b, 1 << kl.PRIMARY_BITS), torch.int16)
     walks = out((len(kl.WALKS),), torch.int64)
     exp, status = out((b, s), torch.uint8), out((b * rt + 1,), torch.int64)
+    written += [vals, lens, rn]
     walks.zero_()
     for lanes, slices in ((32, 1), (128, 3), (0, 0)):
         for t in written:
@@ -2093,7 +2190,7 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
         kl._run("huffman_pack", x, x, b, s, lt, ct, pstat, po, pt, pw, cap)
         kl._run("huffman_decode", x, words, b, cap, offs, chunks, ls, ln,
                 prim, walks, lanes, dec, s)
-        kl._run("rle_scan", x, x, b, s, runs, base, vals, lens, rn)
+        kl._run("rle_scan", x, x, b, s, rstat, vals, lens, rn)
         kl._run("rle_expand", x, rv, rl, b, r, status, slices, exp, s)
         torch.cuda.synchronize()
         for got, want in zip((hist, nruns), lb._group_stats_plain(x0)):
@@ -2105,6 +2202,8 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
         for row in range(b):
             k = int(a["pn"][row])
             assert torch.equal(vals[row, :k], a["pv"][row, :k])
+            assert torch.equal(lens[row, :k].to(torch.int64) & 0xFFFF,
+                               a["pl"][row, :k])
     assert int(walks[1]) == 0 and int(walks[0]) == 3 * b * chunks
     from repro_torch.core import lossless as ll
     for args in cases.decode_cases().values():
@@ -2127,6 +2226,23 @@ def test_lossless_kernels_stay_in_bounds(cuda, b, s, shift):
             kl._run("rle_expand", values, values, lengths, rows, r, status,
                     slices, exp, n)
             assert torch.equal(exp, ll._rle_expand_plain(values, lengths, n))
+    for rows_ in cases.scan_cases().values():
+        xs = inp(rows_.to(cuda))
+        rows, n = xs.shape
+        sv, sl, sn = (out((rows, n), torch.uint8), out((rows, n), torch.int16),
+                      out((rows,), torch.int64))
+        (st,) = (out(*v) for v in kl.rle_scan_workspace(xs).values())
+        pv, pl, pn = ll._rle_scan_plain(xs)
+        for _ in range(2):
+            for t in (sv, sl, sn):
+                t.view(torch.uint8).fill_(0xA5)
+            kl._run("rle_scan", xs, xs, rows, n, st, sv, sl, sn)
+            assert torch.equal(sn, pn)
+            for row in range(rows):
+                k = int(pn[row])
+                assert torch.equal(sv[row, :k], pv[row, :k])
+                assert torch.equal(sl[row, :k].to(torch.int64) & 0xFFFF,
+                                   pl[row, :k])
     for buf, lo, nbytes in outs:
         assert _byte_guards_hold(buf, lo, nbytes)
 
@@ -2175,15 +2291,44 @@ def test_rle_expand_launches_at_most_two_a_call(cuda):
         assert torch.equal(got, ll._rle_expand_plain(values, lengths, n))
 
 
+def test_rle_scan_at_the_edges(cuda):
+    """``rle_scan`` on the scan's hand-made edges (``tests/_lossless_cases.py``:
+    rows of RLE_BREAK and either side, one run over three tiles, every
+    neighbour distinct, S = 1, unaligned rows, runs either side of a
+    segment, a step and a piece, a tile's last symbol alone): the plain
+    pass's nruns and runs, two calls the same, at most two device
+    activities a call (the status words' zeroing and the one pass, no
+    count kernel and no row scan)."""
+    from repro_torch.core import lossless as ll
+    from repro_torch.kernels import lossless as kl
+    for name, rows in cases.scan_cases().items():
+        x = rows.to(cuda)
+        pv, pl, pn = ll._rle_scan_plain(x)
+        first, again = kl.rle_scan(x), kl.rle_scan(x)
+        for vals, lens, nruns in (first, again):
+            assert torch.equal(nruns, pn), name
+            for r in range(x.shape[0]):
+                k = int(pn[r])
+                assert torch.equal(vals[r, :k], pv[r, :k]), name
+                assert torch.equal(lens[r, :k].to(torch.int64) & 0xFFFF,
+                                   pl[r, :k]), name
+        acts = bp.device_activities(lambda: kl.rle_scan(x))
+        assert sum("rle_scan_kernel" in k for k in acts) == 1, (name, acts)
+        assert sum(acts.values()) <= 2, (name, acts)
+        assert not any("rle_count" in k or "row_scan" in k
+                       or "rle_emit" in k for k in acts), (name, acts)
+
+
 @pytest.mark.parametrize("b,s", [(1, 4097), (1, 32769), (3, 300_001)]
                          + list(LOSSLESS_BUCKETS))
 def test_write_side_launches_at_most_two_a_call(cuda, b, s):
-    """One ``lossless_stats`` call and one ``huffman_pack`` call are at
-    most two device activities each (the nodes of a CUDA graph of the
+    """One ``lossless_stats``, ``huffman_pack`` and ``rle_scan`` call are
+    at most two device activities each (the nodes of a CUDA graph of the
     call): the stats' one pass and, where a row has more than one cluster,
-    the zeroing of its row sums; the pack's status words' zeroing and its
-    one pass, with no bit-count pass and no row scan.  Both give the plain
-    passes' bytes."""
+    the zeroing of its row sums; the pack's and the scan's status words'
+    zeroing and their one pass, with no bit-count pass, no count kernel and
+    no row scan.  Each gives the plain pass's bytes (the scan's: nruns and
+    each row's first nruns runs)."""
     from repro_torch.kernels import bitplane as bp
     from repro_torch.kernels import lossless as kl
     x = torch.from_numpy(_lossless_rows("skewed", b, s,
@@ -2194,15 +2339,22 @@ def test_write_side_launches_at_most_two_a_call(cuda, b, s):
                               lb._group_stats_plain(x)),
              "huff_pack_kernel": (lambda: kl.huffman_pack(x, a["lt"],
                                                           a["ct"]),
-                                  (a["words"], a["total"], a["offs"]))}
+                                  (a["words"], a["total"], a["offs"])),
+             "rle_scan_kernel": (lambda: kl.rle_scan(x)[2:], (a["pn"],))}
     for kernel, (call, want) in calls.items():
         acts = bp.device_activities(call)
         assert sum(kernel in k for k in acts) == 1, acts
         assert sum(acts.values()) <= 2, acts
-        assert not any("huff_bits" in k or "row_scan" in k for k in acts), \
-            acts
+        assert not any("huff_bits" in k or "row_scan" in k
+                       or "rle_count" in k for k in acts), acts
         got = call()
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    vals, lens, nruns = kl.rle_scan(x)
+    for r in range(b):
+        k = int(a["pn"][r])
+        assert torch.equal(vals[r, :k], a["pv"][r, :k])
+        assert torch.equal(lens[r, :k].to(torch.int64) & 0xFFFF,
+                           a["pl"][r, :k])
 
 
 @pytest.mark.parametrize("force", [None, "huffman", "rle", "dc"])

@@ -9,7 +9,9 @@ What is held:
   prefill and decode steps all ``ok``, with argument bytes, FLOPs, HBM
   bytes, temp bytes and wire bytes with the largest calls;
 * the analysis's own cost: no mini cell's wall more than doubles against
-  the same cell run under no mode (``analysis=False``);
+  the same cell run under no mode (``analysis=False``), the two run back
+  to back in one worker (which first alternating from cell to cell), so
+  that both see the same load;
 * the dry run against a real run: jamba's smoke (its batch of 5, which
   ``cell_policy`` cannot cut over 'model', so that the steps compute over
   'model' on the blocks) on a fake (1, 2) world and on a real 2-rank gloo
@@ -54,22 +56,32 @@ def _real_spec(kind, b, s):
                             mesh_dims=((1, 2), ("data", "model")))
 
 
+def _twins(spec, bare_first):
+    """A mini cell and its twin under no mode, back to back in this
+    worker: {"mini": record, "bare": record}."""
+    order = ("bare", "mini") if bare_first else ("mini", "bare")
+    specs = {"mini": spec, "bare": dict(spec, analysis=False)}
+    return {which: dryrun.run_spec(specs[which], 600) for which in order}
+
+
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dryrun")
-    specs = {("mini", a, k): _mini_spec(a, k, b, s)
-             for a in MINI for k, b, s in KINDS}
-    specs.update({("bare", a, k): dict(_mini_spec(a, k, b, s),
-                                       analysis=False)
-                  for a in MINI for k, b, s in KINDS})
-    specs.update({("pair", k): _real_spec(k, b, s) for k, b, s in REAL[1]})
+    minis = [(a, k, _mini_spec(a, k, b, s)) for a in MINI
+             for k, b, s in KINDS]
+    specs = {("pair", k): _real_spec(k, b, s) for k, b, s in REAL[1]}
     with ThreadPoolExecutor(4) as ex:
+        twins = {(a, k): ex.submit(_twins, spec, i % 2 == 1)
+                 for i, (a, k, spec) in enumerate(minis)}
         futs = {key: ex.submit(dryrun.run_spec, spec, 600)
                 for key, spec in specs.items()}
         real = ex.submit(run_world, 2, [
             ("dryrun_real", (1, 2), dict(spec=_real_spec(k, b, s)))
             for k, b, s in REAL[1]], tmp)
         out = {key: f.result() for key, f in futs.items()}
+        for (a, k), f in twins.items():
+            got = f.result()
+            out[("mini", a, k)], out[("bare", a, k)] = got["mini"], got["bare"]
         out["real"] = real.result()
     return out
 

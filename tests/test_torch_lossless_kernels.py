@@ -5,7 +5,8 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 
 * each kernel's tiled reference, which follows its decomposition (the
   stats' tiles and clusters, the pack's look-back chunks, thread words,
-  rebuilt head words and zero pieces, the RLE tiles and row scan), is
+  rebuilt head words and zero pieces, the RLE scan's look-back tiles,
+  pieces and slots), is
   bit-identical to the plain pass it replaces, at either side of a chunk
   (4096) and of an RLE tile (32768), on five contents, on buckets of many
   short rows and either side of the stats' tile rule, on real plane
@@ -19,6 +20,12 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
   its end and one whose codes run past the words, which must be walked
   serially, padded rows; run lengths short of n and past it, zero-length
   runs, long runs), and real plane groups walk no chunk serially;
+* the scan's reference (``rle_scan_tiled``, each slot written once, its
+  look-back's inclusive words 0, 2 and 5 tiles late) gives the plain
+  pass's runs and the reference's, row by row and batched, on hand-made
+  edges (rows of RLE_BREAK and either side, one run over three tiles,
+  every neighbour distinct, S = 1, unaligned rows, runs either side of a
+  segment, a step and a piece, a tile's last symbol alone);
 * each plain pass equals the reference's jitted one on the same rows;
 * the operators' fakes on ``meta`` give the CPU outputs' shapes and
   dtypes, and ``OpAnalysis`` sees one operator a call with its declared
@@ -318,9 +325,9 @@ def test_declared_workspaces():
     # blocks: each row's 257 sums and its count of arrived clusters
     assert kl.lossless_stats_workspace(x) == {
         "sums": ((3, 258), torch.int64)}
+    # each tile's status word (three tiles a row) and the ticket counter
     assert kl.rle_scan_workspace(x) == {
-        "tile_runs": ((3, 3), torch.int64),
-        "tile_base": ((3, 3), torch.int64)}
+        "status": ((3 * 3 + 1,), torch.int64)}
     w = torch.empty((3, 900), dtype=torch.int32, device="meta")
     assert kl.huffman_decode_workspace(w, t, x, x, 9000) == {
         "primary": ((3, 1 << kl.PRIMARY_BITS), torch.int16)}
@@ -408,6 +415,7 @@ def _jax_decode(words, offs, ls, ln, n):
 
 DECODE_CASES = cases.decode_cases()
 EXPAND_CASES = cases.expand_cases()
+SCAN_CASES = cases.scan_cases()
 
 
 @pytest.mark.parametrize("lanes", [32, 128])
@@ -442,6 +450,37 @@ def test_expand_reference_at_the_edges(name, tiling):
         assert np.array_equal(got[r].numpy(), np.asarray(jll._rle_expand(
             jnp.asarray(values[r].numpy()), jnp.asarray(lengths[r].numpy()),
             n)))
+
+
+@pytest.mark.parametrize("lag", [0, 2, 5])
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_scan_reference_at_the_edges(name, lag):
+    """The scan's look-back pass (``rle_scan_tiled``: each slot written
+    once, a tile's inclusive word ``lag`` tiles late) gives the plain
+    pass's runs and the reference's, row by row (``_rle_scan``) and
+    batched (``_rle_scan_batch``): rows of exactly RLE_BREAK and either
+    side of it, one run over three tiles, every neighbour distinct, S = 1,
+    unaligned rows, runs either side of a segment, a step and a piece, a
+    tile's last symbol alone."""
+    x = SCAN_CASES[name]
+    pv, pl, pn = ll._rle_scan_plain(x)
+    tv, tl, tn = kl.rle_scan_tiled(x, lag=lag)
+    jv, jl, jn = (np.asarray(a) for a in jlb._rle_scan_batch(
+        jnp.asarray(x.numpy())))
+    assert torch.equal(tn, pn) and np.array_equal(tn.numpy(), jn)
+    for r in range(x.shape[0]):
+        k = int(pn[r])
+        assert torch.equal(tv[r, :k], pv[r, :k])
+        assert torch.equal(tl[r, :k].to(torch.int64) & 0xFFFF, pl[r, :k])
+        assert np.array_equal(tv[r, :k].numpy(), jv[r, :k])
+        assert np.array_equal((tl[r, :k].to(torch.int64) & 0xFFFF).numpy(),
+                              jl[r, :k])
+    rv, rl, rn = jll._rle_scan(jnp.asarray(x[0].numpy()))
+    k = int(rn)
+    assert k == int(pn[0])
+    assert np.array_equal(tv[0, :k].numpy(), np.asarray(rv)[:k])
+    assert np.array_equal((tl[0, :k].to(torch.int64) & 0xFFFF).numpy(),
+                          np.asarray(rl)[:k])
 
 
 @pytest.mark.parametrize("lanes", [32, 128])

@@ -1,7 +1,7 @@
 """The optimizer path's operators (``repro_torch.kernels.optim``:
 ``ef_quantize``, whose CUDA side is the ``ef_amax`` and ``ef_apply``
-kernels, and ``adamw_update``) on the CPU, where each runs its plain
-version; the CUDA kernels themselves are held against the plain paths on
+kernels, ``adamw_update`` and ``global_sumsq``) on the CPU, where each
+runs its plain version; the CUDA kernels themselves are held against the plain paths on
 the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 14).
 
 What is held, bit for bit unless said otherwise:
@@ -23,12 +23,22 @@ What is held, bit for bit unless said otherwise:
   clipping, in the warmup and on the cosine, and on leaves holding +-0,
   subnormals, inf and NaN (NaNs compared as NaNs: numpy and torch may
   carry different payloads);
-* ``adamw.update`` and ``ef_quantize`` routed through the operators on the
-  CPU equal their plain paths, as does the ``Trainer`` with gradient
-  compression;
-* on ``meta`` both reach their operators with their outputs' shapes and
-  dtypes, and ``OpAnalysis`` counts the operands, the results and
-  ``ef_quantize``'s declared workspace;
+* ``global_sumsq_tiled`` (the kernels' fixed order: chunks of
+  ``SUM_CHUNK`` values, each thread's 16-byte vectors in order, the warp
+  and block trees, each leaf's partials the same way, all in float64)
+  within 1e-12 relative of the plain float64 chain on float32 and
+  bfloat16 leaves, empty leaves, one value, leaves either side of a chunk,
+  more leaves than one launch's argument block and special values; the
+  norm from its sums within 4 float32 ulps of the reference's
+  ``global_norm`` (the bound ``tests/test_torch_train.py`` holds the
+  port's norm to);
+* ``adamw.update``, ``adamw.global_norm`` and ``ef_quantize`` routed
+  through the operators on the CPU equal their plain paths, as does the
+  ``Trainer`` with gradient compression;
+* on ``meta`` they reach their operators with their outputs' shapes and
+  dtypes, and ``OpAnalysis`` counts the operands, the results and the
+  declared workspaces (``ef_quantize``'s maxima, ``global_sumsq``'s
+  partials);
 * the wrappers refuse what the kernels do not take.
 """
 import numpy as np
@@ -39,6 +49,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.distributed import grad_compress as jgc  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch.distributed import grad_compress as gc  # noqa: E402
 from repro_torch.kernels import bitplane as bp  # noqa: E402
 from repro_torch.kernels import optim as ko  # noqa: E402
@@ -371,6 +382,118 @@ def test_the_trainer_through_the_operators_equals_the_plain_trainer(
             same_bits(a, b)
 
 
+# ----------------------------------------------------------- global_sumsq --
+
+CHUNK = ko.SUM_CHUNK
+T32, TB16 = torch.float32, torch.bfloat16
+# (values, dtype) a leaf
+SUMSQ_CASES = {
+    "float32": [(31, T32), (CHUNK - 1, T32), (CHUNK, T32), (CHUNK + 1, T32),
+                (3 * CHUNK + 17, T32)],
+    "bfloat16": [(31, TB16), (CHUNK - 1, TB16), (CHUNK + 1, TB16),
+                 (2 * CHUNK, TB16)],
+    "empty leaves": [(0, T32), (4097, T32), (0, TB16)],
+    "one value": [(1, T32)],
+    "more leaves than a launch": [
+        (int(n), (T32, TB16)[i % 2]) for i, n in enumerate(
+            np.random.default_rng(4).integers(0, 3000, ko.SUM_LEAVES + 5))],
+}
+
+
+def sumsq_leaves(case, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 1e-2).to(dt) for n, dt in SUMSQ_CASES[case]]
+
+
+def special_leaves():
+    """Zeros, subnormals, values near float32's largest square root and
+    past it (their squares overflow float32, not float64), signs mixed."""
+    rng = np.random.default_rng(9)
+    big = np.full(CHUNK + 3, 3e35, np.float32) * rng.choice([-1, 1],
+                                                            CHUNK + 3)
+    return [torch.zeros(1000), torch.full((70_000,), 1e-40),
+            torch.from_numpy(big.astype(np.float32)),
+            torch.from_numpy(np.float32([1e19, -1e-45, 0.0, -0.0])),
+            torch.full((9,), 1e-40).to(TB16)]
+
+
+def _rel_to_plain(got, want):
+    zero = want == 0
+    assert torch.equal(got[zero], want[zero])
+    return ((got - want).abs()[~zero] / want[~zero]).max().item() \
+        if bool((~zero).any()) else 0.0
+
+
+@pytest.mark.parametrize("case", list(SUMSQ_CASES) + ["specials"])
+def test_tiled_sumsq_equals_the_plain_sums(case):
+    leaves = special_leaves() if case == "specials" else sumsq_leaves(case)
+    got = ko.global_sumsq_tiled(leaves)
+    want = ko.global_sumsq_ref(leaves)
+    assert got.dtype == want.dtype == torch.float64
+    assert got.shape == want.shape == (len(leaves),)
+    assert _rel_to_plain(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("case", SUMSQ_CASES)
+def test_tiled_norm_within_4_ulps_of_the_reference(case):
+    """``global_norm``'s arithmetic on the tiled sums (leaf order, the
+    float64 square root rounded once) against the reference's float32
+    ``global_norm``."""
+    leaves = sumsq_leaves(case, seed=1)
+    total = sum(ko.global_sumsq_tiled(leaves).unbind(0))
+    got = torch.sqrt(torch.as_tensor(total, dtype=torch.float64)).float()
+    want = jadamw.global_norm([jnp.asarray(g.float().numpy()).astype(
+        jnp.bfloat16 if g.dtype == TB16 else jnp.float32) for g in leaves])
+    want = np.array(want)
+    assert want.dtype == np.float32
+    assert abs(int(bits(got.numpy())) - int(bits(want))) <= 4
+
+
+def test_global_norm_through_the_operator_on_the_cpu(monkeypatch):
+    """Routed through ``global_sumsq`` (whose CPU kernel is the plain
+    chain), the norm is the chain's, bit for bit; nothing launches."""
+    tree = {"a": sumsq_leaves("float32")[2],
+            "b": {"c": sumsq_leaves("bfloat16")[1].reshape(-1, 5)}}
+    want = adamw.global_norm(tree, backend="torch")
+    before = bp.launches()
+    monkeypatch.setattr(ko, "_on_operators", lambda t: True)
+    with OpAnalysis() as ana:
+        got = adamw.global_norm(tree)
+    same_bits(got, want)
+    assert ana.summary()["ops_by_name"][
+        "repro_torch.global_sumsq.default"]["count"] == 1
+    assert bp.launches() == before
+
+
+def test_global_sumsq_on_meta_and_its_workspace():
+    leaves = [torch.empty(n, dtype=dt, device="meta")
+              for n, dt in ((CHUNK + 1, T32), (0, TB16), (31, TB16))]
+    with OpAnalysis() as ana:
+        out = ko.global_sumsq(leaves)
+    assert out.shape == (3,) and out.dtype == torch.float64
+    assert out.device.type == "meta"
+    op = torch.ops.repro_torch.global_sumsq.default
+    # two chunks of the first leaf, one of the third, none of the empty one
+    assert bp.WORKSPACE[op](leaves) == {"partials": ((3,), torch.float64)}
+    rec = ana.summary()
+    got = rec["ops_by_name"]["repro_torch.global_sumsq.default"]
+    assert got["count"] == 1
+    assert got["bytes"] == 4 * (CHUNK + 1) + 2 * 31 + 8 * 3
+    assert rec["temp_bytes"] == 8 * 3 + 8 * 3
+
+
+def test_adamw_update_on_meta_takes_one_global_sumsq():
+    params = {"a": torch.empty(4097, device="meta"),
+              "b": torch.empty((3, 5), device="meta")}
+    state = adamw.init(params, adamw.AdamWConfig())
+    grads = {k: torch.empty_like(t) for k, t in params.items()}
+    with OpAnalysis() as ana:
+        adamw.update(grads, state, params, adamw.AdamWConfig())
+    ops = ana.summary()["ops_by_name"]
+    assert ops["repro_torch.global_sumsq.default"]["count"] == 1
+
+
 # -------------------------------------------------------------- refusals --
 
 def test_the_wrappers_refuse_what_the_kernels_do_not_take():
@@ -404,3 +527,11 @@ def test_the_wrappers_refuse_what_the_kernels_do_not_take():
                      (ko.ef_apply, (x, x, torch.zeros(1), 8))):
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
+    with pytest.raises(ValueError, match="no leaves"):
+        ko.global_sumsq([])
+    with pytest.raises(TypeError):
+        ko.global_sumsq([x, x.double()])
+    with pytest.raises(ValueError, match="contiguous"):
+        ko.global_sumsq([torch.zeros(4, 4).t()])
+    with pytest.raises(ValueError, match="tensors on"):
+        ko.global_sumsq([x, torch.zeros(3, device="meta")])
